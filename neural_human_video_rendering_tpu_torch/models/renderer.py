@@ -1,0 +1,134 @@
+"""The flagship composed model: pose -> IUV -> textured foreground -> frame.
+
+Port of the JAX package's ``models/renderer.py`` for the serving path:
+TransG + TexG + the static texture atlas + the texture warp (the CUDA
+kernels of ``ops/texture_warp_kernel``) + BGNet + the soft-mask
+compositor. Parameters live under the ``TransG`` / ``TexG`` / ``BGNet``
+namespaces, as in the JAX package. Tensors are NCHW.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.texture_warp import texture_warp_planes
+from .generators import BGNet, TexG, TransG
+
+
+class NeuralRenderer(nn.Module):
+    """Full generator stack of the serving path."""
+
+    def __init__(self, pose_nc: int, n_parts: int = 24, tex_tile: int = 128,
+                 transg_ngf: int = 64, transg_downs: int = 4,
+                 transg_blocks: int = 9, texg_ngf: int = 48,
+                 texg_downs: int = 2, texg_blocks: int = 10,
+                 bg_downs: int = 2, bg_blocks: int = 2,
+                 use_mask_texture: bool = False, warp_k: int = 4,
+                 warp_block_parts: int = 0, warp_eps: float = 1e-3,
+                 warp_dtype: str = "float32", stem_s2d: int = 1,
+                 head_s2d: int = 1, bg_s2d: int = 1,
+                 pad_mode: str = "reflect", upsample_mode: str = "deconv",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        conv = dict(pad_mode=pad_mode, upsample_mode=upsample_mode,
+                    dtype=dtype)
+        self.TransG = TransG(pose_nc, n_parts, transg_ngf, transg_downs,
+                             transg_blocks, stem_s2d=stem_s2d,
+                             head_s2d=head_s2d, **conv)
+        self.TexG = TexG(pose_nc, n_parts, tex_tile, texg_ngf, texg_downs,
+                         texg_blocks, stem_s2d=stem_s2d, head_s2d=head_s2d,
+                         **conv)
+        self.BGNet = BGNet(32, bg_downs, bg_blocks, s2d=bg_s2d, **conv)
+        self.use_mask_texture = use_mask_texture
+        self.warp = dict(k=warp_k, block_parts=warp_block_parts, eps=warp_eps,
+                         compute_dtype=warp_dtype)
+
+    def forward(self, pose: torch.Tensor, bg: torch.Tensor,
+                static_tex: torch.Tensor,
+                tex_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Render one batch of frames.
+
+        pose: (B, Cp, H, W) pose labels. bg: (B or 1, 3, H, W) static
+        background in [-1, 1]; batch 1 runs BGNet once and broadcasts.
+        static_tex: (B or 1, P, 3, T, T) atlas in [-1, 1]. tex_mask:
+        optional (P, 1, T, T) texel validity mask (--use_mask_texture).
+
+        Returns float32 NCHW tensors: fake, fg, mask (B, 1, H, W), probs
+        (B, P+1, H, W), logits, uv (B, P, 2, H, W), texture
+        (B, P, 3, T, T), bg_refined.
+        """
+        B = pose.shape[0]
+        logits, uv = self.TransG(pose)
+        probs = torch.softmax(logits.float(), dim=1)
+        residual = self.TexG(pose)
+        if self.use_mask_texture and tex_mask is not None:
+            residual = residual * tex_mask
+        texture = torch.clamp(static_tex + residual, -1.0, 1.0)
+        if texture.shape[0] != B:
+            texture = texture.expand(B, *texture.shape[1:])
+        fg = texture_warp_planes(texture, uv, probs, **self.warp)
+        bg_refined = self.BGNet(bg)
+        mask = 1.0 - probs[:, :1]
+        fake = mask * fg + (1.0 - mask) * bg_refined
+        return {"fake": fake, "fg": fg, "mask": mask, "probs": probs,
+                "logits": logits, "uv": uv, "texture": texture,
+                "bg_refined": bg_refined}
+
+
+def check_serving_options(opt) -> None:
+    """Raise on options whose modules this port does not have yet."""
+    later = {"netG local": opt.netG != "global", "uv_refine": opt.uv_refine,
+             "ms_uv": opt.ms_uv,
+             "instance_feat/label_feat": opt.instance_feat or opt.label_feat,
+             "use_laplace": opt.use_laplace, "limb_coords": opt.limb_coords}
+    asked = [k for k, v in later.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"the PyTorch port does not support {', '.join(asked)} yet")
+
+
+def renderer_from_options(opt) -> NeuralRenderer:
+    """The flagship model from the reference-compatible Options (on the
+    meta device: call init_params, then move it)."""
+    check_serving_options(opt)
+    dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
+    with torch.device("meta"):
+        return NeuralRenderer(
+            pose_nc=opt.pose_nc, n_parts=opt.n_parts, tex_tile=opt.tex_tile,
+            transg_ngf=opt.ngf, transg_downs=opt.n_downsample_translate,
+            transg_blocks=opt.n_blocks_translate, texg_ngf=opt.ngf_global,
+            texg_downs=opt.n_downsample_global,
+            texg_blocks=opt.n_blocks_global, bg_downs=opt.n_downsample_bg,
+            bg_blocks=opt.n_blocks_bg, use_mask_texture=opt.use_mask_texture,
+            warp_k=opt.warp_topk, warp_block_parts=opt.warp_block_parts,
+            warp_eps=opt.warp_eps, warp_dtype=opt.warp_dtype,
+            stem_s2d=opt.stem_s2d, head_s2d=opt.head_s2d, bg_s2d=opt.bg_s2d,
+            pad_mode=opt.pad_mode, upsample_mode=opt.upsample_mode,
+            dtype=dtype)
+
+
+def init_params(model: nn.Module, seed: int) -> nn.Module:
+    """Materialize a meta-device model on the CPU with flax's default init
+    from a seeded torch.Generator: conv kernels lecun_normal (truncated
+    normal, variance 1/fan_in), biases zero. Same distribution as the JAX
+    package's init; not the same numbers (use bridge.params_from_jax to
+    carry JAX weights across)."""
+    gen = torch.Generator().manual_seed(seed)
+    model.to_empty(device="cpu")
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            # fan_in of the flax kernel: kh * kw * in_channels
+            in_ch = (m.weight.shape[0] if isinstance(m, nn.ConvTranspose2d)
+                     else m.weight.shape[1])
+            fan_in = in_ch * m.weight.shape[2] * m.weight.shape[3]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            with torch.no_grad():
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=gen)
+                m.bias.zero_()
+    return model
