@@ -5,10 +5,15 @@
 
 Phases, each of which fails the run (exit code 1) if anything in it fails:
   1. device: the card's name and power limit (nvidia-smi), CUDA version,
-     TF32 settings; build the CUDA kernels from csrc/ with nvcc.
+     TF32 settings; build the CUDA kernels from csrc/ with nvcc (one nvcc
+     per source, all started together).
   2. kernel vs plain version at the serving shapes (B=8, P=24, 512x512,
      T=64, k=4, eps=1e-3), k=P, block_parts=8, tile 128, bf16 texture.
-     Top-k must match exactly; the forward within 2e-5 (float32).
+     Top-k must match exactly; the forward within 2e-5 (float32). Then at
+     the train step's shapes (B=2): the warp backward (k=4 eps=1e-3, k=P,
+     tile 128, texture batch 1) within 1e-5 + 1e-5 * max|plain| (float
+     atomics reorder dtex's sums), and the flow warp (C=5, flow ~ 8 N(0,1)
+     px, some of it leaving the image) within 2e-5.
   3. main path: 16 synthetic OpenPose JSONs through the port's
      run_inference at the flagship model's full width (bf16, batch 8,
      random weights from --seed): 16 finite PNG frames, and each kernel
@@ -19,8 +24,18 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      float rounding and make the comparison meaningless).
   4. numbers: forward ms and FPS at batch 8, peak memory, each layer's
      time, a profiler trace of the forward (device busy share, top
-     kernels), kernel / plain / library times from CUDA events, each
-     kernel's memory bound.
+     kernels).
+  5. train path: the port's run_train at the flagship width (512px, batch
+     2, the recipe's losses, random weights from --seed) for 3 warm-up and
+     10 timed steps with --temporal_prev real: finite losses, G and D
+     changed, each of the four kernels launched once per step; one step
+     with --temporal_prev fake launches top-k and the forward twice. Then
+     a tiny float32 train step on the card against the CPU (all parts
+     blended, SGD lr 1, TF32 off): losses and parameter deltas.
+  6. train numbers: step ms (median) and steps/s, peak memory, the phases
+     of a step (CUDA events), a profiler trace of one step, and for each of
+     the four kernels at the train step's shapes its time, the plain
+     version's, a library yardstick's, and its bound.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -36,6 +51,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 FWD_TOL = 2e-5
 REF_TOL = 1e-3
+# warp backward: float atomics add dtex in a run-dependent order
+BWD_ATOL, BWD_RTOL = 1e-5, 1e-5
+FLOW_TOL = 2e-5
+# tiny train step card vs CPU: per tensor, of the SGD(1) parameter deltas
+STEP_SCALE_TOL, STEP_TENSOR_TOL, STEP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 
 FLAGSHIP = (
     "--loadSize 512 --tex_tile 64 --n_parts 24 --ngf 64 "
@@ -45,6 +66,14 @@ FLAGSHIP = (
     "--pad_mode same --upsample_mode deconv --dtype bfloat16 "
     "--pose_heatmaps --coord_conv --warp_topk 4 --warp_eps 1e-3 "
     "--warp_dtype float32 --infer_batch 8 --gpu_ids 0 --seed 0").split()
+# the flagship's training recipe (checkpoints/flagship/recipe.json) at
+# batch 2, with random weights (no --load_pretrain_TransG)
+TRAIN = FLAGSHIP + (
+    "--batchSize 2 --num_D 2 --n_layers_D 3 --ndf 64 --lambda_feat 10 "
+    "--lambda_L2 500 --lambda_UV 1000 --lambda_Prob 10 --use_densepose_loss "
+    "--lambda_Mask 1.0 --lambda_Temp 500 --temporal_prev real "
+    "--ema_decay 0.999 --pool_size 0 --no_flip --lr 2e-4 --beta1 0.5 "
+    "--niter 30 --niter_decay 10 --print_freq 1").split()
 TINY = (
     "--loadSize 64 --tex_tile 16 --ngf 8 --ngf_global 8 "
     "--n_blocks_translate 1 --n_downsample_translate 2 --n_blocks_global 1 "
@@ -52,11 +81,24 @@ TINY = (
     "--stem_s2d 2 --head_s2d 2 --bg_s2d 4 --pad_mode same --dtype float32 "
     "--pose_heatmaps --coord_conv --warp_topk 24 --warp_eps 0").split()
 
+TINY_TRAIN = TINY + (
+    "--ndf 8 --n_layers_D 2 --batchSize 2 --no_flip "
+    "--lambda_L2 500 --lambda_UV 1000 --lambda_Prob 10 --use_densepose_loss "
+    "--lambda_Temp 500 --temporal_prev real --ema_decay 0.999 "
+    "--no_vgg_loss").split()
+
 REPLACES = {
     "topk_select": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:118",
     "texture_warp_fwd": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:310",
+    "texture_warp_bwd": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:358",
+    "flow_warp_fwd": "neural_human_video_rendering_tpu/ops/pallas_flow_warp.py:51",
 }
-SOURCE = "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu"
+SOURCE = {
+    "topk_select": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
+    "texture_warp_fwd": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
+    "texture_warp_bwd": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
+    "flow_warp_fwd": "neural_human_video_rendering_tpu_torch/csrc/flow_warp.cu",
+}
 
 
 class Smoke:
@@ -169,6 +211,324 @@ def write_driving_sequence(opt, kp_dir, n):
     return syn
 
 
+def flow_inputs(torch, B, S, C, device, seed=5):
+    """A 5-channel image (the t-1 frame and flow_inv) as the temporal loss
+    builds it, and a flow of ~8 px, some of it leaving the image."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    img = torch.rand((B, C, S, S), generator=g, device=device) * 2 - 1
+    flow = torch.randn((B, 2, S, S), generator=g, device=device) * 8.0
+    flow[:, :, :8] += 40.0                          # leaves the image
+    return img, flow
+
+
+def compare_bwd(torch, tk, smoke, tag, tex, uv, probs, k, eps, seed=0):
+    """texture_warp_bwd vs its plain version on the same inputs; returns
+    the largest error over duv, dprobs and dtex."""
+    fg, u, v = planes(uv, probs)
+    w = tk.topk_select(fg, k, 0, eps)
+    B, C, N = uv.shape[0], tex.shape[2], fg.shape[2]
+    gen = torch.Generator(device=uv.device).manual_seed(seed)
+    g = torch.randn((B, C, N), generator=gen, device=uv.device)
+    got = tk.texture_warp_bwd(tex, u, v, w, g)
+    want = tk.texture_warp_bwd_plain(tex, u, v, w, g)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("duv", "dprobs", "dtex"), got, want):
+        tol = BWD_ATOL + BWD_RTOL * float(b.abs().max())
+        worst = max(worst, smoke.check(f"texture_warp_bwd {tag} {name}",
+                                       float((a - b).abs().max()), tol))
+    return worst
+
+
+def bound(nbytes, flops):
+    """(ms, what binds): the larger of the bytes at the card's memory rate
+    and the float32 operations at its peak."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
+                   flow=None):
+    """{name: ms, plain_ms, library_ms, bound_ms, bound_by} at these inputs,
+    CUDA events over repeated launches."""
+    F = torch.nn.functional
+    B, P, C, T = tex.shape[0], tex.shape[1], tex.shape[2], tex.shape[3]
+    S = uv.shape[3]
+    N = S * S
+    fg, u, v = planes(uv, probs)
+    nnz = int((w > 0).sum())
+    gen = torch.Generator(device=uv.device).manual_seed(9)
+    g = torch.randn((B, C, N), generator=gen, device=uv.device)
+    grid = torch.stack([u * 2 - 1, v * 2 - 1], -1).reshape(B * P, S, S, 2)
+    tex_bp = tex.reshape(B * P, C, T, T)
+
+    def topk_library():
+        thr = torch.topk(fg, K, dim=1).values[:, -1:]
+        sel = torch.where(fg >= thr, fg, 0.0)
+        return torch.where(sel >= EPS, sel, 0.0)
+
+    def fwd_library():
+        samp = F.grid_sample(tex_bp, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+        return (samp.view(B, P, C, N) * w[:, :, None]).sum(1)
+
+    out = {}
+    todo = {}
+    if "topk_select" in names:
+        todo["topk_select"] = (
+            lambda: tk.topk_select(fg, K, 0, EPS),
+            lambda: tk.topk_select_plain(fg, K, 0, EPS), topk_library,
+            bound(2 * B * P * N * 4, B * N * P * (2 * K + 2)))
+    if "texture_warp_fwd" in names:
+        todo["texture_warp_fwd"] = (
+            lambda: tk.texture_warp_fwd(tex, u, v, w),
+            lambda: tk.texture_warp_fwd_plain(tex, u, v, w), fwd_library,
+            bound(B * P * N * 4 + nnz * 8 + tex.numel() * 4 + B * C * N * 4,
+                  nnz * C * 14))
+    if "texture_warp_bwd" in names:
+        # yardstick: autograd of grid_sample (border, align_corners) over the
+        # B*P tiles, given the cotangent the blend hands each tile
+        tex_req = tex_bp.clone().requires_grad_()
+        grid_req = grid.clone().requires_grad_()
+        samp = F.grid_sample(tex_req, grid_req, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+        g_samp = (g.view(B, 1, C, N) * w[:, :, None]).reshape(B * P, C, S, S)
+
+        def bwd_library():
+            return torch.autograd.grad(samp, (tex_req, grid_req), g_samp,
+                                       retain_graph=True)
+
+        todo["texture_warp_bwd"] = (
+            lambda: tk.texture_warp_bwd(tex, u, v, w, g),
+            lambda: tk.texture_warp_bwd_plain(tex, u, v, w, g), bwd_library,
+            # w densely, u / v for the selected pairs, g, the texture; du,
+            # dv, dw written densely, dtex once
+            bound(B * P * N * 4 + nnz * 8 + B * C * N * 4 + 2 * tex.numel() * 4
+                  + 3 * B * P * N * 4, nnz * C * 40))
+    if "flow_warp_fwd" in names:
+        img, fl = flow
+        Cf = img.shape[1]
+        # yardstick: grid_sample with zeros padding zeroes each outside TAP,
+        # not the whole sample: a time yardstick only, never called by the port
+        fgrid = torch.stack([(fl[:, 0] + torch.arange(S, device=img.device))
+                             * (2.0 / (S - 1)) - 1,
+                             (fl[:, 1] + torch.arange(S, device=img.device)[:, None])
+                             * (2.0 / (S - 1)) - 1], -1)
+        todo["flow_warp_fwd"] = (
+            lambda: fk.flow_warp_fwd(img, fl),
+            lambda: fk.flow_warp_fwd_plain(img, fl),
+            lambda: F.grid_sample(img, fgrid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True),
+            bound(B * 2 * N * 4 + 2 * B * Cf * N * 4, B * N * Cf * 10))
+    for name, (kern, plain, lib, (b_ms, b_by)) in todo.items():
+        out[name] = {"ms": cuda_ms(torch, kern),
+                     "plain_ms": cuda_ms(torch, plain, iters=5, warmup=1),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": cuda_ms(torch, lib, iters=10, warmup=2)}
+    print(f"[numbers] B={B}: selected (pixel, part) pairs at k={K} "
+          f"eps={EPS}: {nnz} of {B * P * N}; {json.dumps(out)}", flush=True)
+    return out
+
+
+def linear_atlas(np, P, T, seed=5):
+    """(P, T, T, 3) atlas linear in the texel coordinates: bilinear
+    sampling's gradient in uv is then the same in every texel cell, so a
+    sample that float rounding moves across a texel edge does not change
+    it (on a random atlas it jumps there)."""
+    yy, xx = np.mgrid[0:T, 0:T].astype(np.float32) / (T - 1)
+    coef = np.random.default_rng(seed).uniform(-0.4, 0.4, (P, 3, 2))
+    return (coef[:, None, None, :, 0] * xx[None, :, :, None]
+            + coef[:, None, None, :, 1] * yy[None, :, :, None]
+            ).astype(np.float32)
+
+
+def tiny_step_card_vs_cpu(torch, smoke, dev, work):
+    """One tiny float32 train step (all parts blended, SGD lr 1, TF32 off)
+    on the CPU and on the card from the same weights: the losses and every
+    parameter's change, which is its gradient (the warp's backward kernel
+    on the card, its plain version on the CPU)."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_train_step
+    opt = TrainOptions().parse(TINY_TRAIN + [
+        "--gpu_ids", "0", "--checkpoints_dir", os.path.join(work, "ckpt"),
+        "--name", "tiny"], save=False)
+    syn = dsm.SyntheticDataset(opt, length=4, seed=opt.seed)
+    batch = dsm.collate([syn[i] for i in (1, 2)])
+    atlas = linear_atlas(np, opt.n_parts, opt.tex_tile)
+    states = {name: create_train_state(opt, atlas, syn.background(), device=d)
+              for name, d in (("cpu", torch.device("cpu")), ("card", dev))}
+    cpu, card = states["cpu"], states["card"]
+    texg = cpu.renderer.TexG.GlobalGenerator_0
+    with torch.no_grad():      # TexG's head at 0: the texture stays linear
+        getattr(texg, texg.order[-1]).Conv_0.weight.zero_()
+    card.renderer.load_state_dict(cpu.renderer.state_dict())
+    card.disc.load_state_dict(cpu.disc.state_dict())
+    before = {"G": {k: v.clone() for k, v in cpu.renderer.state_dict().items()},
+              "D": {k: v.clone() for k, v in cpu.disc.state_dict().items()}}
+    metrics = {}
+    for name, st in states.items():
+        st.g_ema = {k: v.detach().clone()
+                    for k, v in st.renderer.named_parameters()}
+        step = make_train_step(
+            opt, st.renderer, st.disc, None,
+            torch.optim.SGD(st.renderer.parameters(), lr=1.0),
+            torch.optim.SGD(st.disc.parameters(), lr=1.0))
+        metrics[name] = {k: float(v) for k, v in step(st, batch).items()}
+    worst = 0.0
+    for k, ref in metrics["cpu"].items():
+        rel = abs(metrics["card"][k] - ref) / max(abs(ref), 1e-12)
+        worst = max(worst, rel)
+    smoke.check("tiny train step losses card vs cpu (relative)", worst,
+                STEP_LOSS_RTOL)
+    for tag, mods in (("G", (cpu.renderer, card.renderer)),
+                      ("D", (cpu.disc, card.disc))):
+        b = before[tag]
+        ref = {k: v - b[k] for k, v in mods[0].state_dict().items()}
+        got = {k: v.cpu() - b[k] for k, v in mods[1].state_dict().items()}
+        scale = max(float(d.abs().max()) for d in ref.values())
+        ratio, err_scale = 0.0, 0.0
+        for k, d in ref.items():
+            err = float((got[k] - d).abs().max())
+            tol = STEP_SCALE_TOL * scale + STEP_TENSOR_TOL * float(d.abs().max())
+            ratio = max(ratio, err / tol)
+            err_scale = max(err_scale, err / scale)
+        print(f"[train] tiny step {tag} deltas card vs cpu: max err / "
+              f"max|delta| {err_scale:.3e}, worst err / tol {ratio:.3f}",
+              flush=True)
+        smoke.check(f"tiny train step {tag} deltas card vs cpu (err/tol)",
+                    ratio, 1.0)
+
+
+def train_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phases 5 and 6: run_train at the flagship width, the fake-prev mode,
+    the tiny card-vs-CPU step, then the step's numbers."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.models.discriminator import \
+        discriminator_from_options
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.drivers import run_train
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_train_step
+    work = os.path.join(repo, "build", "chip_smoke")
+    ckpt = ["--checkpoints_dir", os.path.join(work, "ckpt")]
+    names = tuple(REPLACES)
+
+    def counts():
+        return {"topk_select": tk.topk_select.launches,
+                "texture_warp_fwd": tk.texture_warp_fwd.launches,
+                "texture_warp_bwd": tk.texture_warp_bwd.launches,
+                "flow_warp_fwd": fk.flow_warp_fwd.launches}
+
+    def reset():
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+
+    # the main path: run_train, temporal_prev real
+    opt = TrainOptions().parse(TRAIN + ckpt + ["--name", "train_real"])
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    state = run_train(opt, max_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] run_train {state.step} steps in {wall:.2f} s (set-up "
+          f"included); launches {launches}", flush=True)
+    smoke.require(f"run_train took {steps} steps", state.step == steps)
+    per_step = {k: v / max(state.step, 1) for k, v in launches.items()}
+    for name in names:
+        smoke.require(f"{name} launched once per train step",
+                      launches[name] == state.step,
+                      f"({launches[name]} launches, {state.step} steps)")
+    finite = {k: float(v) for k, v in state.metrics.items()}
+    print(f"[train] last step losses {json.dumps(finite)}", flush=True)
+    smoke.require("train losses finite", len(finite) >= 9 and all(
+        np.isfinite(v) for v in finite.values()))
+    fresh = {"G": init_params(renderer_from_options(opt), opt.seed),
+             "D": init_params(discriminator_from_options(opt), opt.seed + 1)}
+    for tag, mod in (("G", state.renderer), ("D", state.disc)):
+        moved = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            mod.state_dict().values(), fresh[tag].state_dict().values()))
+        smoke.require(f"{tag} parameters changed", moved > 0,
+                      f"(max |change| {moved:.3e})")
+    del fresh
+
+    # the default temporal mode: t-1 rendered again, forward only
+    opt_fake = TrainOptions().parse(TRAIN + ckpt + [
+        "--name", "train_fake", "--temporal_prev", "fake"])
+    reset()
+    st_fake = run_train(opt_fake, max_steps=1)
+    torch.cuda.synchronize()
+    fake_counts = counts()
+    print(f"[train] temporal_prev fake, 1 step: launches {fake_counts}",
+          flush=True)
+    smoke.require("temporal_prev fake: topk 2, fwd 2, bwd 1, flow 1",
+                  fake_counts == {"topk_select": 2, "texture_warp_fwd": 2,
+                                  "texture_warp_bwd": 1, "flow_warp_fwd": 1},
+                  str(fake_counts))
+    smoke.require("temporal_prev fake losses finite", all(
+        np.isfinite(float(v)) for v in st_fake.metrics.values()))
+    del st_fake
+    torch.cuda.empty_cache()
+
+    tiny_step_card_vs_cpu(torch, smoke, dev, work)
+
+    # ---- numbers: the step's time from the run, its phases, a trace
+    timed = sorted(state.step_seconds[TRAIN_WARMUP:])
+    step_ms = timed[len(timed) // 2] * 1e3
+    ds = dsm.SyntheticDataset(opt, length=4, seed=opt.seed)
+    batch = pack_batch(dsm.collate([ds[0], ds[1]]))
+    step = make_train_step(opt, state.renderer, state.disc, state.vgg,
+                           state.g_opt, state.d_opt)
+    phases = {}
+    for it in range(5):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, e))
+
+        step(state, batch, mark)
+        torch.cuda.synchronize()
+        if it >= 2:
+            for (_, a), (name, b) in zip(events, events[1:]):
+                phases.setdefault(name, []).append(a.elapsed_time(b))
+    phase_ms = {k: sorted(v)[len(v) // 2] for k, v in phases.items()}
+    totals = sorted(sum(v[i] for v in phases.values())
+                    for i in range(len(phases["update"])))
+    fixed_ms = totals[len(totals) // 2]
+    trace = trace_forward(torch, lambda: step(state, batch), iters=2)
+    # the trace runs the fixed-batch step (no loader thread beside it)
+    trace["device_busy_share_of_step"] = trace["device_busy_ms_per_call"] / fixed_ms
+    print(json.dumps({"train_step": {
+        "batch": opt.batchSize, "size": opt.train_size, "ms_median": step_ms,
+        "steps_per_s": 1e3 / step_ms,
+        "ms_timed_steps": [t * 1e3 for t in state.step_seconds[TRAIN_WARMUP:]],
+        "run_train_wall_s": wall, "peak_mem_bytes": peak,
+        # the same step on one pre-packed batch, no loader thread beside it
+        "fixed_batch_ms_median": fixed_ms,
+        "fixed_batch_steps_per_s": 1e3 / fixed_ms,
+        "phases_ms": phase_ms, "dtype": opt.dtype, "card": smi}}), flush=True)
+    print(json.dumps({"train_trace": trace, "card": smi}), flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -183,6 +543,8 @@ def main() -> int:
         from neural_human_video_rendering_tpu_torch.models.renderer import (
             init_params, renderer_from_options)
         from neural_human_video_rendering_tpu_torch.ops import build
+        from neural_human_video_rendering_tpu_torch.ops import \
+            flow_warp_kernel as fk
         from neural_human_video_rendering_tpu_torch.ops.texture_warp import \
             texture_warp_planes
         from neural_human_video_rendering_tpu_torch.ops import \
@@ -231,6 +593,32 @@ def main() -> int:
     compare_kernels(torch, tk, smoke, "bf16 texture",
                     tex.bfloat16().float(), uv, probs, K, 0, EPS)
     del tex128, uv128, probs128
+    # the train step's shapes: batch 2
+    tex2, uv2, probs2 = warp_inputs(torch, 2, P, S, S, T, 2, dev)
+    errs["texture_warp_bwd"] = compare_bwd(torch, tk, smoke, "main k=4",
+                                           tex2, uv2, probs2, K, EPS)
+    compare_bwd(torch, tk, smoke, "k=P", tex2, uv2, probs2, P, 0.0)
+    compare_bwd(torch, tk, smoke, "texture batch 1", tex2[:1], uv2, probs2,
+                K, EPS)
+    tex128, uv128, probs128 = warp_inputs(torch, 2, P, 256, 256, 128, 3, dev)
+    compare_bwd(torch, tk, smoke, "tile 128", tex128, uv128, probs128, K, EPS)
+    img, flow = flow_inputs(torch, 2, S, 5, dev)
+    out_k = fk.flow_warp_fwd(img, flow)
+    out_p = fk.flow_warp_fwd_plain(img, flow)
+    torch.cuda.synchronize()
+    errs["flow_warp_fwd"] = smoke.check(
+        "flow_warp_fwd C=5 flow ~8px", float((out_k - out_p).abs().max()),
+        FLOW_TOL)
+    outside = float((out_p == 0).all(1).float().mean())
+    print(f"[check] flow warp: {outside:.3f} of the samples fall outside",
+          flush=True)
+    smoke.require("some flow samples leave the image", outside > 0.01)
+    cat = torch.cat([img[:, :3], flow.flip(1)], dim=1)   # a strided 5-ch view
+    want = fk.flow_warp_fwd_plain(cat[:, 1:].contiguous(), flow)
+    smoke.check("flow_warp_fwd strided channels (relative: flow channels)",
+                float((fk.flow_warp_fwd(cat[:, 1:], flow) - want).abs().max())
+                / max(1.0, float(want.abs().max())), FLOW_TOL)
+    del tex2, uv2, probs2, tex128, uv128, probs128, img, flow, out_k, out_p, cat
 
     # ---------------------------------------------------------- 3. main path
     work = os.path.join(repo, "build", "chip_smoke")
@@ -337,52 +725,34 @@ def main() -> int:
         "run_inference_16_frames_s": e2e_s, "peak_mem_bytes": peak,
         "dtype": opt.dtype, "card": smi}}), flush=True)
 
-    fg, u, v = planes(uv, probs)
-    F = torch.nn.functional
-    nnz = int((w_main > 0).sum())
-    N = S * S
+    serving = kernel_numbers(torch, tk, fk, tex, uv, probs, w_main, K, EPS,
+                             ("topk_select", "texture_warp_fwd"))
+    del tex, uv, probs, w_main, fwd, renderer, state_assets
 
-    def topk_library():
-        thr = torch.topk(fg, K, dim=1).values[:, -1:]
-        w = torch.where(fg >= thr, fg, 0.0)
-        return torch.where(w >= EPS, w, 0.0)
+    # ------------------------------------------------------ 5. train path
+    train = train_path(torch, smoke, tk, fk, repo, dev, smi)
 
-    grid = torch.stack([u * 2 - 1, v * 2 - 1], -1).reshape(B * P, S, S, 2)
-    tex_bp = tex.reshape(B * P, 3, T, T)
-
-    def fwd_library():
-        samp = F.grid_sample(tex_bp, grid, mode="bilinear",
-                             padding_mode="border", align_corners=True)
-        return (samp.view(B, P, 3, N) * w_main[:, :, None]).sum(1)
-
-    def bound(nbytes, flops):
-        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
-
-    b_topk = bound(2 * B * P * N * 4, B * N * P * (2 * K + 2))
-    b_fwd = bound(B * P * N * 4 + nnz * 8 + tex.numel() * 4 + B * 3 * N * 4,
-                  nnz * 3 * 14)
-    timing = {
-        "topk_select": (lambda: tk.topk_select(fg, K, 0, EPS),
-                        lambda: tk.topk_select_plain(fg, K, 0, EPS),
-                        topk_library, b_topk),
-        "texture_warp_fwd": (lambda: tk.texture_warp_fwd(tex, u, v, w_main),
-                             lambda: tk.texture_warp_fwd_plain(tex, u, v, w_main),
-                             fwd_library, b_fwd),
-    }
+    # -------------------------------------------------- 6. train numbers
+    B2 = 2
+    tex, uv, probs = warp_inputs(torch, B2, P, S, S, T, 4, dev)
+    w_train = tk.topk_select(planes(uv, probs)[0], K, 0, EPS)
+    train_k = kernel_numbers(torch, tk, fk, tex, uv, probs, w_train, K, EPS,
+                             tuple(REPLACES), flow=flow_inputs(torch, B2, S, 5, dev))
     kernels = []
-    for name, (kern, plain, lib, (b_ms, b_by)) in timing.items():
-        ms = cuda_ms(torch, kern)
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": cuda_ms(torch, plain, iters=5, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(torch, lib, iters=10, warmup=2),
-            "card": smi})
-    print(f"[numbers] selected (pixel, part) pairs at k={K} eps={EPS}: {nnz} "
-          f"of {B * P * N}", flush=True)
+    for name in REPLACES:
+        row = serving.get(name) or train_k[name]
+        entry = {"name": name, "route": "cuda", "source": SOURCE[name],
+                 "replaces": REPLACES[name],
+                 "launches": train["launches"][name],
+                 "launches_per_train_step": train["per_step"][name],
+                 "max_abs_err": errs[name], **row, "card": smi}
+        if name in serving:
+            entry["launches_serving"] = launches[name]
+            entry["shapes"] = "serving: B=8, P=24, 512x512, T=64, k=4, eps=1e-3"
+            entry["train_shapes"] = train_k[name]
+        else:
+            entry["shapes"] = "train step: B=2, P=24, 512x512, T=64, k=4, eps=1e-3"
+        kernels.append(entry)
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)
         return 1

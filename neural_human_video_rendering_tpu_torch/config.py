@@ -389,6 +389,13 @@ class BaseOptions:
         return opt
 
 
+class TrainOptions(BaseOptions):
+    isTrain = True
+
+    def _customize(self, parser: argparse.ArgumentParser) -> None:
+        parser.set_defaults(phase="train")
+
+
 class TestOptions(BaseOptions):
     isTrain = False
 

@@ -1,15 +1,17 @@
-"""Host-side assets for the serving path: canvas geometry, image and atlas
-loading, and the deterministic synthetic pose sequence / atlas /
-background.
+"""Host-side data: canvas geometry, image and atlas loading, the
+deterministic synthetic dataset, batching.
 
-A copy of the parts of the JAX package's ``data/dataset.py`` that
-inference needs. ``cv2`` is imported only where a file is decoded, so
-synthetic assets need no image library.
+A copy of the parts of the JAX package's ``data/dataset.py`` that serving
+and the stage-2 train step need (``FrameDataset``, the real-data reader,
+is not ported yet). ``cv2`` is imported only where a file is decoded, so
+synthetic data needs no image library.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import queue
+import threading
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
@@ -73,11 +75,11 @@ def canvas_geom(mode: str, W: int, H: int, S: int) -> Tuple[float, float, int]:
 
 
 class SyntheticDataset:
-    """Deterministic synthetic driving sequence and target assets.
-
-    The pose sequence, static atlas and background of the JAX package's
-    SyntheticDataset (the same numbers from the same seed); the frames,
-    DensePose and flow it also fabricates belong to the training slice.
+    """Deterministic synthetic stand-in for the full data contract: a
+    driving pose sequence and, per item, the frame, its predecessor, the
+    mask, DensePose parts and UV, and the flows, plus the static atlas and
+    background. The same numbers as the JAX package's SyntheticDataset
+    from the same seed.
     """
 
     def __init__(self, opt, length: int = 16, seed: int = 0):
@@ -107,6 +109,54 @@ class SyntheticDataset:
         out[:, :2] = np.clip(out[:, :2], 4, S - 4)
         return out
 
+    def __len__(self) -> int:
+        return len(self.joints)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        """One training sample (NHWC float32 arrays, as the JAX package's)."""
+        i = int(i)
+        S = self.size
+        j = self.joints[i]
+        jp = self.joints[max(i - 1, 0)]
+
+        # frame: smooth color field + bright blob at the body bbox
+        yy, xx = np.mgrid[0:S, 0:S].astype(np.float32) / S
+        img = np.stack([np.sin(6 * xx + i * 0.1), np.cos(5 * yy),
+                        np.sin(4 * (xx + yy))], -1) * 0.3
+        cx, cy = j[:, 0].mean() / S, j[:, 1].mean() / S
+        blob = np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / 0.08))
+        img += blob[..., None] * 0.5
+        img = np.clip(img, -1, 1).astype(np.float32)
+
+        # mask / parts from joint proximity
+        d2 = np.full((S, S), np.inf, np.float32)
+        nearest = np.zeros((S, S), np.int32)
+        ys, xs = np.mgrid[0:S, 0:S].astype(np.float32)
+        for jid in range(18):
+            dj = (xs - j[jid, 0]) ** 2 + (ys - j[jid, 1]) ** 2
+            upd = dj < d2
+            d2[upd] = dj[upd]
+            nearest[upd] = jid
+        mask = (d2 < (0.09 * S) ** 2).astype(np.float32)
+        parts = np.where(mask > 0, (nearest % 24) + 1, 0).astype(np.int32)
+        uv = np.stack([np.mod(xs / S + 0.1 * nearest, 1.0),
+                       np.mod(ys / S + 0.07 * nearest, 1.0)],
+                      -1).astype(np.float32)
+        uv[parts == 0] = 0.0
+
+        flow = np.stack([np.broadcast_to((j - jp)[:, 0].mean(), (S, S)),
+                         np.broadcast_to((j - jp)[:, 1].mean(), (S, S))],
+                        -1).astype(np.float32)
+        return {
+            "index": np.int32(i),
+            "joints": j, "joints_prev": jp,
+            "image": img,
+            "image_prev": img,  # static-ish scene; flow ~ rigid shift
+            "mask": mask[..., None],
+            "dp_parts": parts, "dp_uv": uv,
+            "flow": flow, "flow_inv": -flow,
+        }
+
     def texture_atlas(self) -> np.ndarray:
         """Deterministic (24, tile, tile, 3) static atlas in [-1, 1]."""
         t = self.opt.tex_tile
@@ -122,3 +172,79 @@ class SyntheticDataset:
         yy, xx = np.mgrid[0:S, 0:S].astype(np.float32) / S
         return np.stack([0.2 * np.sin(3 * xx), 0.2 * np.cos(3 * yy),
                          xx * 0.4 - 0.2], -1).astype(np.float32)
+
+
+# ----------------------------------------------------------------------
+# batching
+# ----------------------------------------------------------------------
+
+def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    keys = samples[0].keys()
+    return {k: np.stack([s[k] for s in samples]) for k in keys}
+
+
+class BatchLoader:
+    """Full batches of a dataset (the short tail is dropped), assembled up
+    to two batches ahead on a background thread so the host's data work
+    overlaps the device's step. Epoch order: a RandomState(seed + epoch)
+    shuffle (as the JAX package's BatchLoader on one host), or in order
+    with shuffle=False. ``transform`` runs on each collated batch in the
+    thread (wire.pack_batch)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, transform=None):
+        self.ds = dataset
+        self.bs = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.transform = transform
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.ds) // self.bs
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self._order()
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for b in range(len(self)):
+                    if stop.is_set():
+                        return
+                    sel = order[b * self.bs:(b + 1) * self.bs]
+                    batch = collate([self.ds[int(i)] for i in sel])
+                    if self.transform is not None:
+                        batch = self.transform(batch)
+                    q.put(batch)
+            except BaseException as e:          # surfaced in the consumer
+                q.put(e)
+                return
+            q.put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while t.is_alive():          # unblock a worker waiting on put
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.01)
+        self.epoch += 1

@@ -3,8 +3,9 @@
 The port's modules carry the names flax gives its submodules, so a flax
 path ``TransG/GlobalGenerator_0/ResnetBlock_3/ConvNormRelu_0/Conv_0/kernel``
 is the state_dict key ``TransG.GlobalGenerator_0.ResnetBlock_3.
-ConvNormRelu_0.Conv_0.weight``. Kernels change layout on the way:
-  * Conv: flax HWIO -> torch OIHW;
+ConvNormRelu_0.Conv_0.weight``; the discriminator's ``scale_0/Conv_2``
+and the VGG's ``conv7`` map the same way. Kernels change layout on the way:
+  * Conv (flax ``Conv_{i}`` and the VGG's ``conv{i}``): HWIO -> OIHW;
   * ConvTranspose: flax (kh, kw, in, out) -> torch (in, out, kh, kw) with
     both spatial axes flipped (flax's transposed conv does not flip the
     kernel; torch's does).
@@ -14,6 +15,7 @@ arrays (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -30,8 +32,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (a flax ``params`` tree of the renderer
-    or of one subnet) -> a state_dict for the matching port module."""
+    """Nested dict of numpy arrays (a flax ``params`` tree of the renderer,
+    of one subnet, of the discriminator or of the VGG) -> a state_dict for
+    the matching port module."""
     out = {}
     for path, arr in _flatten(tree):
         parent, leaf = path.rsplit(".", 1)
@@ -40,7 +43,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             t = arr
         elif leaf == "kernel" and kind.startswith("ConvTranspose_"):
             t = np.flip(arr, (0, 1)).transpose(2, 3, 0, 1)
-        elif leaf == "kernel" and kind.startswith("Conv_"):
+        elif leaf == "kernel" and (kind.startswith("Conv_")
+                                   or re.fullmatch(r"conv\d+", kind)):
             t = arr.transpose(3, 2, 0, 1)
         else:
             raise KeyError(f"no torch counterpart for flax parameter {path}")

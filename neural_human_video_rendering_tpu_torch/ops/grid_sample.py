@@ -4,13 +4,52 @@ Port of the JAX package's ``ops/grid_sample.py`` warp functions, in its
 layout: tex (B, P, Ht, Wt, C) in [-1, 1], uv (B, H, W, P, 2) in [0, 1]
 (u -> x, v -> y), probs (B, H, W, P+1) with background at channel 0,
 result (B, H, W, C). Sample position x = u * (Wt - 1) (align_corners);
-taps clamp to the tile's border. ``flow_warp`` belongs to the training
-slice.
+taps clamp to the tile's border. ``flow_warp`` is the plain reference of
+the flow-warp kernel, in the port's NCHW layout (``flow_warp_nhwc`` takes
+the JAX package's).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp img (B, C, H, W) by flow (B, 2, H, W): out(p) = img(p + flow(p)).
+
+    Flow channel 0 is dx, channel 1 dy, in pixels. The four bilinear taps
+    are clamped to the image, and the whole sample is zero where p + flow(p)
+    lies outside [0, W-1] x [0, H-1]. Port of grid_sample.py:32-75;
+    differentiable in img and flow by autograd."""
+    B, C, H, W = img.shape
+    ys = torch.arange(H, dtype=torch.float32, device=img.device)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=img.device)[None, :]
+    x = (xs + flow[:, 0]).reshape(B, 1, H * W)
+    y = (ys + flow[:, 1]).reshape(B, 1, H * W)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    wx = x - x0f
+    wy = y - y0f
+    xi, yi = x0f.long(), y0f.long()
+    x0, x1 = xi.clamp(0, W - 1), (xi + 1).clamp(0, W - 1)
+    y0, y1 = yi.clamp(0, H - 1), (yi + 1).clamp(0, H - 1)
+    flat = img.reshape(B, C, H * W)
+
+    def tap(ix, iy):
+        return torch.gather(flat, 2, (iy * W + ix).expand(B, C, H * W))
+
+    top = tap(x0, y0) * (1 - wx) + tap(x1, y0) * wx
+    bot = tap(x0, y1) * (1 - wx) + tap(x1, y1) * wx
+    out = top * (1 - wy) + bot * wy
+    inside = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+    return torch.where(inside, out, 0.0).reshape(B, C, H, W)
+
+
+def flow_warp_nhwc(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """flow_warp in the JAX package's layout: img (B, H, W, C), flow
+    (B, H, W, 2) -> (B, H, W, C)."""
+    out = flow_warp(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2))
+    return out.permute(0, 2, 3, 1)
 
 
 def _bilinear_planes(tex: torch.Tensor, x: torch.Tensor,

@@ -1,21 +1,67 @@
 """Texture-warp dispatch: the renderer's per-part warp + probability blend.
 
-Port of the JAX package's ``ops/pallas_warp.py``. Every call goes through
-the two kernel wrappers of ``texture_warp_kernel``: on CUDA tensors they
-launch the kernels (or raise), on CPU tensors they run their plain
-PyTorch versions. There is no other path and no fallback. The TPU path's
-pad of sub-128 tiles up to 128 was a Mosaic constraint; the CUDA kernel
-samples a T x T tile directly.
+Port of the JAX package's ``ops/pallas_warp.py`` and of the custom VJP of
+``ops/pallas_warp2.texture_warp_pallas``. Every call goes through
+``TextureWarp``, an autograd Function over the three kernel wrappers of
+``texture_warp_kernel``: on CUDA tensors they launch the kernels (or
+raise), on CPU tensors they run their plain PyTorch versions. There is no
+other path and no fallback. The TPU path's pad of sub-128 tiles up to 128
+was a Mosaic constraint; the CUDA kernels sample a T x T tile directly.
 
 ``compute_dtype="bfloat16"`` (--warp_dtype) rounds the texture to bf16
-once; all sampling and blending math stays float32, as on the TPU.
+once, inside the Function; all sampling and blending math stays float32,
+as on the TPU, and the texture's gradient stays float32 (the rounding is
+passed straight through, as ``pallas_warp2.py:608`` returns it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .texture_warp_kernel import texture_warp_fwd, topk_select
+from .texture_warp_kernel import (texture_warp_bwd, texture_warp_fwd,
+                                  topk_select)
+
+
+class TextureWarp(torch.autograd.Function):
+    """(tex, uv, probs) -> fg (B, C, H, W), differentiable in all three.
+
+    Forward: top-k selection without gradient, then the blended forward;
+    saves tex, the u / v views of uv and the selected weights w.
+    Backward: the backward kernel gives duv (B, P, 2, N) in uv's layout,
+    dprobs (B, P+1, N) with a zero background channel (only the parts that
+    w kept get a gradient: the selection is stop-gradient) and dtex,
+    summed over the batch when the texture came with batch 1."""
+
+    @staticmethod
+    def forward(ctx, tex, uv, probs, k, block_parts, eps, compute_dtype):
+        B, P, _, H, W = uv.shape
+        fg = probs[:, 1:].float().flatten(2)          # (B, P, N) view
+        uv32 = uv.float()
+        u = uv32[:, :, 0].flatten(2)                  # (B, P, N) strided views
+        v = uv32[:, :, 1].flatten(2)
+        kk = k if 0 < k <= P else P
+        w = topk_select(fg, kk, block_parts, eps)
+        tex32 = tex.float()
+        if compute_dtype == "bfloat16":
+            tex32 = tex32.bfloat16().float()
+        if not tex32[0].is_contiguous():            # the kernels read tiles
+            tex32 = tex32.contiguous()
+        out = texture_warp_fwd(tex32, u, v, w)
+        ctx.save_for_backward(tex32, u, v, w)
+        ctx.shapes = (B, P, H, W)
+        ctx.dtypes = (tex.dtype, uv.dtype, probs.dtype)
+        return out.view(B, -1, H, W)
+
+    @staticmethod
+    def backward(ctx, g):
+        tex32, u, v, w = ctx.saved_tensors
+        B, P, H, W = ctx.shapes
+        tex_dt, uv_dt, probs_dt = ctx.dtypes
+        g = g.float().contiguous().view(B, -1, H * W)
+        duv, dprobs, dtex = texture_warp_bwd(tex32, u, v, w, g)
+        return (dtex.to(tex_dt), duv.view(B, P, 2, H, W).to(uv_dt),
+                dprobs.view(B, P + 1, H, W).to(probs_dt),
+                None, None, None, None)
 
 
 def texture_warp_planes(tex: torch.Tensor, uv: torch.Tensor,
@@ -24,25 +70,14 @@ def texture_warp_planes(tex: torch.Tensor, uv: torch.Tensor,
                         compute_dtype: str = "float32") -> torch.Tensor:
     """NCHW warp. tex (B or 1, P, C, T, T) in [-1, 1]; uv (B, P, 2, H, W)
     in [0, 1] (u then v per part); probs (B, P+1, H, W) with background at
-    channel 0 -> (B, C, H, W) float32.
+    channel 0 -> (B, C, H, W) float32, differentiable in tex, uv and probs.
 
     k in (0, P) samples each pixel's top-k parts (ties widen the set);
     k = 0 or k >= P samples all parts. eps drops blend weights below it;
     block_parts > 0 is the lossy per-1024-pixel-block part cap.
     """
-    B, P = uv.shape[0], uv.shape[1]
-    H, W = uv.shape[3], uv.shape[4]
-    fg = probs[:, 1:].float().flatten(2)          # (B, P, N) view
-    uv = uv.float()
-    u = uv[:, :, 0].flatten(2)                    # (B, P, N) strided views
-    v = uv[:, :, 1].flatten(2)
-    kk = k if 0 < k <= P else P
-    w = topk_select(fg, kk, block_parts, eps)
-    tex = tex.float()
-    if compute_dtype == "bfloat16":
-        tex = tex.bfloat16().float()
-    out = texture_warp_fwd(tex, u, v, w)
-    return out.view(B, -1, H, W)
+    return TextureWarp.apply(tex, uv, probs, k, block_parts, eps,
+                             compute_dtype)
 
 
 def texture_warp(tex: torch.Tensor, uv: torch.Tensor, probs: torch.Tensor,

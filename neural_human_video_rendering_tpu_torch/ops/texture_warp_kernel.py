@@ -1,23 +1,26 @@
-"""The texture warp's two kernels: top-k part selection and the forward.
+"""The texture warp's three kernels: top-k part selection, the forward and
+the backward.
 
-Port of the JAX package's ``ops/pallas_warp2.py`` serving half. The CUDA
-sources are ``csrc/texture_warp.cu`` (its header note gives the TPU kernel
-each one replaces, the memory bound on the H100 and what the design does
-about it); they are built by ``ops/build.py`` and called through ctypes.
+Port of the JAX package's ``ops/pallas_warp2.py``. The CUDA sources are
+``csrc/texture_warp.cu`` (its header note gives the TPU kernel each one
+replaces, the memory bound on the H100 and what the design does about
+it); they are built by ``ops/build.py`` and called through ctypes.
 
 Each kernel has, in this module:
-  * a plain PyTorch version (``topk_select_plain``, ``texture_warp_fwd_plain``)
-    computing the same function. The CPU tests use it, and the chip smoke
-    test holds the kernel against it on the card;
-  * a wrapper (``topk_select``, ``texture_warp_fwd``) that takes the plain
-    version only for tensors on the CPU, and for CUDA tensors launches the
-    kernel or raises: there is no fallback;
+  * a plain PyTorch version (``topk_select_plain``, ``texture_warp_fwd_plain``,
+    ``texture_warp_bwd_plain``) computing the same function. The CPU tests
+    use it, and the chip smoke test holds the kernel against it on the card;
+  * a wrapper (``topk_select``, ``texture_warp_fwd``, ``texture_warp_bwd``)
+    that takes the plain version only for tensors on the CPU, and for CUDA
+    tensors launches the kernel or raises: there is no fallback;
   * a launch counter, ``<wrapper>.launches``, which the wrapper bumps
     where it launches the kernel and nowhere else.
 
 Layout is planes: fg / u / v / w (B, P, N) with N = H*W, texture
 (B, P, C, T, T), output (B, C, N). fg, u and v may be strided views (a
 batch stride, and for u / v a part stride) whose pixel axis is contiguous.
+The backward returns the layouts of the renderer's tensors: duv
+(B, P, 2, N) and dprobs (B, P+1, N) with a zero background channel.
 """
 
 from __future__ import annotations
@@ -99,6 +102,59 @@ def texture_warp_fwd_plain(tex: torch.Tensor, u: torch.Tensor,
     return out
 
 
+def texture_warp_bwd_plain(tex: torch.Tensor, u: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """VJP of texture_warp_fwd_plain for the cotangent g (B, C, N), with w
+    held constant (the selection is stop-gradient) -> duv (B, P, 2, N),
+    dprobs (B, P+1, N) and dtex shaped like tex.
+
+    The formulas of the TPU kernel (pallas_warp2.py:414-436), per part:
+    du = sum_c g*w*((v01-v00)(1-wy) + (v11-v10)wy)*(T-1), dv = sum_c
+    g*w*(bot-top)*(T-1), dw = sum_c g*samp where w > 0 (else 0), and dtex
+    gets g*w times each bilinear weight at the four clamped taps. dprobs
+    is dw behind a zero background channel; a batch-1 texture gets the
+    sum over the batch."""
+    B, P, N = w.shape
+    Bt, C, T = tex.shape[0], tex.shape[2], tex.shape[3]
+    texb = tex.expand(B, *tex.shape[1:])
+    duv = torch.zeros((B, P, 2, N), dtype=torch.float32, device=w.device)
+    dprobs = torch.zeros((B, P + 1, N), dtype=torch.float32, device=w.device)
+    dtex = torch.zeros((B, P, C, T * T), dtype=torch.float32, device=w.device)
+    ext1 = float(T - 1)
+    for p in range(P):
+        wp = w[:, p, None]
+        x = u[:, p] * ext1
+        y = v[:, p] * ext1
+        x0f = torch.floor(x)
+        y0f = torch.floor(y)
+        wx = (x - x0f)[:, None]
+        wy = (y - y0f)[:, None]
+        xi = x0f.long()
+        yi = y0f.long()
+        x0, x1 = xi.clamp(0, T - 1), (xi + 1).clamp(0, T - 1)
+        y0, y1 = yi.clamp(0, T - 1), (yi + 1).clamp(0, T - 1)
+        planes = texb[:, p].reshape(B, C, T * T)
+        idx = [(iy * T + ix)[:, None].expand(B, C, N)
+               for iy, ix in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
+        v00, v01, v10, v11 = (torch.gather(planes, 2, i) for i in idx)
+        top = v00 * (1 - wx) + v01 * wx
+        bot = v10 * (1 - wx) + v11 * wx
+        samp = top * (1 - wy) + bot * wy
+        gw = g * wp
+        duv[:, p, 0] = (gw * ((v01 - v00) * (1 - wy) + (v11 - v10) * wy)
+                        * ext1).sum(1)
+        duv[:, p, 1] = (gw * (bot - top) * ext1).sum(1)
+        dprobs[:, p + 1] = torch.where(w[:, p] > 0, (g * samp).sum(1), 0.0)
+        coefs = (gw * (1 - wx) * (1 - wy), gw * wx * (1 - wy),
+                 gw * (1 - wx) * wy, gw * wx * wy)
+        for i, c in zip(idx, coefs):
+            dtex[:, p].scatter_add_(2, i, c)
+    dtex = dtex.view(B, P, C, T, T)
+    if Bt != B:
+        dtex = dtex.sum(0, keepdim=True)
+    return duv, dprobs, dtex
+
+
 # ----------------------------------------------------------------------
 # CUDA wrappers
 # ----------------------------------------------------------------------
@@ -114,6 +170,10 @@ def _lib() -> ctypes.CDLL:
     lib.nhvr_texture_warp_fwd.argtypes = [p, i64, p, p, i64, i64, p, p,
                                           i32, i32, i32, i32, i32, p]
     lib.nhvr_texture_warp_fwd.restype = i32
+    lib.nhvr_texture_warp_bwd.argtypes = [p, i64, p, p, i64, i64, p, p, p, p,
+                                          i64, i64, p, i64, p, i64, i32, i32,
+                                          i32, i32, i32, p]
+    lib.nhvr_texture_warp_bwd.restype = i32
     return lib
 
 
@@ -163,26 +223,24 @@ def topk_select(fg: torch.Tensor, k: int, block_parts: int = 0,
 topk_select.launches = 0
 
 
-def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     w: torch.Tensor) -> torch.Tensor:
-    """Blended bilinear texture warp (see texture_warp_fwd_plain).
-    tex (B or 1, P, C, T, T) float32, each sample contiguous; u, v (B, P, N)
-    float32 with one stride layout; w (B, P, N) contiguous. -> (B, C, N)."""
-    B, P, N = w.shape
-    C, T = tex.shape[2], tex.shape[3]
+def _check_tex(tex: torch.Tensor, B: int, P: int):
+    """-> (C, T) of a (B or 1, P, C, T, T) texture."""
     if tex.dim() != 5 or tex.shape[0] not in (1, B) or tex.shape[1] != P \
-            or tex.shape[4] != T or T < 2:
+            or tex.shape[4] != tex.shape[3] or tex.shape[3] < 2:
         raise ValueError(f"tex: expected (B|1, {P}, C, T, T), got "
                          f"{tuple(tex.shape)}")
-    if w.device.type == "cpu":
-        return texture_warp_fwd_plain(tex.float(), u.float(), v.float(),
-                                      w.float())
+    return tex.shape[2], tex.shape[3]
+
+
+def _check_cuda_warp(name: str, tex, u, v, w) -> None:
+    """What the forward and backward kernels take on the card."""
+    B, P, N = w.shape
     if w.device.type != "cuda":
-        raise ValueError(f"texture_warp_fwd: unsupported device {w.device}")
-    for name, t in (("u", u), ("v", v), ("w", w)):
-        _check_planes(name, t, B, P, N)
+        raise ValueError(f"{name}: unsupported device {w.device}")
+    for tname, t in (("u", u), ("v", v), ("w", w)):
+        _check_planes(tname, t, B, P, N)
         if t.device != w.device:
-            raise ValueError(f"{name} on {t.device}, w on {w.device}")
+            raise ValueError(f"{tname} on {t.device}, w on {w.device}")
     if u.stride() != v.stride():
         raise ValueError(f"u and v strides differ: {u.stride()} {v.stride()}")
     if not w.is_contiguous():
@@ -191,8 +249,21 @@ def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             or not tex[0].is_contiguous():
         raise ValueError("tex must be float32 on w's device with each "
                          "sample contiguous")
-    if C > MAX_CHANNELS:
-        raise ValueError(f"texture_warp_fwd kernel takes C <= {MAX_CHANNELS}")
+    if tex.shape[2] > MAX_CHANNELS:
+        raise ValueError(f"{name} kernel takes C <= {MAX_CHANNELS}")
+
+
+def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """Blended bilinear texture warp (see texture_warp_fwd_plain).
+    tex (B or 1, P, C, T, T) float32, each sample contiguous; u, v (B, P, N)
+    float32 with one stride layout; w (B, P, N) contiguous. -> (B, C, N)."""
+    B, P, N = w.shape
+    C, T = _check_tex(tex, B, P)
+    if w.device.type == "cpu":
+        return texture_warp_fwd_plain(tex.float(), u.float(), v.float(),
+                                      w.float())
+    _check_cuda_warp("texture_warp_fwd", tex, u, v, w)
     out = torch.empty((B, C, N), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
@@ -209,6 +280,49 @@ def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 texture_warp_fwd.launches = 0
 
 
+def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, g: torch.Tensor):
+    """Backward of the blended warp (see texture_warp_bwd_plain). Inputs as
+    texture_warp_fwd's, g (B, C, N) float32 contiguous -> duv (B, P, 2, N),
+    dprobs (B, P+1, N) and dtex shaped like tex, all fresh and contiguous.
+    On the card dtex is summed with float atomics, so its last bits vary
+    from run to run."""
+    B, P, N = w.shape
+    C, T = _check_tex(tex, B, P)
+    if tuple(g.shape) != (B, C, N):
+        raise ValueError(f"g: expected {(B, C, N)}, got {tuple(g.shape)}")
+    if w.device.type == "cpu":
+        return texture_warp_bwd_plain(tex.float(), u.float(), v.float(),
+                                      w.float(), g.float())
+    _check_cuda_warp("texture_warp_bwd", tex, u, v, w)
+    if g.dtype != torch.float32 or g.device != w.device \
+            or not g.is_contiguous():
+        raise ValueError("g must be float32 and contiguous on w's device")
+    duv = torch.empty((B, P, 2, N), dtype=torch.float32, device=w.device)
+    dprobs = torch.empty((B, P + 1, N), dtype=torch.float32, device=w.device)
+    dprobs[:, 0].zero_()
+    dtex = torch.zeros(tex.shape, dtype=torch.float32, device=w.device)
+    if w.numel() == 0:
+        return duv, dprobs, dtex
+    per_sample = tex.shape[0] == B and B > 1
+    tex_bstride = tex.stride(0) if per_sample else 0
+    dtex_bstride = dtex.stride(0) if per_sample else 0
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    err = _lib().nhvr_texture_warp_bwd(
+        tex.data_ptr(), tex_bstride, u.data_ptr(), v.data_ptr(), u.stride(0),
+        u.stride(1), w.data_ptr(), g.data_ptr(), duv[:, :, 0].data_ptr(),
+        duv[:, :, 1].data_ptr(), duv.stride(0), duv.stride(1),
+        dprobs[:, 1:].data_ptr(), dprobs.stride(0), dtex.data_ptr(),
+        dtex_bstride, B, P, C, T, N, stream)
+    texture_warp_bwd.launches += 1
+    _check(err, "texture_warp_bwd")
+    return duv, dprobs, dtex
+
+
+texture_warp_bwd.launches = 0
+
+
 def reset_launch_counts() -> None:
     topk_select.launches = 0
     texture_warp_fwd.launches = 0
+    texture_warp_bwd.launches = 0

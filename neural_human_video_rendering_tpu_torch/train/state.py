@@ -1,0 +1,139 @@
+"""Train state of the stage-2 step: the port of the JAX package's
+``train/state.py``.
+
+The JAX package threads one immutable pytree through a jitted step; the
+port keeps the same pieces in a mutable ``TrainState`` that the step
+updates in place: the step count, the renderer (G) and the multiscale
+discriminator (D) as modules, their two optimizers, the frozen VGG of the
+perceptual loss, the EMA copy of G's parameters, and the per-identity
+assets (static atlas, background, texel mask).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..models.discriminator import discriminator_from_options
+from ..models.renderer import init_params, renderer_from_options
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    renderer: torch.nn.Module
+    disc: torch.nn.Module
+    vgg: Optional[torch.nn.Module]
+    g_opt: torch.optim.Optimizer
+    d_opt: torch.optim.Optimizer
+    static_tex: torch.Tensor                 # (P, 3, T, T)
+    bg: torch.Tensor                         # (3, S, S)
+    tex_mask: Optional[torch.Tensor]         # (P, 1, T, T) or None
+    # EMA of G's parameters by name (--ema_decay > 0), else None
+    g_ema: Optional[Dict[str, torch.Tensor]] = None
+    # wall seconds of each step the loop ran (synchronised on the card)
+    step_seconds: List[float] = dataclasses.field(default_factory=list)
+    # the last step's losses (float32 scalars on the device)
+    metrics: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
+def check_train_options(opt) -> None:
+    """Raise NotImplementedError on what the port's stage-2 training does
+    not carry yet (the renderer refuses its own unported options)."""
+    later = {
+        "--no_temporal_detach_prev (symmetric temporal gradient)":
+            not opt.temporal_detach_prev,
+        "--pool_size > 0 (image pool)": opt.pool_size > 0,
+        "flip augmentation and bg_flip (pass --no_flip)": not opt.no_flip,
+        "crop modes (--resize_or_crop *crop)": "crop" in opt.resize_or_crop,
+        "--lambda_UVgrad > 0": opt.lambda_UVgrad > 0,
+        "real data directories (FrameDataset)": any(
+            (opt.pose_path, opt.img_path, opt.densepose_path, opt.mask_path,
+             opt.flow_path, opt.flow_inv_path, opt.lapalce_path)),
+        "--continue_train (checkpoints)": opt.continue_train,
+        "--load_pretrain (checkpoints)": bool(opt.load_pretrain),
+        "--load_pretrain_TransG (checkpoints)": bool(opt.load_pretrain_TransG),
+    }
+    asked = [k for k, v in later.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"the PyTorch port's training does not support {', '.join(asked)}"
+            " yet")
+
+
+def lr_schedule(opt, steps_per_epoch: int = 0) -> Callable[[int], float]:
+    """pix2pixHD's schedule as a multiplier of --lr by update count:
+    constant for niter epochs, then linear to 0 over niter_decay epochs
+    (optax.join_schedules of constant and linear, as the JAX package's
+    make_optimizer); constant with --no_decay or an unknown epoch length."""
+    if opt.no_decay or steps_per_epoch <= 0:
+        return lambda t: 1.0
+    flat = opt.niter * steps_per_epoch
+    decay = max(opt.niter_decay * steps_per_epoch, 1)
+    return lambda t: 1.0 if t < flat else 1.0 - min(t - flat, decay) / decay
+
+
+class ScheduledAdam(torch.optim.Adam):
+    """torch.optim.Adam (eps 1e-8 added to the bias-corrected sqrt(v), as
+    optax.adam) whose learning rate follows ``schedule`` of its own update
+    count, the schedule living in the optimizer as it does in an optax
+    transformation."""
+
+    def __init__(self, params, lr: float, betas, schedule: Callable):
+        super().__init__(params, lr=lr, betas=betas, eps=1e-8)
+        self.base_lr = lr
+        self.schedule = schedule
+        self.count = 0
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            group["lr"] = self.base_lr * self.schedule(self.count)
+        loss = super().step(closure)
+        self.count += 1
+        return loss
+
+
+def make_optimizer(opt, params, steps_per_epoch: int = 0) -> ScheduledAdam:
+    """Adam(lr, beta1, beta2) with pix2pixHD's LR schedule."""
+    return ScheduledAdam(params, opt.lr, (opt.beta1, opt.beta2),
+                         lr_schedule(opt, steps_per_epoch))
+
+
+def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
+                       tex_mask: Optional[np.ndarray] = None,
+                       steps_per_epoch: int = 0,
+                       device: Optional[torch.device] = None) -> TrainState:
+    """Random-init G and D (flax's default init, seeded from --seed), the
+    VGG of the perceptual loss (bf16, unless --no_vgg_loss), two Adam
+    optimizers with the schedule, the EMA copy, and the assets: static_tex
+    (P, T, T, 3) and bg (S, S, 3) in [-1, 1], tex_mask (P, T, T, 1), as the
+    JAX package's create_train_state takes them. ``device`` defaults to
+    --gpu_ids."""
+    check_train_options(opt)
+    dev = device if device is not None else resolve_device(opt.gpu_ids)
+    renderer = init_params(renderer_from_options(opt), opt.seed).to(dev)
+    disc = init_params(discriminator_from_options(opt), opt.seed + 1).to(dev)
+    vgg = None
+    if not opt.no_vgg_loss:
+        from ..models.vgg import build_vgg
+        vgg = build_vgg(opt.seed + 2, dtype=torch.bfloat16).to(dev)
+
+    def nchw(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(np.moveaxis(np.asarray(a, np.float32), -1, -3))
+        ).to(dev)
+
+    g_ema = None
+    if opt.ema_decay > 0:
+        g_ema = {k: v.detach().clone()
+                 for k, v in renderer.named_parameters()}
+    return TrainState(
+        step=0, renderer=renderer.train(), disc=disc.train(), vgg=vgg,
+        g_opt=make_optimizer(opt, renderer.parameters(), steps_per_epoch),
+        d_opt=make_optimizer(opt, disc.parameters(), steps_per_epoch),
+        static_tex=nchw(static_tex), bg=nchw(bg), tex_mask=nchw(tex_mask),
+        g_ema=g_ema)

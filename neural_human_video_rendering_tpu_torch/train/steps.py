@@ -1,17 +1,21 @@
-"""Pose-input assembly and the inference forward.
+"""Pose-input assembly, the inference forward and the stage-2 train step.
 
-Port of the serving half of the JAX package's ``train/steps.py``
-(``build_pose_input``, ``make_forward_fn``); the train steps come with the
-training slice.
+Port of the JAX package's ``train/steps.py``: ``build_pose_input``,
+``make_forward_fn``, ``ema_blend`` and ``make_train_step`` (the stage-1
+UV and texture pretrain steps come with a later slice).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .. import losses as L
 from ..data.rasterize import joint_heatmaps, render_skeleton
+from ..data.wire import unpack_batch
 
 
 def build_pose_input(opt, joints: torch.Tensor) -> torch.Tensor:
@@ -56,3 +60,125 @@ def make_forward_fn(opt, renderer) -> Callable[..., Dict[str, torch.Tensor]]:
         return renderer(pose, bg[None], static_tex[None], tex_mask)
 
     return fwd
+
+
+@torch.no_grad()
+def ema_blend(g_ema: Dict[str, torch.Tensor], renderer: torch.nn.Module,
+              step: int, decay: float) -> None:
+    """Horizon-warmup EMA update of g_ema, in place: the effective decay
+    min(decay, (1 + t) / (10 + t)) with t = step + 1, where ``step`` is the
+    step count BEFORE this update (the JAX package's state.step); float32
+    as there."""
+    t = np.float32(step + 1)
+    d = float(min(np.float32(decay), (np.float32(1.0) + t) / (np.float32(10.0) + t)))
+    e = [g_ema[k] for k, _ in renderer.named_parameters()]
+    p = [v.detach() for _, v in renderer.named_parameters()]
+    torch._foreach_mul_(e, d)
+    torch._foreach_add_(e, p, alpha=float(np.float32(1.0) - np.float32(d)))
+
+
+def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
+    """The stage-2 end-to-end G + D train step.
+
+    step(state, batch, mark=None) -> metrics (float32 scalars on the
+    device). ``batch`` is a host batch (raw or wire-packed, NHWC numpy);
+    its upload and dequantisation are the step's first op. The step
+    updates ``state`` in place. Update semantics are the JAX package's:
+      * G's loss sees D frozen (D's parameters do not require grad during
+        the G backward) and D's real features detached in the
+        feature-matching term;
+      * D's loss sees the fake detached and the OLD D parameters;
+      * both optimizers step after both backwards, then the EMA blends
+        with the step count before the increment.
+    --temporal_prev fake renders frame t-1 a second time under no_grad
+    (temporal_detach_prev); --temporal_prev real flow-warps the real t-1
+    frame. ``mark(name)``, when given, is called at the end of each phase
+    (inputs: the upload and the pose input; prev_render; g_forward;
+    d_for_g; vgg; g_losses; g_backward; d_step; update) so a caller can
+    time the phases.
+    """
+    use_temporal = opt.lambda_Temp > 0
+    use_vgg = (not opt.no_vgg_loss) and vgg is not None
+    use_fm = not opt.no_ganFeat_loss
+    use_lsgan = not opt.no_lsgan
+    real_prev = use_temporal and opt.temporal_prev == "real"
+    detach_prev = use_temporal and not real_prev
+
+    def no_mark(name):
+        pass
+
+    def step(state, batch, mark: Optional[Callable[[str], None]] = None):
+        mark = mark or no_mark
+        batch = unpack_batch(batch, state.static_tex.device)
+        pose = build_pose_input(opt, batch["joints"])
+        real = batch["image"]
+        tex, bg, tex_mask = state.static_tex[None], state.bg[None], \
+            state.tex_mask
+        mark("inputs")
+        g_opt.zero_grad(set_to_none=True)
+        d_opt.zero_grad(set_to_none=True)
+        prev_fake = None
+        if detach_prev:
+            with torch.no_grad():
+                pose_prev = build_pose_input(opt, batch["joints_prev"])
+                prev_fake = renderer(pose_prev, bg, tex, tex_mask)["fake"]
+            mark("prev_render")
+        elif real_prev:
+            prev_fake = batch["image_prev"]
+
+        # ---- G: D frozen, its real features detached
+        disc.requires_grad_(False)
+        cur = renderer(pose, bg, tex, tex_mask)
+        fake = cur["fake"]
+        mark("g_forward")
+        d_fake = disc(torch.cat([pose, fake], dim=1))
+        losses = {"G_GAN": L.lsgan_loss_g(d_fake, use_lsgan)}
+        if use_fm:
+            with torch.no_grad():
+                d_real = disc(torch.cat([pose, real], dim=1))
+            losses["G_FM"] = L.feature_matching_loss(d_real, d_fake,
+                                                     opt.lambda_feat)
+        mark("d_for_g")
+        if use_vgg:
+            losses["G_VGG"] = opt.lambda_feat * L.vgg_loss(vgg, fake, real)
+            mark("vgg")
+        if opt.lambda_L2 > 0:
+            losses["G_L2"] = opt.lambda_L2 * L.l2_loss(fake, real)
+        if opt.use_densepose_loss and "dp_parts" in batch:
+            losses["G_UV"] = opt.lambda_UV * L.uv_loss(
+                cur["uv"], batch["dp_uv"], batch["dp_parts"])
+            losses["G_Prob"] = opt.lambda_Prob * L.part_ce_loss(
+                cur["logits"], batch["dp_parts"])
+        if opt.lambda_Mask > 0 and "mask" in batch:
+            losses["G_Mask"] = opt.lambda_Mask * L.mask_loss(cur["mask"],
+                                                             batch["mask"])
+        if use_temporal and "flow" in batch:
+            losses["G_Temp"] = opt.lambda_Temp * L.temporal_flow_loss(
+                fake, prev_fake, batch["flow"], batch["flow_inv"])
+        g_total = functools.reduce(torch.add, losses.values())
+        mark("g_losses")
+        g_total.backward()
+        mark("g_backward")
+
+        # ---- D: the fake detached, the old parameters
+        disc.requires_grad_(True)
+        fake_det = fake.detach()
+        d_real = disc(torch.cat([pose, real], dim=1))
+        d_fake = disc(torch.cat([pose, fake_det], dim=1))
+        d_total = L.lsgan_loss_d(d_real, d_fake, use_lsgan)
+        d_total.backward()
+        mark("d_step")
+
+        # ---- both updates, then the EMA
+        g_opt.step()
+        d_opt.step()
+        if opt.ema_decay > 0 and state.g_ema is not None:
+            ema_blend(state.g_ema, renderer, state.step, opt.ema_decay)
+        state.step += 1
+        mark("update")
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["G_total"] = g_total.detach()
+        metrics["D_total"] = d_total.detach()
+        return metrics
+
+    return step

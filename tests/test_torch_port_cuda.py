@@ -1,22 +1,30 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
-PyTorch version at small shapes, the launch counters, and the wrappers'
-refusals. Marked ``gpu``; every test skips (inside the ``cuda`` fixture)
-where torch.cuda.is_available() is False. Run on the card with
+PyTorch version at small shapes, the launch counters, the wrappers'
+refusals, and a backward through a tiny renderer on the card against the
+CPU. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
+torch.cuda.is_available() is False. Run on the card with
 
-    python -m pytest tests/test_torch_port_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Tolerances: the selection exactly; the forward 2e-5 absolute (float32,
-fused multiply-adds on the card).
+Tolerances: the selection exactly; the forward and the flow warp 2e-5
+absolute (float32, fused multiply-adds on the card); the warp backward
+1e-5 + 1e-5 * max|plain| (float atomics add dtex in a run-dependent
+order); the flow warp of flow channels (tens of pixels) 2e-5 relative; the
+renderer's gradients 1e-5 * max|grad| + 1e-4 of each tensor's
+largest (cuDNN sums convolutions in another order than the CPU).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from neural_human_video_rendering_tpu_torch.ops import flow_warp_kernel as fk
 from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
 from neural_human_video_rendering_tpu_torch.ops import texture_warp_kernel as tk
 
 pytestmark = pytest.mark.gpu
 FWD_TOL = 2e-5
+BWD_ATOL, BWD_RTOL = 1e-5, 1e-5
 
 
 @pytest.fixture
@@ -90,3 +98,130 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tk.texture_warp_fwd(tex.cpu(), uv[:, :, 0].flatten(2),
                             uv[:, :, 1].flatten(2), w)
+
+
+def _bwd_close(got, want):
+    for name, a, b in zip(("duv", "dprobs", "dtex"), got, want):
+        tol = BWD_ATOL + BWD_RTOL * float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("k,eps,T,B_tex", [(3, 0.0, 16, 2), (4, 1e-3, 16, 2),
+                                           (7, 0.0, 16, 1), (3, 1e-3, 64, 1),
+                                           (4, 0.0, 128, 2)])
+def test_texture_warp_bwd_matches_plain(cuda, k, eps, T, B_tex):
+    tex, uv, probs = _inputs(cuda, T=T)
+    tex = tex[:B_tex]
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    w = tk.topk_select(fg, k, 0, eps)
+    g = torch.randn((2, 3, fg.shape[2]), device=cuda)
+    tk.reset_launch_counts()
+    got = tk.texture_warp_bwd(tex, u, v, w, g)
+    assert tk.texture_warp_bwd.launches == 1
+    want = tk.texture_warp_bwd_plain(tex, u, v, w, g)
+    torch.cuda.synchronize()
+    assert got[2].shape == tex.shape
+    _bwd_close(got, want)
+    sel = w > 0
+    assert (got[1][:, 1:][~sel] == 0).all() and (got[1][:, 0] == 0).all()
+    assert (got[0][:, :, 0][~sel] == 0).all()
+
+
+@pytest.mark.parametrize("C,H,W", [(5, 64, 48), (3, 37, 50), (2, 128, 128)])
+def test_flow_warp_fwd_matches_plain(cuda, C, H, W):
+    g = torch.Generator(device=cuda).manual_seed(C)
+    img = torch.rand((2, C, H, W), generator=g, device=cuda) * 2 - 1
+    flow = torch.randn((2, 2, H, W), generator=g, device=cuda) * 8
+    flow[0, :, :3] = 1000.0                        # leaves the image
+    fk.reset_launch_counts()
+    got = fk.flow_warp_fwd(img, flow)
+    assert fk.flow_warp_fwd.launches == 1
+    want = fk.flow_warp_fwd_plain(img, flow)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FWD_TOL
+    assert (got[0, :, :3] == 0).all()
+    # a strided channel view, as the temporal loss's 5-channel input
+    cat = torch.cat([img, flow], dim=1)[:, 1:]
+    want = fk.flow_warp_fwd_plain(cat.contiguous(), flow)
+    assert float((fk.flow_warp_fwd(cat, flow) - want).abs().max()) \
+        <= FWD_TOL * max(1.0, float(want.abs().max()))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    tex, uv, probs = _inputs(cuda)
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    w = tk.topk_select(fg, 2)
+    g = torch.randn((2, 3, fg.shape[2]), device=cuda)
+    with pytest.raises(ValueError):
+        tk.texture_warp_bwd(tex, u, v, w, g.double())
+    with pytest.raises(ValueError):
+        tk.texture_warp_bwd(tex, u, v, w, g[:, :2])
+    with pytest.raises(ValueError):
+        tk.texture_warp_bwd(tex.cpu(), u, v, w, g)
+    img = torch.rand((1, 3, 8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        fk.flow_warp_fwd(img.double(), torch.zeros((1, 2, 8, 8), device=cuda))
+    with pytest.raises(ValueError):
+        fk.flow_warp_fwd(img.transpose(2, 3), torch.zeros((1, 2, 8, 8),
+                                                          device=cuda))
+    with pytest.raises(ValueError):
+        fk.flow_warp_fwd(img, torch.zeros((1, 2, 8, 8)))
+
+
+def _linear_atlas(P, T, seed=5):
+    yy, xx = np.mgrid[0:T, 0:T].astype(np.float32) / (T - 1)
+    coef = np.random.default_rng(seed).uniform(-0.4, 0.4, (P, 3, 2))
+    return (coef[:, None, None, :, 0] * xx[None, :, :, None]
+            + coef[:, None, None, :, 1] * yy[None, :, :, None]
+            ).astype(np.float32)
+
+
+def test_renderer_backward_on_the_card_matches_cpu(cuda):
+    """A backward through a tiny renderer on the card gives TransG's UV head
+    (and every other parameter) the gradient it gets on the CPU: the warp
+    is differentiable on the card (all parts blended, TF32 off; a linear
+    atlas and TexG's head at 0 keep the bilinear gradient continuous at
+    texel edges, where float rounding could move a sample across)."""
+    from neural_human_video_rendering_tpu_torch.config import Options
+    from neural_human_video_rendering_tpu_torch.data.dataset import \
+        SyntheticDataset
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        build_pose_input
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = Options(loadSize=32, tex_tile=16, n_blocks_translate=1,
+                  n_downsample_translate=2, n_blocks_global=1,
+                  n_downsample_global=1, n_blocks_bg=1, n_downsample_bg=1,
+                  ngf=4, ngf_global=4, dtype="float32", pose_heatmaps=True,
+                  coord_conv=True, stem_s2d=2, head_s2d=2, bg_s2d=4,
+                  pad_mode="same", warp_topk=24, warp_eps=0.0)
+    syn = SyntheticDataset(opt, length=2)
+    joints = torch.from_numpy(syn.joints)
+    atlas = torch.from_numpy(_linear_atlas(24, 16).transpose(0, 3, 1, 2))
+    bg = torch.from_numpy(syn.background().transpose(2, 0, 1))
+    cpu = init_params(renderer_from_options(opt), 0)
+    texg = cpu.TexG.GlobalGenerator_0
+    with torch.no_grad():
+        getattr(texg, texg.order[-1]).Conv_0.weight.zero_()
+    card = init_params(renderer_from_options(opt), 0).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    R = torch.randn((2, 3, 32, 32), generator=torch.Generator().manual_seed(1))
+    grads = {}
+    tk.reset_launch_counts()
+    for name, m, d in (("cpu", cpu, torch.device("cpu")), ("card", card, cuda)):
+        out = m(build_pose_input(opt, joints.to(d)), bg[None].to(d),
+                atlas[None].to(d))
+        (out["fake"] * R.to(d)).sum().backward()
+        grads[name] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    assert (tk.topk_select.launches, tk.texture_warp_fwd.launches,
+            tk.texture_warp_bwd.launches) == (1, 1, 1)
+    scale = max(float(g.abs().max()) for g in grads["cpu"].values())
+    for k, ref in grads["cpu"].items():
+        err = float((grads["card"][k] - ref).abs().max())
+        assert err <= 1e-5 * scale + 1e-4 * float(ref.abs().max()), k
+    head = "TransG.GlobalGenerator_0." + \
+        cpu.TransG.GlobalGenerator_0.order[-1] + ".Conv_0.weight"
+    assert float(grads["card"][head].abs().max()) > 0
