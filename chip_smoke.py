@@ -12,19 +12,24 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      Top-k must match exactly; the forward within 2e-5 (float32). Then at
      the train step's shapes (B=2): the warp backward (k=4 eps=1e-3, k=P,
      tile 128, texture batch 1) within 1e-5 + 1e-5 * max|plain| (float
-     atomics reorder dtex's sums), and the flow warp (C=5, flow ~ 8 N(0,1)
-     px, some of it leaving the image) within 2e-5.
+     atomics reorder dtex's sums); TextureWarp's three gradients with a
+     bf16 texture against the float32 plain versions' within 3e-2 of
+     max|plain|; the flow warp (C=5, flow ~ 8 N(0,1) px, some of it
+     leaving the image; a smooth flow, a strided channel view, and W=510)
+     within 2e-5.
   3. main path: 16 synthetic OpenPose JSONs through the port's
      run_inference at the flagship model's full width (bf16, batch 8,
      random weights from --seed): 16 finite PNG frames, and each kernel
      launched once per batch. Then kernel vs plain version on one batch's
-     own texture / uv / probs, and a tiny float32 renderer on the card
-     against the same weights on the CPU (all parts blended: a top-k
-     selection among near-equal random-init probabilities would flip on
-     float rounding and make the comparison meaningless).
+     own texture / uv / probs (the backward on its first 2 samples), and a
+     tiny float32 renderer on the card against the same weights on the CPU
+     (all parts blended: a top-k selection among near-equal random-init
+     probabilities would flip on float rounding and make the comparison
+     meaningless).
   4. numbers: forward ms and FPS at batch 8, peak memory, each layer's
      time, a profiler trace of the forward (device busy share, top
-     kernels).
+     kernels, the port's kernels), the serving kernels' numbers, the
+     backward's device time on the renderer's tensors at batch 2.
   5. train path: the port's run_train at the flagship width (512px, batch
      2, the recipe's losses, random weights from --seed) for 3 warm-up and
      10 timed steps with --temporal_prev real: finite losses, G and D
@@ -33,9 +38,12 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      a tiny float32 train step on the card against the CPU (all parts
      blended, SGD lr 1, TF32 off): losses and parameter deltas.
   6. train numbers: step ms (median) and steps/s, peak memory, the phases
-     of a step (CUDA events), a profiler trace of one step, and for each of
-     the four kernels at the train step's shapes its time, the plain
-     version's, a library yardstick's, and its bound.
+     of a step (CUDA events), a profiler trace of one step (with each of
+     the port's kernels' device time), and for each of the four kernels at
+     the train step's shapes: its device time (20 calls captured in a CUDA
+     graph, replayed between CUDA events), its host cost per call, the
+     plain version's time, a library yardstick's device time, and its
+     bound.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -54,6 +62,7 @@ REF_TOL = 1e-3
 # warp backward: float atomics add dtex in a run-dependent order
 BWD_ATOL, BWD_RTOL = 1e-5, 1e-5
 FLOW_TOL = 2e-5
+BF16_GRAD_RTOL = 3e-2      # bf16 texture: relative to max|float32 gradient|
 # tiny train step card vs CPU: per tensor, of the SGD(1) parameter deltas
 STEP_SCALE_TOL, STEP_TENSOR_TOL, STEP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -120,6 +129,8 @@ class Smoke:
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
+    """ms per call from CUDA events around `iters` eager calls: the host's
+    cost per call is in it wherever it is close to the device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -131,6 +142,55 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters=20, warmup=3, reps=5):
+    """Device ms of one call of fn, every launch it makes included: `iters`
+    calls captured in one CUDA graph after warm-up, the graph replayed
+    between two CUDA events (median of `reps` replays) / iters. The
+    wrappers launch on the current stream, which is the capturing one."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return sorted(times)[reps // 2]
+
+
+def host_us(torch, fn, iters=200):
+    """Host microseconds per call of fn: the host clock over `iters` calls
+    with no synchronise between them (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+PORT_KERNELS = {"topk_select": "topk_", "texture_warp_fwd": "texture_warp_fwd",
+                "texture_warp_bwd": "texture_warp_bwd",
+                "flow_warp_fwd": "flow_warp_fwd"}
 
 
 def trace_forward(torch, fn, iters=3, top=10):
@@ -157,8 +217,13 @@ def trace_forward(torch, fn, iters=3, top=10):
         return [[e.key[:width], e.self_device_time_total / 1e3 / iters]
                 for e in evs[:top]]
 
+    port = {name: sum(e.self_device_time_total for e in kernels
+                      if key in e.key) / 1e3 / iters
+            for name, key in PORT_KERNELS.items()}
     return {"device_busy_ms_per_call":
             sum(e.self_device_time_total for e in kernels) / 1e3 / iters,
+            "port_kernels_ms_per_call": port,
+            "port_kernels_ms_total": sum(port.values()),
             "top_ops_ms_per_call": ranked(ops, 60),
             "top_kernels_ms_per_call": ranked(kernels, 120)}
 
@@ -221,6 +286,37 @@ def flow_inputs(torch, B, S, C, device, seed=5):
     return img, flow
 
 
+def smooth_flow(torch, flow):
+    """A smooth flow of flow's shape: a shift of a few pixels plus a slow
+    swirl (up to ~6 px), leaving the image along one border."""
+    B, _, H, W = flow.shape
+    ys = torch.linspace(0, 6.2832, H, device=flow.device)[:, None]
+    xs = torch.linspace(0, 6.2832, W, device=flow.device)[None, :]
+    out = torch.empty_like(flow)
+    out[:, 0] = 3.3 + 3.0 * torch.sin(ys) * torch.cos(xs)
+    out[:, 1] = -2.7 + 3.0 * torch.cos(ys) * torch.sin(xs)
+    return out
+
+
+def flow_grid(torch, flow):
+    """grid_sample's normalized grid (align_corners) for the points
+    p + flow(p) of a (B, 2, H, W) flow."""
+    H, W = flow.shape[2:]
+    xs = torch.arange(W, device=flow.device)
+    ys = torch.arange(H, device=flow.device)[:, None]
+    return torch.stack([(flow[:, 0] + xs) * (2.0 / (W - 1)) - 1,
+                        (flow[:, 1] + ys) * (2.0 / (H - 1)) - 1], -1)
+
+
+def flow_library(torch, img, grid):
+    """The flow warp's yardstick: grid_sample with zeros padding, which
+    zeroes each outside TAP, not the whole sample: a time yardstick only,
+    never called by the port."""
+    return torch.nn.functional.grid_sample(img, grid, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=True)
+
+
 def compare_bwd(torch, tk, smoke, tag, tex, uv, probs, k, eps, seed=0):
     """texture_warp_bwd vs its plain version on the same inputs; returns
     the largest error over duv, dprobs and dtex."""
@@ -240,6 +336,29 @@ def compare_bwd(torch, tk, smoke, tag, tex, uv, probs, k, eps, seed=0):
     return worst
 
 
+def bf16_grads(torch, tk, smoke, tex, uv, probs, k, eps):
+    """TextureWarp's three gradients of sum(out^2) with compute_dtype
+    bfloat16 (the kernels on a bf16-rounded texture) against the float32
+    plain versions', relative to max|plain| (tools/tpu_selftest.py's bf16
+    gradient check)."""
+    from neural_human_video_rendering_tpu_torch.ops.texture_warp import \
+        texture_warp_planes
+    leaves = [t.clone().requires_grad_() for t in (tex, uv, probs)]
+    out = texture_warp_planes(*leaves, k=k, eps=eps, compute_dtype="bfloat16")
+    (out ** 2).sum().backward()
+    fg, u, v = planes(uv, probs)
+    w = tk.topk_select_plain(fg, k, 0, eps)
+    ref = tk.texture_warp_fwd_plain(tex, u, v, w)
+    want = tk.texture_warp_bwd_plain(tex, u, v, w, 2 * ref)
+    torch.cuda.synchronize()
+    for name, leaf, b in zip(("dtex", "duv", "dprobs"), leaves,
+                             (want[2], want[0], want[1])):
+        scale = float(b.abs().max()) + 1e-6
+        smoke.check(f"TextureWarp bf16 {name} vs float32 plain (relative)",
+                    float((leaf.grad - b.view(leaf.shape)).abs().max()) / scale,
+                    BF16_GRAD_RTOL)
+
+
 def bound(nbytes, flops):
     """(ms, what binds): the larger of the bytes at the card's memory rate
     and the float32 operations at its peak."""
@@ -249,8 +368,9 @@ def bound(nbytes, flops):
 
 def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
                    flow=None):
-    """{name: ms, plain_ms, library_ms, bound_ms, bound_by} at these inputs,
-    CUDA events over repeated launches."""
+    """{name: ms, host_us, plain_ms, bound_ms, bound_by, library_ms} at
+    these inputs. ms and library_ms are device time (graph_ms); host_us the
+    host's cost per call; plain_ms CUDA events around eager calls."""
     F = torch.nn.functional
     B, P, C, T = tex.shape[0], tex.shape[1], tex.shape[2], tex.shape[3]
     S = uv.shape[3]
@@ -286,17 +406,13 @@ def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
             bound(B * P * N * 4 + nnz * 8 + tex.numel() * 4 + B * C * N * 4,
                   nnz * C * 14))
     if "texture_warp_bwd" in names:
-        # yardstick: autograd of grid_sample (border, align_corners) over the
-        # B*P tiles, given the cotangent the blend hands each tile
-        tex_req = tex_bp.clone().requires_grad_()
-        grid_req = grid.clone().requires_grad_()
-        samp = F.grid_sample(tex_req, grid_req, mode="bilinear",
-                             padding_mode="border", align_corners=True)
+        # yardstick: grid_sample's backward (bilinear, border, align_corners)
+        # over the B*P tiles, given the cotangent the blend hands each tile
         g_samp = (g.view(B, 1, C, N) * w[:, :, None]).reshape(B * P, C, S, S)
 
         def bwd_library():
-            return torch.autograd.grad(samp, (tex_req, grid_req), g_samp,
-                                       retain_graph=True)
+            return torch.ops.aten.grid_sampler_2d_backward(
+                g_samp, tex_bp, grid, 0, 1, True, [True, True])
 
         todo["texture_warp_bwd"] = (
             lambda: tk.texture_warp_bwd(tex, u, v, w, g),
@@ -308,23 +424,28 @@ def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
     if "flow_warp_fwd" in names:
         img, fl = flow
         Cf = img.shape[1]
-        # yardstick: grid_sample with zeros padding zeroes each outside TAP,
-        # not the whole sample: a time yardstick only, never called by the port
-        fgrid = torch.stack([(fl[:, 0] + torch.arange(S, device=img.device))
-                             * (2.0 / (S - 1)) - 1,
-                             (fl[:, 1] + torch.arange(S, device=img.device)[:, None])
-                             * (2.0 / (S - 1)) - 1], -1)
+        fgrid = flow_grid(torch, fl)
         todo["flow_warp_fwd"] = (
             lambda: fk.flow_warp_fwd(img, fl),
             lambda: fk.flow_warp_fwd_plain(img, fl),
-            lambda: F.grid_sample(img, fgrid, mode="bilinear",
-                                  padding_mode="zeros", align_corners=True),
+            lambda: flow_library(torch, img, fgrid),
             bound(B * 2 * N * 4 + 2 * B * Cf * N * 4, B * N * Cf * 10))
     for name, (kern, plain, lib, (b_ms, b_by)) in todo.items():
-        out[name] = {"ms": cuda_ms(torch, kern),
+        out[name] = {"ms": graph_ms(torch, kern),
+                     "host_us": host_us(torch, kern),
                      "plain_ms": cuda_ms(torch, plain, iters=5, warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": cuda_ms(torch, lib, iters=10, warmup=2)}
+                     "library_ms": graph_ms(torch, lib)}
+    if "flow_warp_fwd" in names:
+        # the train step's kind of flow: smooth (a rigid shift in the
+        # synthetic data, optical flow in real video), not i.i.d. noise
+        img, fl = flow
+        sm = smooth_flow(torch, fl)
+        sgrid = flow_grid(torch, sm)
+        out["flow_warp_fwd"].update({
+            "smooth_flow_ms": graph_ms(torch, lambda: fk.flow_warp_fwd(img, sm)),
+            "smooth_flow_library_ms": graph_ms(
+                torch, lambda: flow_library(torch, img, sgrid))})
     print(f"[numbers] B={B}: selected (pixel, part) pairs at k={K} "
           f"eps={EPS}: {nnz} of {B * P * N}; {json.dumps(out)}", flush=True)
     return out
@@ -575,6 +696,9 @@ def main() -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
+            if "entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+                print(f"[ptxas {name}] {fn[:90]}", flush=True)
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
@@ -600,6 +724,7 @@ def main() -> int:
     compare_bwd(torch, tk, smoke, "k=P", tex2, uv2, probs2, P, 0.0)
     compare_bwd(torch, tk, smoke, "texture batch 1", tex2[:1], uv2, probs2,
                 K, EPS)
+    bf16_grads(torch, tk, smoke, tex2, uv2, probs2, K, EPS)
     tex128, uv128, probs128 = warp_inputs(torch, 2, P, 256, 256, 128, 3, dev)
     compare_bwd(torch, tk, smoke, "tile 128", tex128, uv128, probs128, K, EPS)
     img, flow = flow_inputs(torch, 2, S, 5, dev)
@@ -618,6 +743,15 @@ def main() -> int:
     smoke.check("flow_warp_fwd strided channels (relative: flow channels)",
                 float((fk.flow_warp_fwd(cat[:, 1:], flow) - want).abs().max())
                 / max(1.0, float(want.abs().max())), FLOW_TOL)
+    sm = smooth_flow(torch, flow)
+    smoke.check("flow_warp_fwd smooth flow", float(
+        (fk.flow_warp_fwd(img, sm) - fk.flow_warp_fwd_plain(img, sm)).abs().max()),
+        FLOW_TOL)
+    img_o, flow_o = img[..., :510].contiguous(), flow[..., :510].contiguous()
+    smoke.check("flow_warp_fwd W=510", float(
+        (fk.flow_warp_fwd(img_o, flow_o)
+         - fk.flow_warp_fwd_plain(img_o, flow_o)).abs().max()), FLOW_TOL)
+    del img_o, flow_o
     del tex2, uv2, probs2, tex128, uv128, probs128, img, flow, out_k, out_p, cat
 
     # ---------------------------------------------------------- 3. main path
@@ -670,6 +804,10 @@ def main() -> int:
     sel_real = float((w_real > 0).sum(1).float().mean())
     print(f"[main] renderer batch: mean selected parts per pixel {sel_real:.3f}",
           flush=True)
+    # the backward at batch 2 on the renderer's own tensors: smooth uv, so
+    # neighbouring pixels hit the same texels
+    rend2 = (out["texture"][:2], out["uv"][:2], out["probs"][:2])
+    compare_bwd(torch, tk, smoke, "renderer tensors B=2", *rend2, K, EPS)
 
     # the whole tiny renderer on the card vs the same weights on the CPU
     topt = TestOptions().parse(TINY + ["--gpu_ids", "0"], save=False)
@@ -727,7 +865,24 @@ def main() -> int:
 
     serving = kernel_numbers(torch, tk, fk, tex, uv, probs, w_main, K, EPS,
                              ("topk_select", "texture_warp_fwd"))
-    del tex, uv, probs, w_main, fwd, renderer, state_assets
+    fg_r, u_r, v_r = planes(rend2[1], rend2[2])
+    w_r = tk.topk_select(fg_r, K, 0, EPS)
+    g_r = torch.randn((2, rend2[0].shape[2], fg_r.shape[2]), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(9))
+    rend_bwd = {"renderer_tensors_ms": graph_ms(
+        torch, lambda: tk.texture_warp_bwd(rend2[0], u_r, v_r, w_r, g_r)),
+        "renderer_tensors_selected": int((w_r > 0).sum()),
+        # selected pixels per (part, batch): the backward's clusters split
+        # pixels, not selected pairs, so a few full parts set its time
+        "renderer_tensors_selected_per_part_max": int(
+            (w_r > 0).sum(2).max()),
+        "renderer_tensors_parts_with_half_the_pairs": int(
+            ((w_r > 0).sum(2).flatten().sort(descending=True).values.cumsum(0)
+             < (w_r > 0).sum() / 2).sum() + 1)}
+    print(f"[numbers] texture_warp_bwd on the renderer's tensors (B=2): "
+          f"{json.dumps(rend_bwd)}", flush=True)
+    del tex, uv, probs, w_main, fwd, renderer, state_assets, rend2, fg_r, \
+        u_r, v_r, w_r, g_r
 
     # ------------------------------------------------------ 5. train path
     train = train_path(torch, smoke, tk, fk, repo, dev, smi)
@@ -752,6 +907,11 @@ def main() -> int:
             entry["train_shapes"] = train_k[name]
         else:
             entry["shapes"] = "train step: B=2, P=24, 512x512, T=64, k=4, eps=1e-3"
+        if name == "texture_warp_bwd":
+            entry.update(rend_bwd)
+        entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "
+                           "calls replayed (warm L2 where the inputs fit); "
+                           "host_us: host clock per call, no sync")
         kernels.append(entry)
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)

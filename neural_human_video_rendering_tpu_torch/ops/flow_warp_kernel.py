@@ -30,14 +30,18 @@ from . import build
 from .grid_sample import flow_warp as flow_warp_fwd_plain
 
 
+MAX_CHANNELS = 8     # the kernel is instantiated for C = 1..8
+
+
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flow_warp")
+def _kernel():
+    """The C entry point, its argument types set (looked up once)."""
+    fn = build.load("flow_warp").nhvr_flow_warp_fwd
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.nhvr_flow_warp_fwd.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p,
-                                       i32, i32, i32, i32, p]
-    lib.nhvr_flow_warp_fwd.restype = i32
-    return lib
+    fn.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p, i32, i32, i32, i32,
+                   p]
+    fn.restype = i32
+    return fn
 
 
 def flow_warp_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -46,7 +50,7 @@ def flow_warp_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     each image row contiguous (any batch / channel / row strides)
     -> (B, C, H, W) contiguous."""
     if img.dim() != 4 or flow.dim() != 4 \
-            or tuple(flow.shape) != (img.shape[0], 2, *img.shape[2:]):
+            or flow.shape != (img.shape[0], 2, *img.shape[2:]):
         raise ValueError(f"flow_warp_fwd: img (B, C, H, W) and flow "
                          f"(B, 2, H, W), got {tuple(img.shape)} "
                          f"{tuple(flow.shape)}")
@@ -56,20 +60,22 @@ def flow_warp_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if img.device.type != "cuda" or flow.device != img.device:
         raise ValueError(f"flow_warp_fwd: img on {img.device}, flow on "
                          f"{flow.device}")
-    for name, t in (("img", img), ("flow", flow)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: rows must be contiguous, strides "
-                             f"{t.stride()}")
+    if img.dtype != torch.float32 or flow.dtype != torch.float32:
+        raise ValueError(f"img and flow must be float32, got {img.dtype} "
+                         f"{flow.dtype}")
+    if img.stride(3) != 1 or flow.stride(3) != 1:
+        raise ValueError(f"rows must be contiguous, strides {img.stride()} "
+                         f"{flow.stride()}")
+    if C > MAX_CHANNELS or B * H * W >= 2 ** 31:
+        raise ValueError(f"flow_warp_fwd kernel takes C <= {MAX_CHANNELS} "
+                         f"and B*H*W < 2^31, got {tuple(img.shape)}")
     out = torch.empty((B, C, H, W), dtype=torch.float32, device=img.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = _lib().nhvr_flow_warp_fwd(
-        img.data_ptr(), img.stride(0), img.stride(1), img.stride(2),
-        flow.data_ptr(), flow.stride(0), flow.stride(1), flow.stride(2),
-        out.data_ptr(), B, C, H, W, stream)
+    ist, fst = img.stride(), flow.stride()
+    err = _kernel()(img.data_ptr(), ist[0], ist[1], ist[2], flow.data_ptr(),
+                    fst[0], fst[1], fst[2], out.data_ptr(), B, C, H, W,
+                    torch.cuda.current_stream(img.device).cuda_stream)
     flow_warp_fwd.launches += 1
     if err != 0:
         raise RuntimeError(f"flow_warp_fwd launch failed: CUDA error {err}")

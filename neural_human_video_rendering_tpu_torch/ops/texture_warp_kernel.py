@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +36,59 @@ from . import build
 CAP_BLOCK = 1024    # pixels per block of the lossy block_parts cap
 MAX_PARTS = 32      # the selection kernel holds a pixel's parts in registers
 MAX_CHANNELS = 4
+
+# The backward's launch (csrc/texture_warp.cu, texture_warp_bwd_kernel,
+# whose kBwdThreads / kWarpWindow these mirror; launch_bwd refuses a plan
+# whose shared bytes do not hold that layout): 512 threads a CTA, each
+# warp on windows of 128 pixels, shared memory a CTA at most 227 KB on an
+# H100, clusters of at most 8 CTAs (the portable size).
+BWD_THREADS = 512
+BWD_WARP_WINDOW = 128
+SMEM_PER_CTA = 232_448
+MAX_CLUSTER = 8
+
+
+class BwdPlan(NamedTuple):
+    """How texture_warp_bwd is launched: one cluster of `cluster` CTAs per
+    group (a (part, batch), or a part for a batch-1 texture, whose CTAs
+    then walk every batch); rank r of a cluster takes the pixels
+    [r * chunk, min((r + 1) * chunk, N)) of its group."""
+    per_sample: bool    # dtex has the batch axis of w
+    groups: int         # clusters
+    cluster: int        # CTAs per cluster
+    chunk: int          # pixels per CTA, a multiple of 4
+    smem: int           # dynamic shared bytes per CTA
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_plan(B: int, tex_batch: int, P: int, C: int, T: int,
+                    N: int) -> BwdPlan:
+    """The backward's launch plan. Shared memory a CTA: the C x T x T dtex
+    tile (rounded up to 4 floats), then for each warp three planes of its
+    window and the window's queue. Clusters of 8 CTAs, the portable most,
+    unless a group has fewer pixels than 8 CTAs' warps take in one window
+    each (then the largest power of two that has them). A group's time is
+    its selected pixels over its CTAs, and parts differ in their selected
+    pixels by several times, so the clusters are made as wide as the
+    portable size allows; the card holds fewer than all of them at once,
+    and a waiting cluster starts as soon as one finishes, which takes up
+    the slack of the light parts (PERF.md). Raises ValueError where
+    the tile does not fit one CTA (C=4 at T=128)."""
+    tile4 = -(-C * T * T // 4) * 4
+    smem = 4 * (tile4 + (BWD_THREADS // 32) * 4 * BWD_WARP_WINDOW)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"texture_warp_bwd: the C={C} x T={T} dtex tile "
+                         f"needs {smem} bytes of shared memory a CTA, "
+                         f"more than {SMEM_PER_CTA}")
+    per_sample = tex_batch == B and B > 1
+    groups = P * (B if per_sample else 1)
+    fit = min(MAX_CLUSTER, N // (BWD_THREADS // 32 * BWD_WARP_WINDOW))
+    cluster = 1
+    while cluster * 2 <= fit:
+        cluster *= 2
+    chunk = -(-N // cluster)
+    chunk = -(-chunk // 4) * 4
+    return BwdPlan(per_sample, groups, cluster, chunk, smem)
 
 
 # ----------------------------------------------------------------------
@@ -171,7 +225,8 @@ def _lib() -> ctypes.CDLL:
                                           i32, i32, i32, i32, i32, p]
     lib.nhvr_texture_warp_fwd.restype = i32
     lib.nhvr_texture_warp_bwd.argtypes = [p, i64, p, p, i64, i64, p, p, p, p,
-                                          i64, i64, p, i64, p, i64, i32, i32,
+                                          i64, i64, p, i64, p, p, i64, p,
+                                          i32, i32, i32, i32, i32, i32, i32,
                                           i32, i32, i32, p]
     lib.nhvr_texture_warp_bwd.restype = i32
     return lib
@@ -285,8 +340,9 @@ def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Backward of the blended warp (see texture_warp_bwd_plain). Inputs as
     texture_warp_fwd's, g (B, C, N) float32 contiguous -> duv (B, P, 2, N),
     dprobs (B, P+1, N) and dtex shaped like tex, all fresh and contiguous.
-    On the card dtex is summed with float atomics, so its last bits vary
-    from run to run."""
+    On the card the kernel writes every element of the three (no memset),
+    in one launch planned by bwd_launch_plan; dtex is summed with shared
+    float atomics, so its last bits vary from run to run."""
     B, P, N = w.shape
     C, T = _check_tex(tex, B, P)
     if tuple(g.shape) != (B, C, N):
@@ -300,20 +356,25 @@ def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         raise ValueError("g must be float32 and contiguous on w's device")
     duv = torch.empty((B, P, 2, N), dtype=torch.float32, device=w.device)
     dprobs = torch.empty((B, P + 1, N), dtype=torch.float32, device=w.device)
-    dprobs[:, 0].zero_()
-    dtex = torch.zeros(tex.shape, dtype=torch.float32, device=w.device)
+    dtex = torch.empty(tex.shape, dtype=torch.float32, device=w.device)
     if w.numel() == 0:
         return duv, dprobs, dtex
-    per_sample = tex.shape[0] == B and B > 1
-    tex_bstride = tex.stride(0) if per_sample else 0
-    dtex_bstride = dtex.stride(0) if per_sample else 0
-    stream = torch.cuda.current_stream(w.device).cuda_stream
+    plan = bwd_launch_plan(B, tex.shape[0], P, C, T, N)
+    tex4 = torch.empty((plan.groups, T * T, 4), dtype=torch.float32,
+                       device=w.device)
+    tex_bstride = tex.stride(0) if plan.per_sample else 0
+    dtex_bstride = dtex.stride(0) if plan.per_sample else 0
+    vec = (N % 4 == 0 and u.stride(0) % 4 == 0 and u.stride(1) % 4 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (w, u, v)))
+    duv_p, dprobs_p = duv.data_ptr(), dprobs.data_ptr()
     err = _lib().nhvr_texture_warp_bwd(
         tex.data_ptr(), tex_bstride, u.data_ptr(), v.data_ptr(), u.stride(0),
-        u.stride(1), w.data_ptr(), g.data_ptr(), duv[:, :, 0].data_ptr(),
-        duv[:, :, 1].data_ptr(), duv.stride(0), duv.stride(1),
-        dprobs[:, 1:].data_ptr(), dprobs.stride(0), dtex.data_ptr(),
-        dtex_bstride, B, P, C, T, N, stream)
+        u.stride(1), w.data_ptr(), g.data_ptr(), duv_p, duv_p + 4 * N,
+        2 * P * N, 2 * N, dprobs_p + 4 * N, (P + 1) * N, dprobs_p,
+        dtex.data_ptr(), dtex_bstride, tex4.data_ptr(), B, P, C, T, N,
+        plan.cluster,
+        plan.chunk, plan.smem, plan.per_sample, vec,
+        torch.cuda.current_stream(w.device).cuda_stream)
     texture_warp_bwd.launches += 1
     _check(err, "texture_warp_bwd")
     return duv, dprobs, dtex

@@ -128,6 +128,83 @@ def test_texture_warp_bwd_matches_plain(cuda, k, eps, T, B_tex):
     assert (got[0][:, :, 0][~sel] == 0).all()
 
 
+def _smooth_uv(dev, B, P, H, W, seed=0):
+    """Renderer-like uv: each part a smooth, slowly turning map that puts
+    many neighbouring pixels on one texel (and many lanes of a warp on
+    one shared-memory address)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ys = torch.linspace(0, 1, H, device=dev)[:, None].expand(H, W)
+    xs = torch.linspace(0, 1, W, device=dev)[None, :].expand(H, W)
+    a = torch.rand((B, P, 1, 1), generator=g, device=dev)
+    s = 0.05 + 0.2 * torch.rand((B, P, 1, 1), generator=g, device=dev)
+    u = (a + s * (xs + 0.3 * torch.sin(6 * ys))).clamp(0, 1)
+    v = (1 - a + s * (ys - 0.2 * xs)).clamp(0, 1)
+    return torch.stack([u, v], dim=2)
+
+
+@pytest.mark.parametrize("k,B_tex", [(4, 2), (24, 2), (4, 1)])
+def test_texture_warp_bwd_smooth_uv_matches_plain(cuda, k, B_tex):
+    """Many pixels per texel: the warp-aggregated shared atomics."""
+    P, H, W, T = 24, 96, 96, 16
+    tex, _, probs = _inputs(cuda, B=2, P=P, H=H, W=W, T=T)
+    uv = _smooth_uv(cuda, 2, P, H, W)
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    w = tk.topk_select(fg, k, 0, 1e-3)
+    g = torch.randn((2, 3, H * W), device=cuda)
+    got = tk.texture_warp_bwd(tex[:B_tex], u, v, w, g)
+    want = tk.texture_warp_bwd_plain(tex[:B_tex], u, v, w, g)
+    torch.cuda.synchronize()
+    _bwd_close(got, want)
+
+
+@pytest.mark.parametrize("H,W,B_tex", [(64, 64, 2), (31, 31, 2), (30, 30, 1)])
+def test_texture_warp_bwd_writes_every_element(cuda, H, W, B_tex):
+    """The outputs come from torch.empty and no memset: blocks filled with
+    NaN and freed first are reused, and no NaN may come out (31 x 31: N is
+    odd, so the kernel takes its scalar accesses)."""
+    tex, uv, probs = _inputs(cuda, H=H, W=W)
+    tex = tex[:B_tex]
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    w = tk.topk_select(fg, 3, 0, 1e-3)
+    g = torch.randn((2, 3, H * W), device=cuda)
+    B, P, N = w.shape
+    torch.cuda.synchronize()
+    nan = [torch.full(s, float("nan"), device=cuda)
+           for s in ((B, P, 2, N), (B, P + 1, N), tuple(tex.shape))]
+    del nan
+    got = tk.texture_warp_bwd(tex, u, v, w, g)
+    torch.cuda.synchronize()
+    for name, t in zip(("duv", "dprobs", "dtex"), got):
+        assert not torch.isnan(t).any(), name
+    assert (got[1][:, 0] == 0).all()
+    _bwd_close(got, tk.texture_warp_bwd_plain(tex, u, v, w, g))
+
+
+@pytest.mark.parametrize("W,view", [(48, "contiguous"), (50, "contiguous"),
+                                    (48, "channels of cat"),
+                                    (50, "channels of cat")])
+def test_flow_warp_fwd_widths_and_views(cuda, W, view):
+    """W % 4 == 0 and not, on the temporal loss's strided channel views
+    (one torch.cat for the image and the flow), against the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(W)
+    H = 40
+    img = torch.rand((2, 3, H, W), generator=g, device=cuda) * 2 - 1
+    flow = torch.randn((2, 2, H, W), generator=g, device=cuda) * 8
+    flow[1, :, -4:] = -1000.0                      # leaves the image
+    if view == "channels of cat":
+        cat = torch.cat([img, flow], dim=1)
+        img, flow = cat[:, 1:], cat[:, 3:]
+    fk.reset_launch_counts()
+    got = fk.flow_warp_fwd(img, flow)
+    assert fk.flow_warp_fwd.launches == 1
+    want = fk.flow_warp_fwd_plain(img.contiguous(), flow.contiguous())
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) \
+        <= FWD_TOL * max(1.0, float(want.abs().max()))
+    assert (got[1, :, -4:] == 0).all()
+
+
 @pytest.mark.parametrize("C,H,W", [(5, 64, 48), (3, 37, 50), (2, 128, 128)])
 def test_flow_warp_fwd_matches_plain(cuda, C, H, W):
     g = torch.Generator(device=cuda).manual_seed(C)
@@ -167,6 +244,29 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                                           device=cuda))
     with pytest.raises(ValueError):
         fk.flow_warp_fwd(img, torch.zeros((1, 2, 8, 8)))
+
+
+@pytest.mark.parametrize("bad", ["smem short of the layout", "chunk not a "
+                                 "multiple of 4", "ranks leave pixels out"])
+def test_texture_warp_bwd_refuses_a_bad_launch_plan(cuda, monkeypatch, bad):
+    """The C entry point checks the plan it is handed from Python against
+    the kernel's own shared-memory layout and windows, and the wrapper
+    raises; a good plan still runs afterwards."""
+    tex, uv, probs = _inputs(cuda, H=64, W=64)
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    w = tk.topk_select(fg, 3)
+    g = torch.randn((2, 3, fg.shape[2]), device=cuda)
+    good = tk.bwd_launch_plan(2, 2, 7, 3, 16, 64 * 64)
+    plan = {"smem short of the layout": good._replace(smem=good.smem - 4),
+            "chunk not a multiple of 4": good._replace(chunk=good.chunk - 2),
+            "ranks leave pixels out": good._replace(chunk=good.chunk // 2),
+            }[bad]
+    monkeypatch.setattr(tk, "bwd_launch_plan", lambda *args: plan)
+    with pytest.raises(RuntimeError, match="texture_warp_bwd"):
+        tk.texture_warp_bwd(tex, u, v, w, g)
+    monkeypatch.undo()
+    _bwd_close(tk.texture_warp_bwd(tex, u, v, w, g),
+               tk.texture_warp_bwd_plain(tex, u, v, w, g))
 
 
 def _linear_atlas(P, T, seed=5):
