@@ -9,41 +9,47 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      per source, all started together).
   2. kernel vs plain version at the serving shapes (B=8, P=24, 512x512,
      T=64, k=4, eps=1e-3), k=P, block_parts=8, tile 128, bf16 texture.
-     Top-k must match exactly; the forward within 2e-5 (float32). Then at
-     the train step's shapes (B=2): the warp backward (k=4 eps=1e-3, k=P,
-     tile 128, texture batch 1) within 1e-5 + 1e-5 * max|plain| (float
-     atomics reorder dtex's sums); TextureWarp's three gradients with a
-     bf16 texture against the float32 plain versions' within 3e-2 of
-     max|plain|; the flow warp (C=5, flow ~ 8 N(0,1) px, some of it
-     leaving the image; a smooth flow, a strided channel view, and W=510)
-     within 2e-5.
+     Top-k must match exactly; the forward with w given and the fused
+     forward (both modes; not with block_parts) within 2e-5 (float32), the
+     fused forward's kept w exactly. Then at the train step's shapes
+     (B=2): the warp backward (k=4 eps=1e-3, k=P, tile 128, texture batch
+     1) within 1e-5 + 1e-5 * max|plain| (float atomics reorder dtex's
+     sums); TextureWarp's three gradients with a bf16 texture against the
+     float32 plain versions' within 3e-2 of max|plain|; the flow warp (C=5,
+     flow ~ 8 N(0,1) px, some of it leaving the image; a smooth flow, a
+     strided channel view, and W=510) within 2e-5.
   3. main path: 16 synthetic OpenPose JSONs through the port's
      run_inference at the flagship model's full width (bf16, batch 8,
-     random weights from --seed): 16 finite PNG frames, and each kernel
-     launched once per batch. Then kernel vs plain version on one batch's
-     own texture / uv / probs (the backward on its first 2 samples), and a
-     tiny float32 renderer on the card against the same weights on the CPU
-     (all parts blended: a top-k selection among near-equal random-init
-     probabilities would flip on float rounding and make the comparison
-     meaningless).
+     random weights from --seed): 16 finite PNG frames, and the fused
+     forward launched once per batch and no other kernel; one batch with
+     --warp_block_parts 8 launches top-k and the forward with w given once
+     each. Then the kernels vs their plain versions on one batch's own
+     texture / uv / probs (the backward on its first 2 samples), and a
+     tiny float32 renderer on the card against the same weights on the
+     CPU (all parts blended: a top-k selection among near-equal
+     random-init probabilities would flip on float rounding and make the
+     comparison meaningless).
   4. numbers: forward ms and FPS at batch 8, peak memory, each layer's
      time, a profiler trace of the forward (device busy share, top
-     kernels, the port's kernels), the serving kernels' numbers, the
-     backward's device time on the renderer's tensors at batch 2.
+     kernels, the port's kernels), the serving kernels' numbers (the fused
+     forward in its serving mode), the forward's device time on the
+     renderer's tensors at batch 8 (fused, top-k then forward, w given),
+     the backward's on them at batch 2.
   5. train path: the port's run_train at the flagship width (512px, batch
      2, the recipe's losses, random weights from --seed) for 3 warm-up and
      10 timed steps with --temporal_prev real: finite losses, G and D
-     changed, each of the four kernels launched once per step; one step
-     with --temporal_prev fake launches top-k and the forward twice. Then
-     a tiny float32 train step on the card against the CPU (all parts
-     blended, SGD lr 1, TF32 off): losses and parameter deltas.
+     changed, the fused forward (keeping w), the backward and the flow
+     warp launched once per step, top-k and the forward with w given
+     never; one step with --temporal_prev fake launches the fused forward
+     twice. Then a tiny float32 train step on the card against the CPU
+     (all parts blended, SGD lr 1, TF32 off): losses and parameter deltas.
   6. train numbers: step ms (median) and steps/s, peak memory, the phases
-     of a step (CUDA events), a profiler trace of one step (with each of
-     the port's kernels' device time), and for each of the four kernels at
-     the train step's shapes: its device time (20 calls captured in a CUDA
-     graph, replayed between CUDA events), its host cost per call, the
-     plain version's time, a library yardstick's device time, and its
-     bound.
+     of a step (CUDA events), a profiler trace of one step (with the
+     port's kernels' device time), and for each of the five kernels at
+     the train step's shapes (the fused forward keeping w): its device
+     time (20 calls captured in a CUDA graph, replayed between CUDA
+     events), its host cost per call, the plain version's time, a library
+     yardstick's device time, and its bound.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -99,12 +105,15 @@ TINY_TRAIN = TINY + (
 REPLACES = {
     "topk_select": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:118",
     "texture_warp_fwd": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:310",
+    # the selection (:118) and the forward (:310) in one launch
+    "texture_warp_topk_fwd": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:310",
     "texture_warp_bwd": "neural_human_video_rendering_tpu/ops/pallas_warp2.py:358",
     "flow_warp_fwd": "neural_human_video_rendering_tpu/ops/pallas_flow_warp.py:51",
 }
 SOURCE = {
     "topk_select": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
     "texture_warp_fwd": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
+    "texture_warp_topk_fwd": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
     "texture_warp_bwd": "neural_human_video_rendering_tpu_torch/csrc/texture_warp.cu",
     "flow_warp_fwd": "neural_human_video_rendering_tpu_torch/csrc/flow_warp.cu",
 }
@@ -188,9 +197,13 @@ def host_us(torch, fn, iters=200):
     return t / iters * 1e6
 
 
-PORT_KERNELS = {"topk_select": "topk_", "texture_warp_fwd": "texture_warp_fwd",
-                "texture_warp_bwd": "texture_warp_bwd",
-                "flow_warp_fwd": "flow_warp_fwd"}
+# device kernels by name: the forward's modes share texture_warp_fwd_kernel
+# and the texel-major copy texel_major_kernel
+PORT_KERNELS = {"topk_select": ("topk_",),
+                "texture_warp_fwd and texture_warp_topk_fwd": (
+                    "texture_warp_fwd", "texel_major"),
+                "texture_warp_bwd": ("texture_warp_bwd",),
+                "flow_warp_fwd": ("flow_warp_fwd",)}
 
 
 def trace_forward(torch, fn, iters=3, top=10):
@@ -218,14 +231,29 @@ def trace_forward(torch, fn, iters=3, top=10):
                 for e in evs[:top]]
 
     port = {name: sum(e.self_device_time_total for e in kernels
-                      if key in e.key) / 1e3 / iters
-            for name, key in PORT_KERNELS.items()}
+                      if any(key in e.key for key in keys)) / 1e3 / iters
+            for name, keys in PORT_KERNELS.items()}
     return {"device_busy_ms_per_call":
             sum(e.self_device_time_total for e in kernels) / 1e3 / iters,
             "port_kernels_ms_per_call": port,
             "port_kernels_ms_total": sum(port.values()),
             "top_ops_ms_per_call": ranked(ops, 60),
             "top_kernels_ms_per_call": ranked(kernels, 120)}
+
+
+# launches per train step on the main path (the rest: none)
+TRAIN_LAUNCHES_PER_STEP = {"topk_select": 0, "texture_warp_fwd": 0,
+                           "texture_warp_topk_fwd": 1,
+                           "texture_warp_bwd": 1, "flow_warp_fwd": 1}
+
+
+def launch_counts(tk, fk):
+    """Every kernel wrapper's launch count, by REPLACES' names."""
+    return {"topk_select": tk.topk_select.launches,
+            "texture_warp_fwd": tk.texture_warp_fwd.launches,
+            "texture_warp_topk_fwd": tk.texture_warp_topk_fwd.launches,
+            "texture_warp_bwd": tk.texture_warp_bwd.launches,
+            "flow_warp_fwd": fk.flow_warp_fwd.launches}
 
 
 def warp_inputs(torch, B, P, H, W, T, seed, device):
@@ -237,25 +265,53 @@ def warp_inputs(torch, B, P, H, W, T, seed, device):
     return tex, uv, probs
 
 
+def selection_shape(w):
+    """How coherent a selection w (B, P, N) is: selected parts a pixel,
+    the share of 32-byte sectors (8 pixels) of the u / v planes that hold
+    a selected pixel, and the parts that a warp's 32 pixels select."""
+    B, P, N = w.shape
+    sel = w > 0
+    return {"parts_per_pixel": float(sel.sum(1).float().mean()),
+            "uv_sectors_read": float(
+                sel.view(B, P, N // 8, 8).any(3).float().mean()),
+            "parts_per_warp": float(
+                sel.view(B, P, N // 32, 32).any(3).float().sum(1).mean())}
+
+
 def planes(uv, probs):
     return (probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2),
             uv[:, :, 1].flatten(2))
 
 
 def compare_kernels(torch, tk, smoke, tag, tex, uv, probs, k, bp, eps):
-    """Kernel vs plain version on the same inputs; returns the errors and
-    the kernel's selection."""
+    """Kernels vs plain versions on the same inputs: top-k, the forward
+    with w given and, without the block_parts cap, the fused forward in
+    both modes (its kept w exactly). Returns the errors {name: err} and
+    topk_select's selection."""
     fg, u, v = planes(uv, probs)
     w_k = tk.topk_select(fg, k, bp, eps)
     w_p = tk.topk_select_plain(fg, k, bp, eps)
     out_k = tk.texture_warp_fwd(tex, u, v, w_k)
     out_p = tk.texture_warp_fwd_plain(tex, u, v, w_p)
     torch.cuda.synchronize()
-    e_sel = smoke.check(f"topk_select {tag}",
-                        float((w_k - w_p).abs().max()), 0.0)
-    e_fwd = smoke.check(f"texture_warp_fwd {tag}",
-                        float((out_k - out_p).abs().max()), FWD_TOL)
-    return e_sel, e_fwd, w_k
+    errs = {"topk_select": smoke.check(f"topk_select {tag}",
+                                       float((w_k - w_p).abs().max()), 0.0),
+            "texture_warp_fwd": smoke.check(
+                f"texture_warp_fwd {tag}", float((out_k - out_p).abs().max()),
+                FWD_TOL)}
+    if bp == 0:
+        out_f = tk.texture_warp_topk_fwd(tex, fg, u, v, k, eps)
+        out_fk, w_fk = tk.texture_warp_topk_fwd(tex, fg, u, v, k, eps,
+                                                return_w=True)
+        torch.cuda.synchronize()
+        errs["texture_warp_topk_fwd"] = max(
+            smoke.check(f"texture_warp_topk_fwd {tag}",
+                        float((out_f - out_p).abs().max()), FWD_TOL),
+            smoke.check(f"texture_warp_topk_fwd {tag} keeping w",
+                        float((out_fk - out_p).abs().max()), FWD_TOL))
+        smoke.require(f"texture_warp_topk_fwd {tag}: kept w == topk_select's",
+                      torch.equal(w_fk, w_k))
+    return errs, w_k
 
 
 def write_driving_sequence(opt, kp_dir, n):
@@ -367,10 +423,12 @@ def bound(nbytes, flops):
 
 
 def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
-                   flow=None):
+                   flow=None, keep_w=False):
     """{name: ms, host_us, plain_ms, bound_ms, bound_by, library_ms} at
     these inputs. ms and library_ms are device time (graph_ms); host_us the
-    host's cost per call; plain_ms CUDA events around eager calls."""
+    host's cost per call; plain_ms CUDA events around eager calls. The
+    fused forward is timed in its keep mode where keep_w (the train
+    step's), else in its serving mode."""
     F = torch.nn.functional
     B, P, C, T = tex.shape[0], tex.shape[1], tex.shape[2], tex.shape[3]
     S = uv.shape[3]
@@ -387,10 +445,10 @@ def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
         sel = torch.where(fg >= thr, fg, 0.0)
         return torch.where(sel >= EPS, sel, 0.0)
 
-    def fwd_library():
+    def fwd_library(ww=w):
         samp = F.grid_sample(tex_bp, grid, mode="bilinear",
                              padding_mode="border", align_corners=True)
-        return (samp.view(B, P, C, N) * w[:, :, None]).sum(1)
+        return (samp.view(B, P, C, N) * ww[:, :, None]).sum(1)
 
     out = {}
     todo = {}
@@ -405,6 +463,18 @@ def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
             lambda: tk.texture_warp_fwd_plain(tex, u, v, w), fwd_library,
             bound(B * P * N * 4 + nnz * 8 + tex.numel() * 4 + B * C * N * 4,
                   nnz * C * 14))
+    if "texture_warp_topk_fwd" in names:
+        # fg read densely, u / v of the selected pairs, the atlas, out (and
+        # w) written; the selection's and the blend's operations
+        todo["texture_warp_topk_fwd"] = (
+            lambda: tk.texture_warp_topk_fwd(tex, fg, u, v, K, EPS,
+                                             return_w=keep_w),
+            lambda: tk.texture_warp_fwd_plain(
+                tex, u, v, tk.topk_select_plain(fg, K, 0, EPS)),
+            lambda: fwd_library(topk_library()),
+            bound(B * P * N * 4 * (2 if keep_w else 1) + nnz * 8
+                  + tex.numel() * 4 + B * C * N * 4,
+                  B * N * P * (2 * K + 2) + nnz * C * 14))
     if "texture_warp_bwd" in names:
         # yardstick: grid_sample's backward (bilinear, border, align_corners)
         # over the B*P tiles, given the cotangent the blend hands each tile
@@ -541,13 +611,9 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
         make_train_step
     work = os.path.join(repo, "build", "chip_smoke")
     ckpt = ["--checkpoints_dir", os.path.join(work, "ckpt")]
-    names = tuple(REPLACES)
 
     def counts():
-        return {"topk_select": tk.topk_select.launches,
-                "texture_warp_fwd": tk.texture_warp_fwd.launches,
-                "texture_warp_bwd": tk.texture_warp_bwd.launches,
-                "flow_warp_fwd": fk.flow_warp_fwd.launches}
+        return launch_counts(tk, fk)
 
     def reset():
         tk.reset_launch_counts()
@@ -569,10 +635,12 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
           f"included); launches {launches}", flush=True)
     smoke.require(f"run_train took {steps} steps", state.step == steps)
     per_step = {k: v / max(state.step, 1) for k, v in launches.items()}
-    for name in names:
-        smoke.require(f"{name} launched once per train step",
-                      launches[name] == state.step,
-                      f"({launches[name]} launches, {state.step} steps)")
+    smoke.require("train step: texture_warp_topk_fwd, texture_warp_bwd and "
+                  "flow_warp_fwd once per step, topk_select and "
+                  "texture_warp_fwd never",
+                  launches == {k: v * state.step
+                               for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
+                  f"({launches}, {state.step} steps)")
     finite = {k: float(v) for k, v in state.metrics.items()}
     print(f"[train] last step losses {json.dumps(finite)}", flush=True)
     smoke.require("train losses finite", len(finite) >= 9 and all(
@@ -595,8 +663,9 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
     fake_counts = counts()
     print(f"[train] temporal_prev fake, 1 step: launches {fake_counts}",
           flush=True)
-    smoke.require("temporal_prev fake: topk 2, fwd 2, bwd 1, flow 1",
-                  fake_counts == {"topk_select": 2, "texture_warp_fwd": 2,
+    smoke.require("temporal_prev fake: fused forward 2, bwd 1, flow 1",
+                  fake_counts == {"topk_select": 0, "texture_warp_fwd": 0,
+                                  "texture_warp_topk_fwd": 2,
                                   "texture_warp_bwd": 1, "flow_warp_fwd": 1},
                   str(fake_counts))
     smoke.require("temporal_prev fake losses finite", all(
@@ -705,10 +774,8 @@ def main() -> int:
     # ------------------------------------------ 2. kernel vs plain version
     B, P, S, T, K, EPS = 8, 24, 512, 64, 4, 1e-3
     tex, uv, probs = warp_inputs(torch, B, P, S, S, T, 0, dev)
-    errs = {}
-    e_sel, e_fwd, w_main = compare_kernels(torch, tk, smoke, "main k=4",
-                                           tex, uv, probs, K, 0, EPS)
-    errs["topk_select"], errs["texture_warp_fwd"] = e_sel, e_fwd
+    errs, w_main = compare_kernels(torch, tk, smoke, "main k=4", tex, uv,
+                                   probs, K, 0, EPS)
     compare_kernels(torch, tk, smoke, "k=P", tex, uv, probs, P, 0, 0.0)
     compare_kernels(torch, tk, smoke, "block_parts=8", tex, uv, probs, K, 8, EPS)
     tex128, uv128, probs128 = warp_inputs(torch, 2, P, 256, 256, 128, 1, dev)
@@ -768,12 +835,12 @@ def main() -> int:
         for f in os.listdir(os.path.join(res_dir, "images")):
             os.remove(os.path.join(res_dir, "images", f))
     tk.reset_launch_counts()
+    fk.reset_launch_counts()
     t0 = time.perf_counter()
     n = td.run_inference(opt, assets=assets)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
-    launches = {"topk_select": tk.topk_select.launches,
-                "texture_warp_fwd": tk.texture_warp_fwd.launches}
+    launches = launch_counts(tk, fk)
     batches = -(-16 // opt.infer_batch)
     print(f"[main] run_inference wrote {n} frames in {e2e_s:.2f} s; "
           f"launches {launches} for {batches} batches", flush=True)
@@ -783,9 +850,28 @@ def main() -> int:
     imgs = [read_png(os.path.join(res_dir, "images", f)) for f in frames]
     smoke.require("frames are SxS RGB and not flat",
                   all(i.shape == (S, S, 3) and i.std() > 1.0 for i in imgs))
-    for name, count in launches.items():
-        smoke.require(f"{name} launched once per batch", count == batches,
-                      f"({count} launches, {batches} batches)")
+    smoke.require("serving: texture_warp_topk_fwd once per batch, no other "
+                  "kernel", launches == {**{k: 0 for k in launches},
+                                         "texture_warp_topk_fwd": batches},
+                  f"({launches}, {batches} batches)")
+    # the lossy block_parts route: top-k with the cap, then the forward
+    # with w given, once per batch
+    opt_bp = TestOptions().parse(FLAGSHIP + [
+        "--pose_path", kp_dir, "--results_dir", os.path.join(work, "results_bp"),
+        "--checkpoints_dir", os.path.join(work, "ckpt"), "--name", "smoke",
+        "--warp_block_parts", "8"], save=False)
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    n_bp = td.run_inference(opt_bp, max_frames=8, assets=assets)
+    torch.cuda.synchronize()
+    bp_launches = launch_counts(tk, fk)
+    print(f"[main] --warp_block_parts 8: {n_bp} frames, launches "
+          f"{bp_launches}", flush=True)
+    smoke.require("block_parts route: 8 frames, topk_select and "
+                  "texture_warp_fwd once, no other kernel",
+                  n_bp == 8 and bp_launches == {
+                      **{k: 0 for k in bp_launches}, "topk_select": 1,
+                      "texture_warp_fwd": 1}, str(bp_launches))
 
     # one batch's own tensors: kernel vs plain version
     renderer = td.build_renderer(opt, dev)
@@ -798,12 +884,12 @@ def main() -> int:
         bool(torch.isfinite(t).all()) for t in out.values()))
     smoke.require("fake has shape (8, 3, S, S)",
                   tuple(out["fake"].shape) == (8, 3, S, S))
-    _, _, w_real = compare_kernels(torch, tk, smoke, "renderer tensors",
-                                   out["texture"], out["uv"], out["probs"],
-                                   K, 0, EPS)
-    sel_real = float((w_real > 0).sum(1).float().mean())
-    print(f"[main] renderer batch: mean selected parts per pixel {sel_real:.3f}",
-          flush=True)
+    rend8 = (out["texture"], out["uv"], out["probs"])
+    _, w_real = compare_kernels(torch, tk, smoke, "renderer tensors", *rend8,
+                                K, 0, EPS)
+    print(f"[main] selection of the renderer batch "
+          f"{json.dumps(selection_shape(w_real))}, of random inputs "
+          f"{json.dumps(selection_shape(w_main))}", flush=True)
     # the backward at batch 2 on the renderer's own tensors: smooth uv, so
     # neighbouring pixels hit the same texels
     rend2 = (out["texture"][:2], out["uv"][:2], out["probs"][:2])
@@ -864,7 +950,23 @@ def main() -> int:
         "dtype": opt.dtype, "card": smi}}), flush=True)
 
     serving = kernel_numbers(torch, tk, fk, tex, uv, probs, w_main, K, EPS,
-                             ("topk_select", "texture_warp_fwd"))
+                             ("topk_select", "texture_warp_fwd",
+                              "texture_warp_topk_fwd"))
+    # the forward on the renderer's own tensors (batch 8): the serving
+    # route, the parent's two launches, and the forward with w given
+    fg8, u8, v8 = planes(rend8[1], rend8[2])
+    w8 = tk.topk_select(fg8, K, 0, EPS)
+    rend_fwd = {
+        "renderer_tensors_ms": graph_ms(torch, lambda: tk.texture_warp_topk_fwd(
+            rend8[0], fg8, u8, v8, K, EPS)),
+        "renderer_tensors_topk_then_fwd_ms": graph_ms(
+            torch, lambda: tk.texture_warp_fwd(
+                rend8[0], u8, v8, tk.topk_select(fg8, K, 0, EPS))),
+        "renderer_tensors_w_given_ms": graph_ms(
+            torch, lambda: tk.texture_warp_fwd(rend8[0], u8, v8, w8)),
+        "renderer_tensors_selected": int((w8 > 0).sum())}
+    print(f"[numbers] the forward on the renderer's tensors (B=8): "
+          f"{json.dumps(rend_fwd)}", flush=True)
     fg_r, u_r, v_r = planes(rend2[1], rend2[2])
     w_r = tk.topk_select(fg_r, K, 0, EPS)
     g_r = torch.randn((2, rend2[0].shape[2], fg_r.shape[2]), device=dev,
@@ -882,7 +984,7 @@ def main() -> int:
     print(f"[numbers] texture_warp_bwd on the renderer's tensors (B=2): "
           f"{json.dumps(rend_bwd)}", flush=True)
     del tex, uv, probs, w_main, fwd, renderer, state_assets, rend2, fg_r, \
-        u_r, v_r, w_r, g_r
+        u_r, v_r, w_r, g_r, rend8, fg8, u8, v8, w8
 
     # ------------------------------------------------------ 5. train path
     train = train_path(torch, smoke, tk, fk, repo, dev, smi)
@@ -892,13 +994,21 @@ def main() -> int:
     tex, uv, probs = warp_inputs(torch, B2, P, S, S, T, 4, dev)
     w_train = tk.topk_select(planes(uv, probs)[0], K, 0, EPS)
     train_k = kernel_numbers(torch, tk, fk, tex, uv, probs, w_train, K, EPS,
-                             tuple(REPLACES), flow=flow_inputs(torch, B2, S, 5, dev))
+                             tuple(REPLACES), flow=flow_inputs(torch, B2, S, 5, dev),
+                             keep_w=True)
+    # launches: each kernel's count from the main path that runs it
+    bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
+    train_run = f"run_train, {TRAIN_WARMUP + TRAIN_TIMED} steps"
+    main_run = {name: (bp_launches[name], bp_path)
+                if name in ("topk_select", "texture_warp_fwd")
+                else (train["launches"][name], train_run)
+                for name in REPLACES}
     kernels = []
     for name in REPLACES:
         row = serving.get(name) or train_k[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE[name],
-                 "replaces": REPLACES[name],
-                 "launches": train["launches"][name],
+                 "replaces": REPLACES[name], "launches": main_run[name][0],
+                 "launches_path": main_run[name][1],
                  "launches_per_train_step": train["per_step"][name],
                  "max_abs_err": errs[name], **row, "card": smi}
         if name in serving:
@@ -907,6 +1017,11 @@ def main() -> int:
             entry["train_shapes"] = train_k[name]
         else:
             entry["shapes"] = "train step: B=2, P=24, 512x512, T=64, k=4, eps=1e-3"
+        if name == "texture_warp_topk_fwd":
+            entry["also_replaces"] = REPLACES["topk_select"]
+            entry["modes"] = ("serving shapes: the selection in registers, "
+                              "no w; train_shapes: w kept")
+            entry.update(rend_fwd)
         if name == "texture_warp_bwd":
             entry.update(rend_bwd)
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "

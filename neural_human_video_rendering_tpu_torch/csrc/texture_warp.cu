@@ -1,10 +1,13 @@
 // Per-part texture warp: top-k part selection, the blended bilinear
-// forward and its backward, for sm_90a (H100).
+// forward (with w given, or with the selection fused in) and its backward,
+// for sm_90a (H100).
 //
 // Replaces the three Pallas TPU kernels of the JAX package's
 // ops/pallas_warp2.py:
 //   topk_select       <- _topk_kernel (:118), called by _topk_call (:154)
 //   texture_warp_fwd  <- _fwd_kernel  (:310), called by _fwd_call  (:464)
+//   texture_warp_topk_fwd <- _topk_kernel (:118) and then _fwd_kernel (:310)
+//                        in one launch
 //   texture_warp_bwd  <- _bwd_kernel  (:358), called by _bwd_call  (:495)
 //                        and wrapped by _texture_warp_bwd (:584)
 //
@@ -17,25 +20,53 @@
 // layout shuffles of the TPU path (_to_planes) are gone.
 //
 // Bound (H100 SXM, 3.35 TB/s; flagship serving point B=8, P=24, N=512^2,
-// T=64, C=3, k=4). Both kernels do a few flops per byte, far below the
-// card's ~20 flop/byte f32 ridge, so both are bound by device-memory bytes:
+// T=64, C=3, k=4). The kernels do a few flops per byte, far below the
+// card's ~20 flop/byte f32 ridge, so all are bound by device-memory bytes:
 //   topk_select: fg read once + w written once, 2 * 201.3 MB -> 0.12 ms.
-//   texture_warp_fwd: w read (201.3 MB) + u and v of the <= k selected parts
-//     of each pixel (<= 67.1 MB) + the atlas (9.4 MB) + out (25.2 MB)
-//     -> <= 0.09 ms.
-// What the design does about it:
-//   * one thread per pixel, loops over parts: consecutive threads read
-//     consecutive pixels of one part plane, so every load and store of the
-//     (B, P, N) planes is a fully coalesced 128-byte line per warp;
-//   * the P values of a pixel stay in registers (P is bounded by the
-//     template PM), so fg is read once and w written once;
-//   * the forward skips a part whose weight is 0 before it touches u, v or
-//     the texture, so it reads u and v only for the selected parts;
-//   * texture taps go through the read-only path into L2: one sample's
-//     atlas is 24 * 64 * 64 * 3 * 4 B = 1.2 MB and all eight fit in L2.
-// Left for later: fusing the selection into the forward (serving never
-// needs w in memory, which would save 2 * 201 MB), vectorized loads, and
-// staging the atlas tile in shared memory.
+//   the forward: fg (or w) read (201.3 MB) + u and v of the <= k selected
+//     parts of each pixel (<= 67.1 MB) + the atlas (9.4 MB) + out
+//     (25.2 MB) -> <= 0.09 ms; the train step's mode also writes w.
+// One forward kernel, three modes (template MODE): w given (the lossy
+// block_parts route, whose cap stays in topk_block_cap_kernel); the
+// selection fused in (serving: w never leaves registers, which saves the
+// 2 * 201 MB of topk_select's w); the selection fused in with w kept for
+// the backward (the train step: one launch instead of two). The design:
+//   * one thread per pixel: consecutive threads read consecutive pixels of
+//     one part plane, so every load and store of the (B, P, N) planes is a
+//     coalesced 128-byte line per warp; all P loads of a pixel's fg or w
+//     go out before any is used (unrolled over the part bound PM), and the
+//     selection runs in registers (select_parts, as topk_select: ties
+//     widen the set, so the kept w is bit-identical to topk_select's);
+//   * compaction before the gathers: the selection becomes a bit mask, and
+//     each thread walks its own set bits in ascending part order, two
+//     parts at a time (kFwdChunk): their weights, u and v, then their 8
+//     taps, then the arithmetic. At k=4 every lane does two useful rounds;
+//     before, a warp ran the texel loads for nearly every one of the 24
+//     parts with a few lanes active. The rest of the mask (ties, k = P)
+//     goes the same way;
+//   * the texture is read texel-major: the wrapper's launch first writes a
+//     (T*T) float4 copy of each part's C channels (texel_major_kernel, one
+//     copy for a texture shared by every batch; 12.6 MB at B=8, in L2), so
+//     a tap is one 16-byte load instead of C scattered 4-byte ones;
+//   * each thread sums its parts in ascending order: the output is the
+//     same bit for bit from run to run.
+// Design choices measured on the card and dropped (exploratory builds, not
+// kept in the repo): planar texel loads; a part-major walk (every part the
+// warp's lanes selected, in turn); loading u / v part by part or densely
+// and picking the selected ones out of registers; picking the weights out
+// of registers instead of reloading them (an L1 hit); four parts a round
+// instead of two (more registers, fewer warps); streaming cache hints on
+// fg and u / v (they evict the fg lines that the weight reloads hit); a
+// warp-wide queue of the selected (part, pixel) pairs sorted by part, with
+// the sums in shared memory (a few percent faster on incoherent
+// selections, slower on coherent ones and on smooth uv).
+// What bounds it (PERF.md, kernel_ab.py): the fg stream runs near the
+// card's read rate; the selected pairs' u / v come in 32-byte sectors, and
+// where neighbouring pixels select different parts (random inputs, and a
+// random-init renderer's) about 77% of the u / v sectors hold a selected
+// pixel at k=4 of 24, and a warp's loads of them touch a line a lane; the
+// texel taps are L2 sectors on top, one a tap on random uv. Coherent part
+// maps and smooth uv (a trained renderer's) read fewer sectors.
 //
 // texture_warp_bwd (train step: B=2, P=24, N=512^2, T=64, C=3, k=4). Also
 // bound by bytes: w read densely (50.3 MB), u / v / the texture taps only
@@ -250,61 +281,156 @@ cudaError_t launch_topk(const float* fg, long long fg_bstride, float* w,
   return cudaGetLastError();
 }
 
-// One thread per pixel; parts in ascending order, as the TPU grid's
-// innermost part axis accumulated them.
+__device__ __forceinline__ float channel(float4 q, int c) {
+  return c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
+}
+
+// The forward's three modes: w given (the block_parts route), the
+// selection fused in (serving), the selection fused in and w kept for the
+// backward (the train step).
+enum { kFwdGivenW = 0, kFwdSelect = 1, kFwdSelectKeep = 2 };
+constexpr int kFwdChunk = 2;   // selected parts whose loads go out together
+
+// tex (G, P, C, T*T) -> tex4 (G, P, T*T) float4 of the C channels (0 past
+// C). Grid (ceil(tt / kThreads), P, G).
 __global__ void __launch_bounds__(kThreads)
-texture_warp_fwd_kernel(const float* __restrict__ tex, long long tex_bstride,
-                        const float* __restrict__ u,
+texel_major_kernel(const float* __restrict__ tex, long long tex_bstride,
+                   float4* __restrict__ tex4, int P, int C, int tt) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= tt) return;
+  const int p = blockIdx.y;
+  const int g = blockIdx.z;
+  const float* ts = tex + g * tex_bstride + (long long)p * C * tt + i;
+  float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  q.x = __ldg(ts);
+  if (C > 1) q.y = __ldg(ts + tt);
+  if (C > 2) q.z = __ldg(ts + 2 * tt);
+  if (C > 3) q.w = __ldg(ts + 3 * tt);
+  tex4[((long long)g * P + p) * tt + i] = q;
+}
+
+// The four clamped taps and the fractions of the align_corners sample
+// x = u * (T - 1), y = v * (T - 1) of a T x T tile.
+struct Bilerp {
+  int o00, o01, o10, o11;
+  float wx, wy;
+};
+
+__device__ __forceinline__ Bilerp bilerp(float u, float v, int T, float ext1) {
+  const float x = u * ext1;
+  const float y = v * ext1;
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const int xi = (int)x0f;
+  const int yi = (int)y0f;
+  const int x0 = min(max(xi, 0), T - 1);
+  const int x1 = min(max(xi + 1, 0), T - 1);
+  const int y0 = min(max(yi, 0), T - 1);
+  const int y1 = min(max(yi + 1, 0), T - 1);
+  Bilerp r;
+  r.o00 = y0 * T + x0;
+  r.o01 = y0 * T + x1;
+  r.o10 = y1 * T + x0;
+  r.o11 = y1 * T + x1;
+  r.wx = x - x0f;
+  r.wy = y - y0f;
+  return r;
+}
+
+__device__ __forceinline__ void blend(float (&acc)[kMaxC], int C, float wt,
+                                      const Bilerp& s, float4 q00, float4 q01,
+                                      float4 q10, float4 q11) {
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) {
+    if (c < C) {
+      const float top = channel(q00, c) * (1.0f - s.wx) + channel(q01, c) * s.wx;
+      const float bot = channel(q10, c) * (1.0f - s.wx) + channel(q11, c) * s.wx;
+      acc[c] += (top * (1.0f - s.wy) + bot * s.wy) * wt;
+    }
+  }
+}
+
+// One thread per pixel, grid (ceil(N / kThreads), B); see the header note.
+// src is w (kFwdGivenW) or fg: (B, P, N), batch stride src_bstride, parts
+// N apart. tex4 is the texel-major copy of the texture, batch stride
+// tex4_bstride (0: one texture for every batch). Parts are summed in
+// ascending order, as the TPU grid's innermost part axis summed them.
+template <int PM, int MODE>
+__global__ void __launch_bounds__(kThreads)
+texture_warp_fwd_kernel(const float4* __restrict__ tex4,
+                        long long tex4_bstride, const float* __restrict__ u,
                         const float* __restrict__ v, long long uv_bstride,
-                        long long uv_pstride, const float* __restrict__ w,
-                        float* __restrict__ out, int P, int C, int T, int N) {
+                        long long uv_pstride, const float* __restrict__ src,
+                        long long src_bstride, float* __restrict__ w_out,
+                        float* __restrict__ out, int P, int C, int T, int N,
+                        int k, float eps) {
   const int n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
   const int b = blockIdx.y;
-  const float* wb = w + (long long)b * P * N + n;
+  const float* sb = src + b * src_bstride + n;
+
+  // 1. the pixel's P weights (or fg values), all loads in flight at once;
+  //    the selection in registers; w out where it is kept; the selected
+  //    parts as a bit mask
+  float x[PM];
+#pragma unroll
+  for (int p = 0; p < PM; ++p) x[p] = (p < P) ? __ldg(sb + (long long)p * N) : 0.0f;
+  if (MODE != kFwdGivenW) select_parts<PM>(x, P, k, eps);
+  if (MODE == kFwdSelectKeep) {
+    float* wb = w_out + (long long)b * P * N + n;
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+      if (p < P) wb[(long long)p * N] = x[p];
+    }
+  }
+  unsigned mask = 0u;
+#pragma unroll
+  for (int p = 0; p < PM; ++p) mask |= (x[p] != 0.0f) ? (1u << p) : 0u;
+
+  // 2. the selected parts in ascending order, kFwdChunk at a time: their
+  //    weights (reloaded: an L1 hit, where picking x[p] out of registers
+  //    by a runtime p costs more), u and v; then their four taps each;
+  //    then the arithmetic
   const float* ub = u + b * uv_bstride + n;
   const float* vb = v + b * uv_bstride + n;
-  const float* tb = tex + b * tex_bstride;
-  const long long tt = (long long)T * T;
+  const float4* t4 = tex4 + b * tex4_bstride;
+  const int tt = T * T;
   const float ext1 = (float)(T - 1);
-
   float acc[kMaxC];
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c) acc[c] = 0.0f;
-
-  for (int p = 0; p < P; ++p) {
-    const float wt = __ldg(wb + (long long)p * N);
-    if (wt == 0.0f) continue;
-    const float x = __ldg(ub + p * uv_pstride) * ext1;
-    const float y = __ldg(vb + p * uv_pstride) * ext1;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    const float wx = x - x0f;
-    const float wy = y - y0f;
-    const int xi = (int)x0f;
-    const int yi = (int)y0f;
-    const int x0 = min(max(xi, 0), T - 1);
-    const int x1 = min(max(xi + 1, 0), T - 1);
-    const int y0 = min(max(yi, 0), T - 1);
-    const int y1 = min(max(yi + 1, 0), T - 1);
-    const int o00 = y0 * T + x0;
-    const int o01 = y0 * T + x1;
-    const int o10 = y1 * T + x0;
-    const int o11 = y1 * T + x1;
-    const float* tp = tb + (long long)p * C * tt;
+  while (mask) {
+    int pp[kFwdChunk];
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c < C) {
-        const float* tc = tp + c * tt;
-        const float v00 = __ldg(tc + o00);
-        const float v01 = __ldg(tc + o01);
-        const float v10 = __ldg(tc + o10);
-        const float v11 = __ldg(tc + o11);
-        const float top = v00 * (1.0f - wx) + v01 * wx;
-        const float bot = v10 * (1.0f - wx) + v11 * wx;
-        const float samp = top * (1.0f - wy) + bot * wy;
-        acc[c] += samp * wt;
+    for (int j = 0; j < kFwdChunk; ++j) {
+      pp[j] = __ffs(mask) - 1;              // -1 once the mask is empty
+      mask &= mask - 1u;
+    }
+    float wt[kFwdChunk], us[kFwdChunk], vs[kFwdChunk];
+#pragma unroll
+    for (int j = 0; j < kFwdChunk; ++j) {
+      if (pp[j] >= 0) {
+        wt[j] = __ldg(sb + (long long)pp[j] * N);     // == x[pp[j]]
+        us[j] = __ldg(ub + pp[j] * uv_pstride);
+        vs[j] = __ldg(vb + pp[j] * uv_pstride);
       }
+    }
+    Bilerp s[kFwdChunk];
+    float4 q[kFwdChunk][4];
+#pragma unroll
+    for (int j = 0; j < kFwdChunk; ++j) {
+      if (pp[j] >= 0) {
+        s[j] = bilerp(us[j], vs[j], T, ext1);
+        const float4* tp = t4 + (long long)pp[j] * tt;
+        q[j][0] = __ldg(tp + s[j].o00);
+        q[j][1] = __ldg(tp + s[j].o01);
+        q[j][2] = __ldg(tp + s[j].o10);
+        q[j][3] = __ldg(tp + s[j].o11);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFwdChunk; ++j) {
+      if (pp[j] >= 0) blend(acc, C, wt[j], s[j], q[j][0], q[j][1], q[j][2], q[j][3]);
     }
   }
   float* ob = out + (long long)b * C * N + n;
@@ -312,6 +438,42 @@ texture_warp_fwd_kernel(const float* __restrict__ tex, long long tex_bstride,
   for (int c = 0; c < kMaxC; ++c) {
     if (c < C) ob[(long long)c * N] = acc[c];
   }
+}
+
+// Refuses what the kernel does not take, writes the texel-major copy (one
+// copy for a texture shared by every batch, tex_bstride 0), then launches
+// the forward on the smallest part bound PM that holds P.
+template <int MODE>
+cudaError_t launch_fwd(const float* tex, long long tex_bstride, float* tex4,
+                       const float* u, const float* v, long long uv_bstride,
+                       long long uv_pstride, const float* src,
+                       long long src_bstride, float* w_out, float* out, int B,
+                       int P, int C, int T, int N, int k, float eps,
+                       cudaStream_t s) {
+  if (B < 1 || B > 65535 || N < 1 || P < 1 || P > 32 || C < 1 ||
+      C > kMaxC || T < 2 || (long long)T * T > (1LL << 30))
+    return cudaErrorInvalidValue;
+  if (MODE != kFwdGivenW && (k < 1 || k > P)) return cudaErrorInvalidValue;
+  if (MODE == kFwdSelectKeep && w_out == nullptr) return cudaErrorInvalidValue;
+  const int tt = T * T;
+  float4* t4 = reinterpret_cast<float4*>(tex4);
+  texel_major_kernel<<<dim3((tt + kThreads - 1) / kThreads, P,
+                            tex_bstride ? B : 1), kThreads, 0, s>>>(
+      tex, tex_bstride, t4, P, C, tt);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long t4_bstride = tex_bstride ? (long long)P * tt : 0;
+  const dim3 grid((N + kThreads - 1) / kThreads, B);
+#define NHVR_FWD(PM)                                                        \
+  texture_warp_fwd_kernel<PM, MODE><<<grid, kThreads, 0, s>>>(              \
+      t4, t4_bstride, u, v, uv_bstride, uv_pstride, src, src_bstride, w_out, \
+      out, P, C, T, N, k, eps)
+  if (P <= 8) NHVR_FWD(8);
+  else if (P <= 16) NHVR_FWD(16);
+  else if (P <= 24) NHVR_FWD(24);
+  else NHVR_FWD(32);
+#undef NHVR_FWD
+  return cudaGetLastError();
 }
 
 // Adds the four taps' values a[k][c] at tile[c * tt + o_k] (o_0 = o00,
@@ -374,10 +536,6 @@ __device__ __forceinline__ float4 load4(const float* src, int nt, int n_end,
   r.z = nt + 2 < n_end ? __ldg(src + nt + 2) : 0.0f;
   r.w = nt + 3 < n_end ? __ldg(src + nt + 3) : 0.0f;
   return r;
-}
-
-__device__ __forceinline__ float channel(float4 q, int c) {
-  return c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
 }
 
 __device__ __forceinline__ float4 keep4(float4 x, float4 w) {
@@ -679,17 +837,42 @@ extern "C" int nhvr_topk_select(const float* fg, long long fg_bstride,
   return (int)cudaErrorInvalidValue;
 }
 
+// The forward with w given (contiguous (B, P, N)). tex4 is scratch for the
+// texel-major copy: (B, P, T*T, 4) floats, (1, P, T*T, 4) for a texture
+// shared by every batch (tex_bstride 0), 16-byte aligned.
 extern "C" int nhvr_texture_warp_fwd(const float* tex, long long tex_bstride,
                                      const float* u, const float* v,
                                      long long uv_bstride, long long uv_pstride,
-                                     const float* w, float* out, int B, int P,
-                                     int C, int T, int N, void* stream) {
-  if (C > kMaxC) return (int)cudaErrorInvalidValue;
+                                     const float* w, float* out, float* tex4,
+                                     int B, int P, int C, int T, int N,
+                                     void* stream) {
+  return (int)launch_fwd<kFwdGivenW>(
+      tex, tex_bstride, tex4, u, v, uv_bstride, uv_pstride, w,
+      (long long)P * N, nullptr, out, B, P, C, T, N, 0, 0.0f,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The forward with the selection fused in: fg is the strided (B, P, N)
+// view probs[:, 1:] (parts N apart). w = nullptr selects in registers and
+// writes no w; otherwise w (contiguous (B, P, N)) gets the selection,
+// bit-identical to nhvr_topk_select's with block_parts 0. tex4 as above.
+extern "C" int nhvr_texture_warp_topk_fwd(const float* tex,
+                                          long long tex_bstride,
+                                          const float* u, const float* v,
+                                          long long uv_bstride,
+                                          long long uv_pstride,
+                                          const float* fg, long long fg_bstride,
+                                          float* w, float* out, float* tex4,
+                                          int B, int P, int C, int T, int N,
+                                          int k, float eps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  texture_warp_fwd_kernel<<<grid, kThreads, 0, s>>>(
-      tex, tex_bstride, u, v, uv_bstride, uv_pstride, w, out, P, C, T, N);
-  return (int)cudaGetLastError();
+  if (w == nullptr)
+    return (int)launch_fwd<kFwdSelect>(
+        tex, tex_bstride, tex4, u, v, uv_bstride, uv_pstride, fg, fg_bstride,
+        nullptr, out, B, P, C, T, N, k, eps, s);
+  return (int)launch_fwd<kFwdSelectKeep>(
+      tex, tex_bstride, tex4, u, v, uv_bstride, uv_pstride, fg, fg_bstride, w,
+      out, B, P, C, T, N, k, eps, s);
 }
 
 // Writes every element of du / dv (duv), dw and dbg (dprobs' parts and its

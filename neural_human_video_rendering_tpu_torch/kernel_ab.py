@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
-"""Device time of the train step's flow warp and warp backward kernels of
-one checkout of the port, so that two checkouts (a parent commit unpacked
-into a git-ignored directory, and this one) are compared on one card:
+"""Device time of the port's warp kernels of one checkout, so that two
+checkouts (a parent commit unpacked into a git-ignored directory, and this
+one) are compared on one card:
 
     python3 neural_human_video_rendering_tpu_torch/kernel_ab.py --tree DIR
 
 DIR is the root of a checkout (default: this one); its package and its
 csrc/ are the ones timed, built into DIR/build/kernels. The inputs, the
 timing (20 calls in a CUDA graph, replayed between CUDA events) and the
-grid_sample yardstick are this checkout's chip_smoke.py's, at the train
-step's shapes: the flow warp at B=2, C=5, 512x512 on an i.i.d. noise flow
-and on a smooth flow, the backward at B=2, P=24, T=64, k=4, eps 1e-3 on
-random uv. Run parent, change, change, parent in one command. Prints one
-JSON line; exits non-zero without a CUDA card.
+grid_sample yardstick are this checkout's chip_smoke.py's:
+  * the flow warp at B=2, C=5, 512x512 on an i.i.d. noise flow and on a
+    smooth flow;
+  * the warp backward at B=2, P=24, T=64, k=4, eps 1e-3 on random uv;
+  * the texture-warp forward at P=24, T=64, k=4, eps 1e-3 on three input
+    sets of batch 8: random uv / probs; the flagship renderer's own
+    texture / uv / probs (random weights, cached in build/kernel_ab/ by
+    the first run, so that every run times the same tensors; a random-init
+    renderer's part maps are as incoherent as random ones); and coherent
+    inputs, the shape of a trained renderer's (part maps constant over
+    16 x 16-pixel blocks, uv an affine map per part). On each:
+    texture_warp_fwd with w given at B=2 and B=8; the serving route,
+    texture_warp_planes under torch.inference_mode at B=8; and the train
+    step's forward launches at B=2: texture_warp_topk_fwd keeping w where
+    the tree has it, else topk_select and then texture_warp_fwd.
+Run parent, change, change, parent in one command. Prints one JSON line;
+exits non-zero without a CUDA card.
 """
 
 import argparse
@@ -22,6 +34,89 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def renderer_inputs(torch, smoke, dev, B=8):
+    """The flagship renderer's (texture, uv, probs) for B synthetic driving
+    poses (random weights from --seed 0, as chip_smoke's phase 3 renders
+    them), made once and then read back from build/kernel_ab/."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_forward_fn
+    work = os.path.join(ROOT, "build", "kernel_ab")
+    cache = os.path.join(work, "renderer_tensors.pt")
+    if os.path.isfile(cache):
+        return torch.load(cache, map_location=dev)
+    kp_dir = os.path.join(work, "keypoints")
+    opt = TestOptions().parse(smoke.FLAGSHIP + [
+        "--pose_path", kp_dir, "--checkpoints_dir", os.path.join(work, "ckpt"),
+        "--name", "kernel_ab"], save=False)
+    syn = smoke.write_driving_sequence(opt, kp_dir, B)
+    fwd = make_forward_fn(opt, td.build_renderer(opt, dev))
+    _, joints = td.load_driving_joints(opt)
+    out = fwd(td.assets_to_device(opt, syn.texture_atlas(), syn.background(),
+                                  dev),
+              torch.from_numpy(joints[:B].astype(np.float32)).to(dev))
+    # normal tensors, out of inference mode
+    rt = tuple(out[k].clone() for k in ("texture", "uv", "probs"))
+    torch.save(rt, cache)
+    return rt
+
+
+def coherent_inputs(torch, dev, B=8, P=24, S=512, T=64, seed=3):
+    """(tex, uv, probs) whose part maps are coherent (the logits constant
+    over 16 x 16-pixel blocks, plus a little noise: neighbouring pixels
+    select the same parts) and whose uv is smooth (per part an affine map
+    of the pixel position, wrapped into [0, 1))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blocks = torch.randn((B, P + 1, S // 16, S // 16), generator=g,
+                         device=dev) * 3
+    logits = blocks.repeat_interleave(16, 2).repeat_interleave(16, 3)
+    probs = torch.softmax(logits + 0.1 * torch.randn(
+        (B, P + 1, S, S), generator=g, device=dev), dim=1)
+    ys = torch.linspace(0, 1, S, device=dev)[:, None].expand(S, S)
+    xs = torch.linspace(0, 1, S, device=dev)[None, :].expand(S, S)
+    a = torch.rand((B, P, 1, 1), generator=g, device=dev)
+    scale = 0.3 + 0.5 * torch.rand((B, P, 1, 1), generator=g, device=dev)
+    uv = torch.stack([(a + scale * xs) % 1.0, (1 - a + scale * ys) % 1.0],
+                     dim=2).contiguous()
+    tex = torch.rand((B, P, 3, T, T), generator=g, device=dev) * 2 - 1
+    return tex, uv, probs
+
+
+def forward_times(torch, smoke, tk, ttw, tex8, uv8, probs8):
+    """{name: device ms} of the forward's routes on these batch-8 inputs,
+    and the shape of their selection (chip_smoke.selection_shape)."""
+    K, EPS = 4, 1e-3
+    fused = hasattr(tk, "texture_warp_topk_fwd")
+    out = {}
+    for B in (2, 8):
+        tex, uv, probs = tex8[:B], uv8[:B], probs8[:B]
+        fg, u, v = smoke.planes(uv, probs)
+        w = tk.topk_select(fg, K, 0, EPS)
+        if B == 8:
+            out["selection"] = smoke.selection_shape(w)
+        out[f"fwd_w_given_B{B}_ms"] = smoke.graph_ms(
+            torch, lambda: tk.texture_warp_fwd(tex, u, v, w))
+        if B == 2:
+            if fused:
+                def train_fwd():
+                    return tk.texture_warp_topk_fwd(tex, fg, u, v, K, EPS,
+                                                    return_w=True)
+            else:
+                def train_fwd():
+                    return tk.texture_warp_fwd(tex, u, v,
+                                               tk.topk_select(fg, K, 0, EPS))
+            out["train_fwd_B2_ms"] = smoke.graph_ms(torch, train_fwd)
+
+    def serve():
+        with torch.inference_mode():
+            return ttw.texture_warp_planes(tex8, uv8, probs8, k=K, eps=EPS)
+
+    out["serving_B8_ms"] = smoke.graph_ms(torch, serve)
+    return out
 
 
 def main() -> int:
@@ -40,6 +135,7 @@ def main() -> int:
         print("kernel_ab: no CUDA card", file=sys.stderr)
         return 1
     from neural_human_video_rendering_tpu_torch.ops import flow_warp_kernel as fk
+    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
     from neural_human_video_rendering_tpu_torch.ops import \
         texture_warp_kernel as tk
     if not fk.__file__.startswith(tree + os.sep):
@@ -61,6 +157,14 @@ def main() -> int:
                     generator=torch.Generator(device=dev).manual_seed(9))
     out["bwd_ms"] = smoke.graph_ms(
         torch, lambda: tk.texture_warp_bwd(tex, u, v, w, g))
+    del tex, uv, probs, fg, u, v, w, g
+    for name, inputs in (
+            ("random", smoke.warp_inputs(torch, 8, 24, 512, 512, 64, 0, dev)),
+            ("renderer", renderer_inputs(torch, smoke, dev)),
+            ("coherent", coherent_inputs(torch, dev))):
+        for key, val in forward_times(torch, smoke, tk, ttw, *inputs).items():
+            out[f"{name}_{key}"] = val
+        del inputs
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,17 +1,23 @@
 """Texture-warp dispatch: the renderer's per-part warp + probability blend.
 
 Port of the JAX package's ``ops/pallas_warp.py`` and of the custom VJP of
-``ops/pallas_warp2.texture_warp_pallas``. Every call goes through
-``TextureWarp``, an autograd Function over the three kernel wrappers of
-``texture_warp_kernel``: on CUDA tensors they launch the kernels (or
-raise), on CPU tensors they run their plain PyTorch versions. There is no
-other path and no fallback. The TPU path's pad of sub-128 tiles up to 128
-was a Mosaic constraint; the CUDA kernels sample a T x T tile directly.
+``ops/pallas_warp2.texture_warp_pallas``. ``texture_warp_planes`` goes
+through the kernel wrappers of ``texture_warp_kernel``: on CUDA tensors
+they launch the kernels (or raise), on CPU tensors they run their plain
+PyTorch versions. There is no other path and no fallback. The TPU path's
+pad of sub-128 tiles up to 128 was a Mosaic constraint; the CUDA kernels
+sample a T x T tile directly.
+
+Two routes, one launch each (the lossy block_parts cap excepted):
+  * no gradient needed (serving, the --temporal_prev fake t-1 render):
+    ``texture_warp_topk_fwd`` selects in registers and writes no w;
+  * otherwise ``TextureWarp``, an autograd Function whose forward is the
+    same kernel keeping w for the backward kernel.
 
 ``compute_dtype="bfloat16"`` (--warp_dtype) rounds the texture to bf16
-once, inside the Function; all sampling and blending math stays float32,
-as on the TPU, and the texture's gradient stays float32 (the rounding is
-passed straight through, as ``pallas_warp2.py:608`` returns it).
+once; all sampling and blending math stays float32, as on the TPU, and
+the texture's gradient stays float32 (the rounding is passed straight
+through, as ``pallas_warp2.py:608`` returns it).
 """
 
 from __future__ import annotations
@@ -19,14 +25,35 @@ from __future__ import annotations
 import torch
 
 from .texture_warp_kernel import (texture_warp_bwd, texture_warp_fwd,
-                                  topk_select)
+                                  texture_warp_topk_fwd, topk_select)
+
+
+def _operands(tex, uv, probs, compute_dtype):
+    """-> the kernels' float32 texture (bf16-rounded for compute_dtype
+    bfloat16, each sample contiguous) and the (B, P, N) views fg =
+    probs[:, 1:], u and v of the renderer's tensors."""
+    fg = probs[:, 1:].float().flatten(2)
+    uv32 = uv.float()
+    u = uv32[:, :, 0].flatten(2)
+    v = uv32[:, :, 1].flatten(2)
+    tex32 = tex.float()
+    if compute_dtype == "bfloat16":
+        tex32 = tex32.bfloat16().float()
+    if not tex32[0].is_contiguous():            # the kernels read tiles
+        tex32 = tex32.contiguous()
+    return tex32, fg, u, v
+
+
+def _k(k: int, P: int) -> int:
+    return k if 0 < k <= P else P
 
 
 class TextureWarp(torch.autograd.Function):
     """(tex, uv, probs) -> fg (B, C, H, W), differentiable in all three.
 
-    Forward: top-k selection without gradient, then the blended forward;
-    saves tex, the u / v views of uv and the selected weights w.
+    Forward: the selection (without gradient) and the blended forward in
+    one launch that keeps the selected weights w (with the block_parts cap,
+    top-k and then the forward); saves tex, the u / v views of uv and w.
     Backward: the backward kernel gives duv (B, P, 2, N) in uv's layout,
     dprobs (B, P+1, N) with a zero background channel (only the parts that
     w kept get a gradient: the selection is stop-gradient) and dtex,
@@ -35,18 +62,13 @@ class TextureWarp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tex, uv, probs, k, block_parts, eps, compute_dtype):
         B, P, _, H, W = uv.shape
-        fg = probs[:, 1:].float().flatten(2)          # (B, P, N) view
-        uv32 = uv.float()
-        u = uv32[:, :, 0].flatten(2)                  # (B, P, N) strided views
-        v = uv32[:, :, 1].flatten(2)
-        kk = k if 0 < k <= P else P
-        w = topk_select(fg, kk, block_parts, eps)
-        tex32 = tex.float()
-        if compute_dtype == "bfloat16":
-            tex32 = tex32.bfloat16().float()
-        if not tex32[0].is_contiguous():            # the kernels read tiles
-            tex32 = tex32.contiguous()
-        out = texture_warp_fwd(tex32, u, v, w)
+        tex32, fg, u, v = _operands(tex, uv, probs, compute_dtype)
+        if 0 < block_parts < P:
+            w = topk_select(fg, _k(k, P), block_parts, eps)
+            out = texture_warp_fwd(tex32, u, v, w)
+        else:
+            out, w = texture_warp_topk_fwd(tex32, fg, u, v, _k(k, P), eps,
+                                           return_w=True)
         ctx.save_for_backward(tex32, u, v, w)
         ctx.shapes = (B, P, H, W)
         ctx.dtypes = (tex.dtype, uv.dtype, probs.dtype)
@@ -74,10 +96,23 @@ def texture_warp_planes(tex: torch.Tensor, uv: torch.Tensor,
 
     k in (0, P) samples each pixel's top-k parts (ties widen the set);
     k = 0 or k >= P samples all parts. eps drops blend weights below it;
-    block_parts > 0 is the lossy per-1024-pixel-block part cap.
+    block_parts in (0, P) is the lossy per-1024-pixel-block part cap.
+
+    Where no gradient is needed (grad mode off, or none of the three
+    requires grad) and the cap is off, one texture_warp_topk_fwd launch
+    renders without writing w. Otherwise TextureWarp: one launch that also
+    keeps w for the backward, or, with the cap, topk_select and then
+    texture_warp_fwd.
     """
-    return TextureWarp.apply(tex, uv, probs, k, block_parts, eps,
-                             compute_dtype)
+    B, P, _, H, W = uv.shape
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (tex, uv, probs))
+    if needs_grad or 0 < block_parts < P:
+        return TextureWarp.apply(tex, uv, probs, k, block_parts, eps,
+                                 compute_dtype)
+    tex32, fg, u, v = _operands(tex, uv, probs, compute_dtype)
+    return texture_warp_topk_fwd(tex32, fg, u, v, _k(k, P), eps).view(
+        B, -1, H, W)
 
 
 def texture_warp(tex: torch.Tensor, uv: torch.Tensor, probs: torch.Tensor,

@@ -1,5 +1,5 @@
-"""The texture warp's three kernels: top-k part selection, the forward and
-the backward.
+"""The texture warp's kernels: top-k part selection, the forward (with w
+given, or with the selection fused in) and the backward.
 
 Port of the JAX package's ``ops/pallas_warp2.py``. The CUDA sources are
 ``csrc/texture_warp.cu`` (its header note gives the TPU kernel each one
@@ -8,11 +8,13 @@ it); they are built by ``ops/build.py`` and called through ctypes.
 
 Each kernel has, in this module:
   * a plain PyTorch version (``topk_select_plain``, ``texture_warp_fwd_plain``,
-    ``texture_warp_bwd_plain``) computing the same function. The CPU tests
-    use it, and the chip smoke test holds the kernel against it on the card;
-  * a wrapper (``topk_select``, ``texture_warp_fwd``, ``texture_warp_bwd``)
-    that takes the plain version only for tensors on the CPU, and for CUDA
-    tensors launches the kernel or raises: there is no fallback;
+    ``texture_warp_bwd_plain``; the fused forward is the first two in a
+    row) computing the same function. The CPU tests use it, and the chip
+    smoke test holds the kernel against it on the card;
+  * a wrapper (``topk_select``, ``texture_warp_fwd``,
+    ``texture_warp_topk_fwd``, ``texture_warp_bwd``) that takes the plain
+    version only for tensors on the CPU, and for CUDA tensors launches the
+    kernel or raises: there is no fallback;
   * a launch counter, ``<wrapper>.launches``, which the wrapper bumps
     where it launches the kernel and nowhere else.
 
@@ -221,9 +223,13 @@ def _lib() -> ctypes.CDLL:
     lib.nhvr_topk_select.argtypes = [p, i64, p, i32, i32, i32, i32, f32,
                                      i32, p]
     lib.nhvr_topk_select.restype = i32
-    lib.nhvr_texture_warp_fwd.argtypes = [p, i64, p, p, i64, i64, p, p,
+    lib.nhvr_texture_warp_fwd.argtypes = [p, i64, p, p, i64, i64, p, p, p,
                                           i32, i32, i32, i32, i32, p]
     lib.nhvr_texture_warp_fwd.restype = i32
+    lib.nhvr_texture_warp_topk_fwd.argtypes = [p, i64, p, p, i64, i64, p, i64,
+                                               p, p, p, i32, i32, i32, i32,
+                                               i32, i32, f32, p]
+    lib.nhvr_texture_warp_topk_fwd.restype = i32
     lib.nhvr_texture_warp_bwd.argtypes = [p, i64, p, p, i64, i64, p, p, p, p,
                                           i64, i64, p, i64, p, p, i64, p,
                                           i32, i32, i32, i32, i32, i32, i32,
@@ -287,52 +293,114 @@ def _check_tex(tex: torch.Tensor, B: int, P: int):
     return tex.shape[2], tex.shape[3]
 
 
-def _check_cuda_warp(name: str, tex, u, v, w) -> None:
-    """What the forward and backward kernels take on the card."""
+def _check_cuda_warp(name: str, tex, u, v, w, sel: str = "w") -> None:
+    """What the forward and backward kernels take on the card. w is the
+    selection (contiguous) or, for sel="fg", the fg view (parts N apart)."""
     B, P, N = w.shape
     if w.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {w.device}")
-    for tname, t in (("u", u), ("v", v), ("w", w)):
+    for tname, t in (("u", u), ("v", v), (sel, w)):
         _check_planes(tname, t, B, P, N)
         if t.device != w.device:
-            raise ValueError(f"{tname} on {t.device}, w on {w.device}")
+            raise ValueError(f"{tname} on {t.device}, {sel} on {w.device}")
     if u.stride() != v.stride():
         raise ValueError(f"u and v strides differ: {u.stride()} {v.stride()}")
-    if not w.is_contiguous():
+    if sel == "w" and not w.is_contiguous():
         raise ValueError("w must be contiguous")
+    if w.stride(1) != N:
+        raise ValueError(f"{sel}: parts must be N apart, strides {w.stride()}")
     if tex.dtype != torch.float32 or tex.device != w.device \
             or not tex[0].is_contiguous():
-        raise ValueError("tex must be float32 on w's device with each "
+        raise ValueError(f"tex must be float32 on {sel}'s device with each "
                          "sample contiguous")
     if tex.shape[2] > MAX_CHANNELS:
         raise ValueError(f"{name} kernel takes C <= {MAX_CHANNELS}")
+
+
+def _fwd_texture(tex: torch.Tensor, B: int):
+    """-> (tex_bstride, tex4): the texture's batch stride for the forward
+    kernels (0 for one texture shared by every batch) and the scratch of
+    its texel-major copy, (B or 1, P, T*T, 4) float32."""
+    P, T = tex.shape[1], tex.shape[3]
+    tex_bstride = tex.stride(0) if tex.shape[0] == B and B > 1 else 0
+    groups = B if tex_bstride else 1
+    tex4 = torch.empty((groups, P, T * T, 4), dtype=torch.float32,
+                       device=tex.device)
+    return tex_bstride, tex4
 
 
 def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                      w: torch.Tensor) -> torch.Tensor:
     """Blended bilinear texture warp (see texture_warp_fwd_plain).
     tex (B or 1, P, C, T, T) float32, each sample contiguous; u, v (B, P, N)
-    float32 with one stride layout; w (B, P, N) contiguous. -> (B, C, N)."""
+    float32 with one stride layout; w (B, P, N) contiguous. -> (B, C, N).
+    The kernel takes P <= 32, C <= 4. It is the block_parts route's
+    forward: the others select inside texture_warp_topk_fwd."""
     B, P, N = w.shape
     C, T = _check_tex(tex, B, P)
     if w.device.type == "cpu":
         return texture_warp_fwd_plain(tex.float(), u.float(), v.float(),
                                       w.float())
     _check_cuda_warp("texture_warp_fwd", tex, u, v, w)
+    if P > MAX_PARTS:
+        raise ValueError(f"texture_warp_fwd kernel takes P <= {MAX_PARTS}")
     out = torch.empty((B, C, N), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    tex_bstride = tex.stride(0) if tex.shape[0] == B and B > 1 else 0
+    tex_bstride, tex4 = _fwd_texture(tex, B)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     err = _lib().nhvr_texture_warp_fwd(
         tex.data_ptr(), tex_bstride, u.data_ptr(), v.data_ptr(), u.stride(0),
-        u.stride(1), w.data_ptr(), out.data_ptr(), B, P, C, T, N, stream)
+        u.stride(1), w.data_ptr(), out.data_ptr(), tex4.data_ptr(), B, P, C,
+        T, N, stream)
     texture_warp_fwd.launches += 1
     _check(err, "texture_warp_fwd")
     return out
 
 
 texture_warp_fwd.launches = 0
+
+
+def texture_warp_topk_fwd(tex: torch.Tensor, fg: torch.Tensor,
+                          u: torch.Tensor, v: torch.Tensor, k: int,
+                          eps: float = 0.0, return_w: bool = False):
+    """The selection fused into the forward: texture_warp_fwd(tex, u, v,
+    topk_select(fg, k, 0, eps)) in one launch that keeps w in registers.
+    fg (B, P, N) float32 with parts N apart and a contiguous pixel axis
+    (the view probs[:, 1:]); the rest as texture_warp_fwd's.
+    -> out (B, C, N); with return_w, (out, w), w written by the same launch
+    and bit-identical to topk_select's. 1 <= k <= P <= 32 and C <= 4 on
+    every device (the kernel's limits)."""
+    B, P, N = fg.shape
+    C, T = _check_tex(tex, B, P)
+    if not 1 <= k <= P:
+        raise ValueError(f"k={k} outside [1, P={P}]")
+    if P > MAX_PARTS or C > MAX_CHANNELS:
+        raise ValueError(f"texture_warp_topk_fwd takes P <= {MAX_PARTS} and "
+                         f"C <= {MAX_CHANNELS}, got P={P}, C={C}")
+    if fg.device.type == "cpu":
+        w = topk_select_plain(fg.float(), k, 0, eps)
+        out = texture_warp_fwd_plain(tex.float(), u.float(), v.float(), w)
+        return (out, w) if return_w else out
+    _check_cuda_warp("texture_warp_topk_fwd", tex, u, v, fg, sel="fg")
+    out = torch.empty((B, C, N), dtype=torch.float32, device=fg.device)
+    w = (torch.empty((B, P, N), dtype=torch.float32, device=fg.device)
+         if return_w else None)
+    if out.numel() == 0:
+        return (out, w) if return_w else out
+    tex_bstride, tex4 = _fwd_texture(tex, B)
+    stream = torch.cuda.current_stream(fg.device).cuda_stream
+    err = _lib().nhvr_texture_warp_topk_fwd(
+        tex.data_ptr(), tex_bstride, u.data_ptr(), v.data_ptr(), u.stride(0),
+        u.stride(1), fg.data_ptr(), fg.stride(0),
+        w.data_ptr() if return_w else None, out.data_ptr(), tex4.data_ptr(),
+        B, P, C, T, N, k, float(eps), stream)
+    texture_warp_topk_fwd.launches += 1
+    _check(err, "texture_warp_topk_fwd")
+    return (out, w) if return_w else out
+
+
+texture_warp_topk_fwd.launches = 0
 
 
 def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -386,4 +454,5 @@ texture_warp_bwd.launches = 0
 def reset_launch_counts() -> None:
     topk_select.launches = 0
     texture_warp_fwd.launches = 0
+    texture_warp_topk_fwd.launches = 0
     texture_warp_bwd.launches = 0

@@ -6,7 +6,8 @@ torch.cuda.is_available() is False. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Tolerances: the selection exactly; the forward and the flow warp 2e-5
+Tolerances: the selection exactly (also the w that the fused forward
+keeps); the forward (with w given or the selection fused in) and the flow warp 2e-5
 absolute (float32, fused multiply-adds on the card); the warp backward
 1e-5 + 1e-5 * max|plain| (float atomics add dtex in a run-dependent
 order); the flow warp of flow channels (tens of pixels) 2e-5 relative; the
@@ -76,15 +77,104 @@ def test_texture_warp_fwd_matches_plain(cuda, T, B_tex):
     assert float((got - want).abs().max()) <= FWD_TOL
 
 
+def _launches():
+    return (tk.topk_select.launches, tk.texture_warp_fwd.launches,
+            tk.texture_warp_topk_fwd.launches, tk.texture_warp_bwd.launches)
+
+
 def test_dispatcher_launches_each_kernel_once(cuda):
-    tex, uv, probs = _inputs(cuda)
+    """Without a gradient one fused launch and no w; with one, the fused
+    launch keeps w, and .backward() launches the backward once; the lossy
+    block_parts cap takes top-k and the forward with w given."""
+    tex, uv, probs = _inputs(cuda, H=64, W=64)
     tk.reset_launch_counts()
-    out = ttw.texture_warp_planes(tex, uv, probs, k=4, eps=1e-3,
-                                  compute_dtype="bfloat16")
-    assert (tk.topk_select.launches, tk.texture_warp_fwd.launches) == (1, 1)
+    with torch.inference_mode():
+        out = ttw.texture_warp_planes(tex, uv, probs, k=4, eps=1e-3,
+                                      compute_dtype="bfloat16")
+    assert _launches() == (0, 0, 1, 0)
     cpu = ttw.texture_warp_planes(tex.cpu(), uv.cpu(), probs.cpu(), k=4,
                                   eps=1e-3, compute_dtype="bfloat16")
     assert float((out.cpu() - cpu).abs().max()) <= FWD_TOL
+    tk.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (tex, uv, probs)]
+    out_g = ttw.texture_warp_planes(*leaves, k=4, eps=1e-3,
+                                    compute_dtype="bfloat16")
+    assert _launches() == (0, 0, 1, 0)
+    assert torch.equal(out_g.detach(), out)
+    out_g.square().sum().backward()
+    assert _launches() == (0, 0, 1, 1)
+    tk.reset_launch_counts()
+    with torch.no_grad():
+        capped = ttw.texture_warp_planes(tex, uv, probs, k=4, block_parts=3)
+    assert _launches() == (1, 1, 0, 0)
+    want = ttw.texture_warp_planes(tex.cpu(), uv.cpu(), probs.cpu(), k=4,
+                                   block_parts=3)
+    assert float((capped.cpu() - want).abs().max()) <= FWD_TOL
+
+
+def _ties(dev, B=2, P=6, H=32, W=64):
+    """fg (a strided view of probs) with three-way ties at and around the
+    k-th largest on every third pixel."""
+    probs = torch.rand((B, P + 1, H, W), device=dev)
+    fg = probs[:, 1:].flatten(2)
+    fg[:, 1:4, ::3] = 0.5
+    fg[:, 0, ::3] = 0.9
+    fg[:, 4:, ::3] = 0.1
+    return probs
+
+
+@pytest.mark.parametrize("T,B_tex", [(16, 2), (64, 1), (128, 2)])
+@pytest.mark.parametrize("k,eps", [(1, 0.0), (3, 1e-3), (24, 0.0)])
+def test_texture_warp_topk_fwd_matches_plain(cuda, T, B_tex, k, eps):
+    """Both fused modes against topk_select_plain + texture_warp_fwd_plain
+    (P=24, W=37: N is odd), the kept w equal to topk_select's, and two
+    calls bit-identical."""
+    tex, uv, probs = _inputs(cuda, P=24, H=40, W=37, T=T, seed=T + k)
+    tex = tex[:B_tex]
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    want_w = tk.topk_select_plain(fg, k, 0, eps)
+    want = tk.texture_warp_fwd_plain(tex, u, v, want_w)
+    tk.reset_launch_counts()
+    out = tk.texture_warp_topk_fwd(tex, fg, u, v, k, eps)
+    out_w, w = tk.texture_warp_topk_fwd(tex, fg, u, v, k, eps, return_w=True)
+    again = tk.texture_warp_topk_fwd(tex, fg, u, v, k, eps)
+    assert tk.texture_warp_topk_fwd.launches == 3
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= FWD_TOL
+    assert float((out_w - want).abs().max()) <= FWD_TOL
+    assert torch.equal(w, want_w)
+    assert torch.equal(w, tk.topk_select(fg, k, 0, eps))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_texture_warp_topk_fwd_ties(cuda, k):
+    probs = _ties(cuda)
+    tex, uv, _ = _inputs(cuda, P=6, H=32, W=64)
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    out, w = tk.texture_warp_topk_fwd(tex, fg, u, v, k, return_w=True)
+    want_w = tk.topk_select_plain(fg, k)
+    torch.cuda.synchronize()
+    assert torch.equal(w, want_w)
+    assert ((w[:, :, ::3] > 0).sum(1) == {2: 4, 3: 6}[k]).all()
+    assert float((out - tk.texture_warp_fwd_plain(tex, u, v, want_w)).abs().max()) \
+        <= FWD_TOL
+
+
+@pytest.mark.parametrize("P", [1, 8, 13, 32])
+def test_texture_warp_fwds_part_bounds(cuda, P):
+    """Each part bound of the kernels (8, 16, 24, 32) and a single part,
+    with w given and with the selection fused in."""
+    tex, uv, probs = _inputs(cuda, P=P, T=16, seed=P)
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    k = min(3, P)
+    w = tk.topk_select_plain(fg, k, 0, 0.0)
+    want = tk.texture_warp_fwd_plain(tex, u, v, w)
+    got = tk.texture_warp_fwd(tex, u, v, w)
+    fused = tk.texture_warp_topk_fwd(tex, fg, u, v, k)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FWD_TOL
+    assert float((fused - want).abs().max()) <= FWD_TOL
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -98,6 +188,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tk.texture_warp_fwd(tex.cpu(), uv[:, :, 0].flatten(2),
                             uv[:, :, 1].flatten(2), w)
+
+
+def test_texture_warp_topk_fwd_refuses_what_the_kernel_does_not_take(cuda):
+    tex, uv, probs = _inputs(cuda)
+    fg, u, v = probs[:, 1:].flatten(2), uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    bad = {
+        "fg float64": (tex, fg.double(), u, v, 2),
+        "fg parts not N apart": (tex, fg.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), u, v, 2),
+        "u on the CPU": (tex, fg, u.cpu(), v, 2),
+        "tex on the CPU": (tex.cpu(), fg, u, v, 2),
+        "tex float64": (tex.double(), fg, u, v, 2),
+        "u and v strides differ": (tex, fg, u, v.contiguous(), 2),
+        "k = 0": (tex, fg, u, v, 0),
+        "k > P": (tex, fg, u, v, 8),
+        "C = 5": (torch.cat([tex, tex[:, :, :2]], 2), fg, u, v, 2),
+    }
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            tk.texture_warp_topk_fwd(*args)
+            pytest.fail(name)
+    tex33, uv33, probs33 = _inputs(cuda, P=33, T=4)
+    with pytest.raises(ValueError, match="P <= 32"):
+        tk.texture_warp_topk_fwd(tex33, probs33[:, 1:].flatten(2),
+                                 uv33[:, :, 0].flatten(2),
+                                 uv33[:, :, 1].flatten(2), 2)
+    with pytest.raises(ValueError, match="P <= 32"):
+        tk.texture_warp_fwd(tex33, uv33[:, :, 0].flatten(2),
+                            uv33[:, :, 1].flatten(2),
+                            tk.topk_select_plain(probs33[:, 1:].flatten(2), 2))
 
 
 def _bwd_close(got, want):
@@ -316,8 +436,7 @@ def test_renderer_backward_on_the_card_matches_cpu(cuda):
                 atlas[None].to(d))
         (out["fake"] * R.to(d)).sum().backward()
         grads[name] = {k: p.grad.cpu() for k, p in m.named_parameters()}
-    assert (tk.topk_select.launches, tk.texture_warp_fwd.launches,
-            tk.texture_warp_bwd.launches) == (1, 1, 1)
+    assert _launches() == (0, 0, 1, 1)
     scale = max(float(g.abs().max()) for g in grads["cpu"].values())
     for k, ref in grads["cpu"].items():
         err = float((grads["card"][k] - ref).abs().max())
