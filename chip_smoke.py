@@ -50,6 +50,21 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      time (20 calls captured in a CUDA graph, replayed between CUDA
      events), its host cost per call, the plain version's time, a library
      yardstick's device time, and its bound.
+  7. pipeline: the flagship recipe end to end on a real-format corpus of
+     20 frames at 512 px (keypoint JSONs; frames, masks, DensePose IUV as
+     PNG; .npy flows; bg, atlas and part textures) under
+     build/chip_smoke/pipeline/: stage 1 (batch 6, one epoch), the texture
+     pretrain (one epoch), stage 2 (--load_pretrain_TransG, --data_ratio
+     0.9, EMA, a mid-epoch 'latest' save, the epoch save), --continue_train
+     for epoch 2, and 8 frames served from the run dir. Checks: stage 2's
+     TransG at step 0 is stage 1's; the resume restored the step and both
+     Adam counts; one fused forward, one backward and one flow warp a
+     step, one fused launch per eval and per serving batch, none in the
+     pretrain stages; finite held-out PSNR / SSIM; the served frames equal
+     a forward of the loaded G_ema. Numbers: each stage's median step ms,
+     steps/s and peak memory, the stage-2 step with FrameDataset and the
+     loader against the same step on one packed batch, decode ms a sample
+     and the decoder, checkpoint bytes, save and load seconds.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -57,6 +72,7 @@ package beside this script, it exits non-zero and prints no result.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -719,6 +735,322 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
     return {"launches": launches, "per_step": per_step}
 
 
+PIPE_FRAMES = 20
+# stage 2 of the pipeline: 18 training frames (--data_ratio 0.9) at batch 2
+PIPE_STEPS = 9
+PIPE_LATEST = 5
+
+
+def _atlas_png(path, atlas):
+    """(24, T, T, 3) atlas in [-1, 1] -> the 4 x 6 tile grid as a PNG."""
+    from neural_human_video_rendering_tpu_torch.utils.image import (encode_png,
+                                                                    to_uint8)
+    T = atlas.shape[1]
+    grid = atlas.reshape(4, 6, T, T, 3).transpose(0, 2, 1, 3, 4)
+    with open(path, "wb") as f:
+        f.write(encode_png(to_uint8(grid.reshape(4 * T, 6 * T, 3))))
+
+
+def write_corpus(opt, root):
+    """A real-format corpus of PIPE_FRAMES frames at 512 px from the port's
+    SyntheticDataset, in the reference layout: keypoint JSONs; frames,
+    masks and DensePose IUV as PNG; pairwise flow / flow_inv as .npy;
+    bg.png, texture.png and per-frame part textures."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.data.dataset import \
+        SyntheticDataset
+    from neural_human_video_rendering_tpu_torch.data.densepose import \
+        encode_iuv
+    from neural_human_video_rendering_tpu_torch.data.keypoints import (
+        BODY25_TO_COCO18, write_keypoint_json)
+    from neural_human_video_rendering_tpu_torch.utils.image import (
+        encode_png, save_image, to_uint8)
+    shutil.rmtree(root, ignore_errors=True)
+    syn = SyntheticDataset(opt, length=PIPE_FRAMES, seed=opt.seed)
+    d = {k: os.path.join(root, k) for k in
+         ("openpose_json", "frames", "mask", "densepose", "flow", "flow_inv",
+          "part_texture")}
+    for p in d.values():
+        os.makedirs(p)
+    samples = [syn[i] for i in range(PIPE_FRAMES)]
+    for i, s in enumerate(samples):
+        body = np.zeros((25, 3), np.float32)
+        body[BODY25_TO_COCO18] = s["joints"]
+        write_keypoint_json(os.path.join(d["openpose_json"],
+                                         f"frame{i:05d}_keypoints.json"), body)
+        save_image(os.path.join(d["frames"], f"frame{i:05d}.png"), s["image"])
+        with open(os.path.join(d["mask"], f"frame{i:05d}.png"), "wb") as f:
+            f.write(encode_png(to_uint8(s["mask"], assume_01=True)))
+        with open(os.path.join(d["densepose"], f"frame{i:05d}.png"), "wb") as f:
+            f.write(encode_png(encode_iuv(s["dp_parts"], s["dp_uv"])))
+        if i + 1 < PIPE_FRAMES:      # flow[j] maps frame j+1 back to frame j
+            np.save(os.path.join(d["flow"], f"{i:05d}.npy"),
+                    samples[i + 1]["flow"])
+            np.save(os.path.join(d["flow_inv"], f"{i:05d}.npy"),
+                    samples[i + 1]["flow_inv"])
+        _atlas_png(os.path.join(d["part_texture"], f"frame{i:05d}.png"),
+                   np.clip(syn.texture_atlas() + 0.05 * np.sin(0.3 * i), -1, 1))
+    save_image(os.path.join(root, "bg.png"), syn.background())
+    _atlas_png(os.path.join(root, "texture.png"), syn.texture_atlas())
+    return d
+
+
+def through_main(module, driver, argv):
+    """Run an entry point's main(argv) (python -m <module> argv) and return
+    the state its driver returned, for the checks and the numbers."""
+    kept = {}
+    run = getattr(module, driver)
+
+    def keep(*args, **kw):
+        kept["state"] = run(*args, **kw)
+        return kept["state"]
+
+    setattr(module, driver, keep)
+    try:
+        rc = module.main(argv)
+    finally:
+        setattr(module, driver, run)
+    if rc != 0:
+        raise RuntimeError(f"{module.__name__}.main exited {rc}")
+    return kept["state"]
+
+
+def pipeline_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 7: the flagship recipe end to end on a real-format corpus, each
+    stage through its entry point's main: stage 1 (batch 6, one
+    epoch), the texture pretrain (one epoch), stage 2 with the TransG
+    handoff, --data_ratio 0.9, EMA, a mid-epoch 'latest' save and the epoch
+    save, then --continue_train for a second epoch, then serving 8 frames
+    from the run dir's G_ema. Returns the stage-2 launches."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import (TestOptions,
+                                                               TrainOptions)
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch import pre_train, pre_train_tex
+    from neural_human_video_rendering_tpu_torch.train import __main__ as train
+    from neural_human_video_rendering_tpu_torch.train import drivers
+    from neural_human_video_rendering_tpu_torch.train.steps import (
+        make_forward_fn, make_train_step)
+    from neural_human_video_rendering_tpu_torch.utils import checkpoint as ckpt
+    from neural_human_video_rendering_tpu_torch.utils.image import (
+        decoder_name, read_png, to_uint8)
+    work = os.path.join(repo, "build", "chip_smoke", "pipeline")
+    corpus = os.path.join(work, "corpus")
+    ck = os.path.join(work, "ckpt")
+    base = TrainOptions().parse(TRAIN, save=False)
+    t0 = time.perf_counter()
+    d = write_corpus(base, corpus)
+    corpus_s = time.perf_counter() - t0
+    decoder = decoder_name()
+    print(f"[pipeline] corpus of {PIPE_FRAMES} frames at 512 px written in "
+          f"{corpus_s:.1f} s; decoder: {decoder}", flush=True)
+    data = ["--pose_path", d["openpose_json"], "--mask_path", d["mask"],
+            "--densepose_path", d["densepose"], "--data_ratio", "0.9",
+            "--checkpoints_dir", ck, "--no_flip", "--print_freq", "1",
+            "--display_freq", "10000"]
+    assets = ["--bg_path", os.path.join(corpus, "bg.png"),
+              "--texture_path", os.path.join(corpus, "texture.png")]
+    stages = {}
+
+    def counts():
+        return launch_counts(tk, fk)
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+
+    def record(name, st, t_wall, skip=0):
+        torch.cuda.synchronize()
+        times = sorted(st.step_seconds[skip:])
+        med = times[len(times) // 2] * 1e3 if times else float("nan")
+        stages[name] = {"steps": len(st.step_seconds), "ms_median": med,
+                        "steps_per_s": 1e3 / med,
+                        "ms_steps": [t * 1e3 for t in st.step_seconds],
+                        "wall_s": t_wall,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        print(f"[pipeline] {name}: {json.dumps(stages[name])}", flush=True)
+
+    # checkpoint I/O of the real path, timed where the driver calls it
+    io_s = {"save": [], "resume": []}
+    save_orig, resume_orig = drivers.save_checkpoint, drivers.resume_train
+
+    def timed(kind, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            io_s[kind].append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    drivers.save_checkpoint = timed("save", save_orig)
+    drivers.resume_train = timed("resume", resume_orig)
+    none = {k: 0 for k in REPLACES}
+    try:
+        # ---- stage 1: TransG on DensePose pseudo-GT (pre_train.py)
+        uv_argv = TRAIN + data + ["--name", "uv", "--batchSize", "6",
+                                  "--niter", "1"]
+        reset()
+        t = time.perf_counter()
+        st1 = through_main(pre_train, "run_pretrain_uv", uv_argv)
+        record("stage1_uv", st1, time.perf_counter() - t)
+        smoke.require("stage 1: 3 steps of batch 6, finite losses, no kernel",
+                      st1.step == 3 and counts() == none and all(
+                          np.isfinite(float(v)) for v in st1.metrics.values()),
+                      f"({st1.step} steps, {counts()})")
+        uv_saved = ckpt.load_net(os.path.join(ck, "uv"), "TransG")
+        del st1
+
+        # ---- texture pretrain (pre_train_tex.py)
+        reset()
+        t = time.perf_counter()
+        st_t = through_main(pre_train_tex, "run_pretrain_tex", TRAIN + data
+                            + assets + ["--name", "tex", "--niter", "1",
+                                        "--part_texture_path",
+                                        d["part_texture"]])
+        record("texture_pretrain", st_t, time.perf_counter() - t)
+        smoke.require("texture pretrain: 9 steps, finite loss, no kernel, "
+                      "TexG saved",
+                      st_t.step == 9 and counts() == none
+                      and np.isfinite(float(st_t.metrics["Tex_L1"]))
+                      and ckpt.find_net(os.path.join(ck, "tex"), "TexG", 1)
+                      is not None, f"({st_t.step} steps, {counts()})")
+        del st_t
+        torch.cuda.empty_cache()
+
+        # ---- stage 2 (train.py): the handoff, one epoch, then a resume
+        s2 = (TRAIN + data + assets + [
+            "--img_path", d["frames"], "--flow_path", d["flow"],
+            "--flow_inv_path", d["flow_inv"], "--name", "e2e",
+            "--load_pretrain_TransG", os.path.join(ck, "uv"),
+            "--save_latest_freq", str(PIPE_LATEST), "--save_epoch_freq", "40",
+            "--no_decay"])
+        st0 = drivers.run_train(TrainOptions().parse(s2 + ["--niter", "1"]),
+                                max_steps=0)
+        same = all(torch.equal(v.cpu(), uv_saved[k])
+                   for k, v in st0.renderer.TransG.state_dict().items())
+        smoke.require("stage 2 at step 0: TransG equals stage 1's saved "
+                      "TransG", same and st0.step == 0)
+        del st0, uv_saved
+        torch.cuda.empty_cache()
+        reset()
+        t = time.perf_counter()
+        st2 = through_main(train, "run_train", s2 + ["--niter", "1"])
+        record("stage2_epoch1", st2, time.perf_counter() - t)
+        l1 = counts()
+        run = os.path.join(ck, "e2e")
+        smoke.require("stage 2 epoch 1: 9 steps; per step 1 fused forward, 1 "
+                      "backward, 1 flow warp; 1 fused launch for the eval",
+                      st2.step == PIPE_STEPS and l1 == {
+                          **none, "texture_warp_topk_fwd": PIPE_STEPS + 1,
+                          "texture_warp_bwd": PIPE_STEPS,
+                          "flow_warp_fwd": PIPE_STEPS}, f"({l1})")
+        del st2
+        torch.cuda.empty_cache()
+        reset()
+        t = time.perf_counter()
+        st2 = through_main(train, "run_train",
+                           s2 + ["--niter", "2", "--continue_train"])
+        opt_c = TrainOptions().parse(s2 + ["--niter", "2"], save=False)
+        record("stage2_resumed_epoch2", st2, time.perf_counter() - t, skip=2)
+        l2 = counts()
+        smoke.require("stage 2 resumed at epoch 2 with the step and both Adam "
+                      "counts restored (18 after 9 more steps)",
+                      st2.start_epoch == 2 and st2.step == 2 * PIPE_STEPS
+                      and st2.g_opt.count == st2.d_opt.count == 2 * PIPE_STEPS,
+                      f"(start {st2.start_epoch}, step {st2.step}, counts "
+                      f"{st2.g_opt.count} / {st2.d_opt.count})")
+        smoke.require("stage 2 epoch 2: the same launches", l2 == l1, str(l2))
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            vals = [json.loads(ln) for ln in f if "val_PSNR" in ln]
+        smoke.require("held-out PSNR / SSIM after both epochs, finite",
+                      [v["epoch"] for v in vals] == [1, 2] and all(
+                          np.isfinite([v["val_PSNR"], v["val_SSIM"]]).all()
+                          for v in vals), json.dumps(vals))
+        files = sorted(os.listdir(run))
+        smoke.require("stage 2 files: epoch 1 and 2, latest, state",
+                      {"1_net_G.pth", "2_net_G_ema.pth", "latest_net_D.pth",
+                       "2_net_TransG.pth", "latest_state.pth"} <= set(files),
+                      str(files))
+        ckpt_bytes = {f: os.path.getsize(os.path.join(run, f)) for f in files
+                      if f.startswith("2_") or f == "latest_state.pth"}
+
+        # the loader's share: the same step on one pre-packed batch
+        ds = dsm.FrameDataset(opt_c, "train")
+        t = time.perf_counter()
+        items = [ds[i] for i in range(6)]
+        decode_ms = (time.perf_counter() - t) * 1e3 / 6
+        batch = pack_batch(dsm.collate(items[:2]))
+        step = make_train_step(opt_c, st2.renderer, st2.disc, st2.vgg,
+                               st2.g_opt, st2.d_opt)
+        fixed = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(st2, batch)
+            torch.cuda.synchronize()
+            fixed.append(time.perf_counter() - t)
+        fixed_ms = sorted(fixed[1:])[len(fixed[1:]) // 2] * 1e3
+        loader_ms = stages["stage2_resumed_epoch2"]["ms_median"]
+        del st2, step
+        torch.cuda.empty_cache()
+
+        # ---- serving from the run dir (G_ema at epoch 2)
+        topt = TestOptions().parse(FLAGSHIP + assets + [
+            "--pose_path", d["openpose_json"], "--results_dir",
+            os.path.join(work, "results"), "--checkpoints_dir", ck,
+            "--name", "e2e", "--which_epoch", "2"], save=False)
+        reset()
+        t = time.perf_counter()
+        n = td.run_inference(topt, max_frames=8)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        ls = counts()
+        smoke.require("serving from the checkpoint: 8 frames, 1 fused launch",
+                      n == 8 and ls == {**none, "texture_warp_topk_fwd": 1},
+                      str(ls))
+        renderer = td.build_renderer(topt, dev)
+        saved = ckpt.load_net(run, "G_ema", 2)
+        smoke.require("serving loaded G_ema of epoch 2", all(
+            torch.equal(v.cpu(), saved[k])
+            for k, v in renderer.state_dict().items()))
+        _, joints = td.load_driving_joints(topt)
+        fake = make_forward_fn(topt, renderer)(
+            td.assets_to_device(topt, *td.load_assets(topt), dev),
+            torch.from_numpy(joints[:8]).to(dev))["fake"]
+        worst, unequal = 0, 0
+        for i in range(8):
+            png = read_png(os.path.join(work, "results", "images",
+                                        f"frame{i:05d}_synthesized.png"))
+            want = to_uint8(fake[i].float().permute(1, 2, 0).cpu().numpy())
+            diff = np.abs(png.astype(int) - want.astype(int))
+            worst, unequal = max(worst, int(diff.max())), unequal + int(
+                (diff > 0).sum())
+        smoke.require("served frames == a forward of the loaded G_ema (uint8)",
+                      worst == 0, f"(max diff {worst}, {unequal} values differ)")
+        del renderer, fake
+    finally:
+        drivers.save_checkpoint, drivers.resume_train = save_orig, resume_orig
+    print(json.dumps({"pipeline": {
+        "stages": stages, "frames": PIPE_FRAMES, "size": 512,
+        "stage2_loader_vs_fixed_batch": {
+            "with_frame_dataset_and_loader_ms_median": loader_ms,
+            "fixed_packed_batch_ms_median": fixed_ms,
+            "loader_share": (loader_ms - fixed_ms) / loader_ms},
+        "decode_ms_per_sample": decode_ms, "decoder": decoder,
+        "corpus_write_s": corpus_s,
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_bytes_epoch_save": sum(ckpt_bytes.values()),
+        "save_s": io_s["save"], "resume_load_s": io_s["resume"],
+        "serving_8_frames_s": serve_s, "card": smi}}), flush=True)
+    shutil.rmtree(ck, ignore_errors=True)         # ~10 GB of checkpoints
+    return {"stage2_epoch": l1}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -996,6 +1328,9 @@ def main() -> int:
     train_k = kernel_numbers(torch, tk, fk, tex, uv, probs, w_train, K, EPS,
                              tuple(REPLACES), flow=flow_inputs(torch, B2, S, 5, dev),
                              keep_w=True)
+    # ------------------------------------------------------- 7. pipeline
+    pipe = pipeline_path(torch, smoke, tk, fk, repo, dev, smi)
+
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
     train_run = f"run_train, {TRAIN_WARMUP + TRAIN_TIMED} steps"
@@ -1010,6 +1345,7 @@ def main() -> int:
                  "replaces": REPLACES[name], "launches": main_run[name][0],
                  "launches_path": main_run[name][1],
                  "launches_per_train_step": train["per_step"][name],
+                 "launches_pipeline_stage2_epoch": pipe["stage2_epoch"][name],
                  "max_abs_err": errs[name], **row, "card": smi}
         if name in serving:
             entry["launches_serving"] = launches[name]

@@ -12,17 +12,18 @@ pinned host memory and a thread pool encodes batch k-1's PNGs.
     python -m neural_human_video_rendering_tpu_torch.infer.test_driver \\
         --pose_path KEYPOINT_DIR --results_dir OUT [test.py flags]
 
+The weights come from --checkpoints_dir/--name at --which_epoch (the
+port's .pth files or the JAX package's .msgpack files, G_ema preferred;
+see ``build_renderer``), else a seeded random init.
+
 Not in this slice: driving with pre-rendered pose images, LaplaceProj
-channels, feature-encoder codes, video assembly, and reading checkpoints
-of the JAX package (a run dir holding one is refused, never rendered with
-random weights).
+channels, feature-encoder codes and video assembly.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import re
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -37,6 +38,7 @@ from ..data import keypoints as kp
 from ..data import pose_align
 from ..models.renderer import init_params, renderer_from_options
 from ..train.steps import make_forward_fn
+from ..utils import checkpoint as ckpt
 from ..utils.html import HTMLGallery
 from ..utils.image import save_image
 
@@ -138,21 +140,22 @@ def assets_to_device(opt, tex: np.ndarray, bg: np.ndarray,
     return static_tex, bg_t, tex_mask
 
 
-def _has_jax_checkpoint(run_dir: str) -> bool:
-    return os.path.isdir(run_dir) and any(
-        re.fullmatch(r"\d+_net_G(_ema)?\.msgpack", f)
-        for f in os.listdir(run_dir))
-
-
 def build_renderer(opt, device: torch.device):
-    """The renderer on `device`, in eval mode, with a seeded random init
-    (--seed). Refuses a run dir that holds trained JAX weights."""
-    if _has_jax_checkpoint(opt.run_dir):
-        raise NotImplementedError(
-            f"{opt.run_dir} holds JAX msgpack checkpoints, which the PyTorch "
-            "port cannot read yet")
+    """The renderer on `device`, in eval mode: the weights of --name's run
+    dir when it holds a numeric-epoch G file (.pth or .msgpack), from the
+    G_ema file at --which_epoch where one exists (unless --no_ema), else
+    G; a seeded random init (--seed) when it holds none."""
     renderer = init_params(renderer_from_options(opt), opt.seed)
-    print("[ckpt] no checkpoint found -> random-init demo render", flush=True)
+    run_dir = opt.run_dir
+    if ckpt.latest_epoch(run_dir, "G") is not None:
+        label = ("G_ema" if not opt.no_ema and ckpt.find_net(
+            run_dir, "G_ema", opt.which_epoch) else "G")
+        path = ckpt.load_net_into(renderer, run_dir, label, opt.which_epoch)
+        print(f"[ckpt] loaded {label} epoch {opt.which_epoch} from {path}",
+              flush=True)
+    else:
+        print("[ckpt] no checkpoint found -> random-init demo render",
+              flush=True)
     return renderer.to(device).eval()
 
 

@@ -10,7 +10,13 @@ and the VGG's ``conv7`` map the same way. Kernels change layout on the way:
     both spatial axes flipped (flax's transposed conv does not flip the
     kernel; torch's does).
 Biases copy as they are. The input is the tree as nested dicts of numpy
-arrays (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+arrays (``jax.tree.map(np.asarray, params)``, or a checkpoint file read by
+``utils/flax_msgpack``), so this module needs no JAX.
+
+A whole checkpoint file of the JAX package becomes the state_dict of the
+module of its label: ``G`` / ``G_ema`` (the renderer tree,
+``TransG/TexG/BGNet``) of the renderer, ``TransG`` of ``renderer.TransG``,
+``TexG`` of TexG, and ``D`` (``scale_i/Conv_j``) of the discriminator.
 """
 
 from __future__ import annotations
@@ -21,12 +27,16 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from ..utils import flax_msgpack
+
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
     for k, v in tree.items():
         path = f"{prefix}.{k}" if prefix else k
         if isinstance(v, Mapping):
             yield from _flatten(v, path)
+        elif isinstance(v, torch.Tensor):          # a bfloat16 leaf
+            yield path, v.float().numpy()
         else:
             yield path, np.asarray(v)
 
@@ -51,3 +61,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"{parent}.{'weight' if leaf == 'kernel' else 'bias'}"] = \
             torch.from_numpy(np.array(t, dtype=np.float32, order="C"))
     return out
+
+
+def state_dict_from_flax_file(path: str) -> Dict[str, torch.Tensor]:
+    """One ``{epoch}_net_{label}.msgpack`` file of the JAX package -> the
+    state_dict of the matching port module (load it with strict=True:
+    ``utils/checkpoint.load_net_into``)."""
+    return params_from_jax(flax_msgpack.restore(path))

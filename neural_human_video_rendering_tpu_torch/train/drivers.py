@@ -1,15 +1,20 @@
-"""The stage-2 trainer of the port: the body behind the JAX package's
-train.py (``train/drivers.py:run_train``).
+"""Stage drivers of the port: the bodies behind the JAX package's train.py
+(``run_train``), pre_train.py (``run_pretrain_uv``) and pre_train_tex.py
+(``run_pretrain_tex``), ``train/drivers.py`` there.
+
+Each builds the dataset (``FrameDataset`` when any modality directory
+exists, else the deterministic ``SyntheticDataset``), the nets and their
+optimizers (with --continue_train, --load_pretrain and
+--load_pretrain_TransG restores for stage 2), the step, then runs the
+epoch loop, which saves checkpoints under {checkpoints_dir}/{name}/.
 
     python -m neural_human_video_rendering_tpu_torch.train.drivers \\
         <train.py flags> [--gpu_ids -1 for the CPU]
 
-Builds the synthetic dataset (``FrameDataset`` is not ported yet, so real
-data directories are refused), the assets, the train state and the step,
-then runs the epoch loop, printing loss lines at --print_freq. It writes
-no checkpoint yet (--continue_train and the --load_pretrain* flags are
-refused); it does write opt.txt and recipe.json to the run directory, as
-the JAX trainer does.
+A --load_pretrain* or --which_epoch run dir may hold the port's .pth
+files or the JAX package's .msgpack files (.pth first). Resuming a JAX
+run's optimizer state is not supported: --continue_train on a dir that
+holds only JAX files is refused.
 """
 
 from __future__ import annotations
@@ -23,23 +28,65 @@ import torch
 
 from ..config import TrainOptions, resolve_device
 from ..data import dataset as dsm
-from ..data.wire import pack_batch
+from ..data.wire import pack_batch, unpack_batch
+from ..models.generators import TexG, TransG
+from ..models.renderer import init_params
+from ..utils import checkpoint as ckpt
+from ..utils.metrics import psnr, ssim
+from ..utils.visualizer import prune_metrics_after
 from .loop import run_training
-from .state import check_train_options, create_train_state
-from .steps import make_train_step
+from .state import (PretrainState, check_pretrain_options, check_train_options,
+                    create_train_state, make_optimizer, to_nchw)
+from .steps import (build_pose_input, make_pretrain_tex_step,
+                    make_pretrain_uv_step, make_train_step)
+
+
+def _dataset(opt, phase: str = "train"):
+    """FrameDataset whenever ANY modality directory exists (the stage-1
+    launcher passes pose / mask / densepose but no --img_path), else the
+    SyntheticDataset."""
+    if any(p and os.path.isdir(p) for p in (opt.pose_path, opt.img_path,
+                                            opt.densepose_path, opt.mask_path)):
+        ds = dsm.FrameDataset(opt, phase)
+        if ds.pose_img_names:
+            raise NotImplementedError(
+                f"--pose_path {opt.pose_path!r} holds pose images, not "
+                "keypoint JSONs: driving with pre-rendered pose images is not "
+                "in the PyTorch port yet")
+        return ds
+    print("[data] no real dataset dirs found -> SyntheticDataset", flush=True)
+    return dsm.SyntheticDataset(opt, length=max(opt.batchSize * 4, 16),
+                                seed=opt.seed)
+
+
+def _loader(opt, ds, shuffle: bool = True) -> dsm.BatchLoader:
+    """--nThreads decode files in parallel (OpenCV and zlib release the
+    GIL). The synthetic dataset computes its samples in numpy instead, and
+    a pool of those takes the host's cores from the eager step: on the
+    H100's host the synthetic stage-2 step ran ~30% slower with two
+    threads, so it keeps the one loader thread."""
+    synthetic = isinstance(getattr(ds, "base", ds), dsm.SyntheticDataset)
+    return dsm.BatchLoader(ds, opt.batchSize, shuffle=shuffle, seed=opt.seed,
+                           threads=1 if synthetic else opt.nThreads,
+                           transform=pack_batch if opt.wire_pack else None)
 
 
 def _assets(opt, ds):
-    """(static_tex (P, T, T, 3), bg (S, S, 3)) from files or synthetic."""
+    """(static_tex (P, T, T, 3), bg (S, S, 3)) from files, else the
+    synthetic dataset's, else zeros."""
     if opt.texture_path and os.path.isfile(opt.texture_path):
         tex = dsm.load_texture_atlas(opt.texture_path, opt.tex_tile,
                                      opt.tex_rows, opt.tex_cols)
-    else:
+    elif hasattr(ds, "texture_atlas"):
         tex = ds.texture_atlas()
+    else:
+        tex = np.zeros((opt.n_parts, opt.tex_tile, opt.tex_tile, 3), np.float32)
     if opt.bg_path and os.path.isfile(opt.bg_path):
         bg = dsm.load_image(opt.bg_path, opt.train_size)
-    else:
+    elif hasattr(ds, "background"):
         bg = ds.background()
+    else:
+        bg = np.zeros((opt.train_size, opt.train_size, 3), np.float32)
     return tex, bg
 
 
@@ -51,6 +98,136 @@ def _tex_mask(opt, tex: np.ndarray) -> Optional[np.ndarray]:
     return (np.abs(tex + 1.0).sum(-1, keepdims=True) > 0.05).astype(np.float32)
 
 
+def _refuse_jax_resume(run_dir: str, label: str) -> None:
+    if (ckpt.latest_epoch(run_dir, label, exts=(ckpt.JAX_EXT,)) is not None
+            or ckpt.has_latest(run_dir, label, ckpt.JAX_EXT)):
+        raise NotImplementedError(
+            f"--continue_train: {run_dir} holds only the JAX package's "
+            f".msgpack checkpoints; resuming a JAX run's optimizer state is "
+            f"not supported (start a new run with --load_pretrain {run_dir})")
+
+
+def _epochs(opt, epochs: Optional[int]) -> int:
+    if epochs is not None:
+        return epochs
+    return opt.niter if opt.no_decay else opt.niter + opt.niter_decay
+
+
+# ----------------------------------------------------------------------
+# stage 2: end-to-end person-specific training (train.py)
+# ----------------------------------------------------------------------
+
+def save_checkpoint(run_dir: str, st, epoch, completed=None) -> None:
+    """Stage 2's save: G, D, TransG, G_ema (with --ema_decay) and
+    latest_state. An iteration save (epoch 'latest') anchors the state to
+    the last completed epoch, so --continue_train resumes in place."""
+    ckpt.save_net(run_dir, "G", epoch, st.renderer.state_dict())
+    ckpt.save_net(run_dir, "D", epoch, st.disc.state_dict())
+    ckpt.save_net(run_dir, "TransG", epoch, st.renderer.TransG.state_dict())
+    if st.g_ema is not None:
+        ckpt.save_net(run_dir, "G_ema", epoch, st.g_ema)
+    anchor = epoch if str(epoch).isdigit() else (
+        completed if completed is not None else -1)
+    ckpt.save_train_state(run_dir, st.g_opt, st.d_opt, st.step, anchor)
+    print(f"[ckpt] saved epoch {epoch} -> {run_dir}", flush=True)
+
+
+def resume_train(opt, st, steps_per_epoch: int) -> Optional[int]:
+    """The --continue_train ladder on --name's run dir: G; D (a missing
+    latest D, from a save killed midway, keeps the fresh D); the EMA track
+    (restarted from the resumed raw weights if this run saved none); the
+    optimizers and the step; then the epoch to start at: the state's
+    epoch, else the numeric epoch files', else step // steps-per-epoch.
+    Returns that epoch, or None when there is nothing to resume."""
+    run_dir = opt.run_dir
+    ep = ckpt.latest_epoch(run_dir, "G", exts=(ckpt.EXT,))
+    if ep is None and not ckpt.has_latest(run_dir, "G"):
+        _refuse_jax_resume(run_dir, "G")
+        return None
+    ckpt.load_net_into(st.renderer, run_dir, "G")
+    if ckpt.has_latest(run_dir, "D"):
+        ckpt.load_net_into(st.disc, run_dir, "D")
+    else:
+        print("[ckpt] resume: latest_net_D missing (mid-kill save?); keeping "
+              "fresh D init", flush=True)
+    if st.g_ema is not None:
+        if ckpt.has_latest(run_dir, "G_ema"):
+            saved = ckpt.load_net(run_dir, "G_ema")
+            if set(saved) != set(st.g_ema):
+                raise KeyError(f"{run_dir}: latest_net_G_ema does not match G")
+            src = saved
+        else:
+            src = dict(st.renderer.named_parameters())
+        with torch.no_grad():
+            for k, v in src.items():
+                st.g_ema[k].copy_(v)
+    step, saved_ep = ckpt.load_train_state(run_dir, st.g_opt, st.d_opt)
+    if step is not None:
+        st.step = step
+    if saved_ep is not None and saved_ep > 0:
+        start = saved_ep + 1
+    elif ep is not None:
+        start = int(ep) + 1
+    else:
+        start = st.step // max(1, steps_per_epoch) + 1
+    print(f"[ckpt] resumed at epoch {start} (step {st.step}, optimizer "
+          f"state {'restored' if step is not None else 'fresh'})", flush=True)
+    return start
+
+
+def _render(st, pose: torch.Tensor):
+    """The renderer's forward on the state's assets with the EMA weights
+    when a track is kept (what inference serves), else the raw ones."""
+    args = (pose, st.bg[None], st.static_tex[None], st.tex_mask)
+    if st.g_ema is not None:
+        return torch.func.functional_call(st.renderer, st.g_ema, args)
+    return st.renderer(*args)
+
+
+def _eval_fn(opt, device):
+    """Held-out PSNR / SSIM on the --data_ratio split, on the EMA track;
+    None without a held-out split of real frames."""
+    if not 0 < opt.data_ratio < 1:
+        return None
+    eval_ds = _dataset(opt, "test")
+    if isinstance(eval_ds, dsm.SyntheticDataset) or not eval_ds.img_names:
+        return None
+    loader = dsm.BatchLoader(eval_ds, opt.batchSize, shuffle=False,
+                             drop_last=False, threads=opt.nThreads)
+
+    @torch.inference_mode()
+    def eval_fn(st, epoch):
+        ps, ss, n = 0.0, 0.0, 0
+        for eb in loader:
+            b = unpack_batch(eb, device)
+            fake = _render(st, build_pose_input(opt, b["joints"]))["fake"]
+            ps += float(psnr(fake, b["image"]).sum())
+            ss += float(ssim(fake, b["image"]).sum())
+            n += fake.shape[0]
+        return {"val_PSNR": ps / n, "val_SSIM": ss / n} if n else {}
+
+    return eval_fn
+
+
+def _visuals_fn(opt, device):
+    @torch.inference_mode()
+    def visuals_fn(st, batch):
+        b = unpack_batch({k: v[:1] for k, v in batch.items()}, device)
+        outs = _render(st, build_pose_input(opt, b["joints"]))
+
+        def hwc(t):
+            return t[0].float().permute(1, 2, 0).cpu().numpy()
+
+        vis = {"synthesized": hwc(outs["fake"]), "foreground": hwc(outs["fg"]),
+               "mask": hwc(outs["mask"]) * 2 - 1,
+               "bg_refined": hwc(outs["bg_refined"])}
+        if "image" in b:
+            vis["real"] = hwc(b["image"])
+        return vis
+
+    return visuals_fn
+
+
 def run_train(opt, epochs: Optional[int] = None,
               max_steps: Optional[int] = None):
     """Stage-2 end-to-end training on --gpu_ids (the card unless -1) for
@@ -59,21 +236,187 @@ def run_train(opt, epochs: Optional[int] = None,
     check_train_options(opt)
     device = resolve_device(opt.gpu_ids)
     torch.manual_seed(opt.seed)
-    print("[data] no real dataset dirs -> SyntheticDataset", flush=True)
-    ds = dsm.SyntheticDataset(opt, length=max(opt.batchSize * 4, 16),
-                              seed=opt.seed)
-    loader = dsm.BatchLoader(ds, opt.batchSize,
-                             shuffle=not opt.serial_batches, seed=opt.seed,
-                             transform=pack_batch if opt.wire_pack else None)
+    ds = _dataset(opt, "train")
+    loader = _loader(opt, ds, shuffle=not opt.serial_batches)
     tex, bg = _assets(opt, ds)
     state = create_train_state(opt, tex, bg, tex_mask=_tex_mask(opt, tex),
                                steps_per_epoch=len(loader), device=device)
+    run_dir = opt.run_dir
+    start = resume_train(opt, state, len(loader)) if opt.continue_train else None
+    if start is not None:
+        state.start_epoch = start
+        # the epoch order the straight run would have had
+        loader.epoch = start - 1
+        prune_metrics_after(run_dir, start - 1)
+    elif opt.continue_train:
+        print(f"[ckpt] --continue_train: nothing to resume in {run_dir}; "
+              "starting fresh", flush=True)
+    if start is None and opt.load_pretrain and os.path.isdir(opt.load_pretrain):
+        # warm-start the whole G (and D where saved), fresh optimizers
+        ckpt.load_net_into(state.renderer, opt.load_pretrain, "G",
+                           opt.which_epoch)
+        if ckpt.find_net(opt.load_pretrain, "D", opt.which_epoch):
+            ckpt.load_net_into(state.disc, opt.load_pretrain, "D",
+                               opt.which_epoch)
+        print(f"[ckpt] warm-started G/D from {opt.load_pretrain} "
+              f"@ {opt.which_epoch}", flush=True)
+    elif start is None and opt.load_pretrain_TransG:
+        path = ckpt.load_transg_into(state.renderer, opt.load_pretrain_TransG,
+                                     opt.which_epoch_TransG)
+        print(f"[ckpt] loaded pretrained TransG from {path}", flush=True)
+
     step = make_train_step(opt, state.renderer, state.disc, state.vgg,
                            state.g_opt, state.d_opt)
-    n_epochs = epochs if epochs is not None else (
-        opt.niter if opt.no_decay else opt.niter + opt.niter_decay)
-    return run_training(opt, loader, step, state, n_epochs,
-                        max_steps=max_steps)
+    return run_training(
+        opt, loader, step, state, _epochs(opt, epochs),
+        lambda st, epoch, completed=None: save_checkpoint(run_dir, st, epoch,
+                                                          completed),
+        _visuals_fn(opt, device), _eval_fn(opt, device),
+        start_epoch=state.start_epoch, max_steps=max_steps)
+
+
+# ----------------------------------------------------------------------
+# stage 1 and the texture pretrain: one generator each
+# ----------------------------------------------------------------------
+
+def _conv_kw(opt) -> dict:
+    return dict(stem_s2d=opt.stem_s2d, head_s2d=opt.head_s2d,
+                pad_mode=opt.pad_mode, upsample_mode=opt.upsample_mode,
+                dtype=torch.bfloat16 if opt.dtype == "bfloat16"
+                else torch.float32)
+
+
+def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
+                    epochs: Optional[int], max_steps: Optional[int]):
+    """The pretrain stages' driver: resume the net from --name's run dir
+    (latest file; the epoch from the numeric files or the anchor), fresh
+    Adam, then the loop saving {epoch}_net_{label} and the epoch anchor."""
+    device = resolve_device(opt.gpu_ids)
+    net = init_params(net, opt.seed).to(device).train()
+    loader = _loader(opt, ds)
+    run_dir = opt.run_dir
+    start = 1
+    if opt.continue_train:
+        ep = ckpt.latest_epoch(run_dir, label, exts=(ckpt.EXT,))
+        if ep is not None or ckpt.has_latest(run_dir, label):
+            ckpt.load_net_into(net, run_dir, label)
+            if ep is None:
+                anchor = ckpt.load_epoch_anchor(run_dir)
+                ep = anchor if anchor is not None else 0
+                if anchor is None:
+                    print("[ckpt] resume: latest-only save with no epoch "
+                          "anchor; keeping weights, restarting schedule at 1",
+                          flush=True)
+            start = int(ep) + 1
+            loader.epoch = start - 1
+            prune_metrics_after(run_dir, start - 1)
+            print(f"[ckpt] resumed at epoch {start}", flush=True)
+        else:
+            _refuse_jax_resume(run_dir, label)
+    state = PretrainState(step=0, net=net, device=device,
+                          optimizer=make_optimizer(opt, net.parameters(),
+                                                   len(loader)))
+
+    def save_fn(st, epoch, completed=None):
+        ckpt.save_net(run_dir, label, epoch, st.net.state_dict())
+        anchor = epoch if str(epoch).isdigit() else completed
+        if anchor is not None:
+            ckpt.save_epoch_anchor(run_dir, int(anchor))
+        print(f"[ckpt] saved epoch {epoch} -> {run_dir}", flush=True)
+
+    n_epochs = epochs if epochs is not None else opt.niter
+    return run_training(opt, loader, make_step(state), state, n_epochs,
+                        save_fn, start_epoch=start, max_steps=max_steps)
+
+
+def run_pretrain_uv(opt, epochs: Optional[int] = None,
+                    max_steps: Optional[int] = None) -> PretrainState:
+    """Stage 1: person-agnostic TransG pretrain on DensePose pseudo-GT
+    (pre_train.py) for --niter epochs; saves {epoch}_net_TransG."""
+    check_pretrain_options(opt)
+    torch.manual_seed(opt.seed)
+    with torch.device("meta"):
+        transg = TransG(opt.pose_nc, opt.n_parts, opt.ngf,
+                        opt.n_downsample_translate, opt.n_blocks_translate,
+                        **_conv_kw(opt))
+    return _run_single_net(
+        opt, "TransG", _dataset(opt, "train"), transg,
+        lambda st: make_pretrain_uv_step(opt, st.net, st.optimizer),
+        epochs, max_steps)
+
+
+class _TexDataset:
+    """A base dataset with each sample's part-texture GT: the atlas image
+    of --part_texture_path for the frame (and of --pose_texture_path where
+    given); without that directory, the static atlas plus a deterministic
+    wave."""
+
+    def __init__(self, opt, base):
+        self.opt = opt
+        self.base = base
+
+        def files(d):
+            return sorted(os.listdir(d)) if d and os.path.isdir(d) else []
+
+        self.files = files(opt.part_texture_path)
+        self.pose_tex_files = files(opt.pose_texture_path)
+        self._static = (base.texture_atlas() if hasattr(base, "texture_atlas")
+                        else np.zeros((opt.n_parts, opt.tex_tile, opt.tex_tile,
+                                       3), np.float32))
+
+    def __len__(self):
+        return len(self.base)
+
+    @property
+    def epoch(self):
+        return getattr(self.base, "epoch", 0)
+
+    @epoch.setter
+    def epoch(self, value):
+        # BatchLoader's per-epoch advance reaches the wrapped dataset
+        if hasattr(self.base, "epoch"):
+            self.base.epoch = value
+
+    def _atlas(self, d, names, i):
+        return dsm.load_texture_atlas(
+            os.path.join(d, names[min(i, len(names) - 1)]), self.opt.tex_tile,
+            self.opt.tex_rows, self.opt.tex_cols)
+
+    def __getitem__(self, k):
+        s = self.base[k]
+        i = int(s["index"])
+        if self.files:
+            s["part_texture"] = self._atlas(self.opt.part_texture_path,
+                                            self.files, i)
+            if self.pose_tex_files:
+                s["pose_texture"] = self._atlas(self.opt.pose_texture_path,
+                                                self.pose_tex_files, i)
+        else:
+            s["part_texture"] = np.clip(
+                self._static + 0.1 * np.sin(0.3 * i), -1, 1).astype(np.float32)
+        return s
+
+
+def run_pretrain_tex(opt, epochs: Optional[int] = None,
+                     max_steps: Optional[int] = None) -> PretrainState:
+    """Texture pretrain: TexG against per-frame part textures
+    (pre_train_tex.py) for --niter epochs; saves {epoch}_net_TexG."""
+    check_pretrain_options(opt)
+    torch.manual_seed(opt.seed)
+    base = _dataset(opt, "train")
+    tex, _ = _assets(opt, base)
+    device = resolve_device(opt.gpu_ids)
+    static_tex = to_nchw(tex, device)
+    tex_mask = to_nchw(_tex_mask(opt, tex), device)
+    with torch.device("meta"):
+        texg = TexG(opt.pose_nc, opt.n_parts, opt.tex_tile, opt.ngf_global,
+                    opt.n_downsample_global, opt.n_blocks_global,
+                    **_conv_kw(opt))
+    return _run_single_net(
+        opt, "TexG", _TexDataset(opt, base), texg,
+        lambda st: make_pretrain_tex_step(opt, st.net, st.optimizer,
+                                          static_tex, tex_mask),
+        epochs, max_steps)
 
 
 def main(argv=None) -> int:

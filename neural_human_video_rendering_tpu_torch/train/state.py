@@ -39,6 +39,12 @@ class TrainState:
     step_seconds: List[float] = dataclasses.field(default_factory=list)
     # the last step's losses (float32 scalars on the device)
     metrics: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # the epoch this run started at (> 1 after a --continue_train resume)
+    start_epoch: int = 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.static_tex.device
 
 
 def check_train_options(opt) -> None:
@@ -51,18 +57,42 @@ def check_train_options(opt) -> None:
         "flip augmentation and bg_flip (pass --no_flip)": not opt.no_flip,
         "crop modes (--resize_or_crop *crop)": "crop" in opt.resize_or_crop,
         "--lambda_UVgrad > 0": opt.lambda_UVgrad > 0,
-        "real data directories (FrameDataset)": any(
-            (opt.pose_path, opt.img_path, opt.densepose_path, opt.mask_path,
-             opt.flow_path, opt.flow_inv_path, opt.lapalce_path)),
-        "--continue_train (checkpoints)": opt.continue_train,
-        "--load_pretrain (checkpoints)": bool(opt.load_pretrain),
-        "--load_pretrain_TransG (checkpoints)": bool(opt.load_pretrain_TransG),
     }
     asked = [k for k, v in later.items() if v]
     if asked:
         raise NotImplementedError(
             f"the PyTorch port's training does not support {', '.join(asked)}"
             " yet")
+
+
+def check_pretrain_options(opt) -> None:
+    """Raise NotImplementedError on what the port's pretrain stages do not
+    carry yet."""
+    later = {"--lambda_UVgrad > 0": opt.lambda_UVgrad > 0,
+             "--ms_uv": opt.ms_uv > 0, "--uv_refine": opt.uv_refine > 0,
+             "--netG local": opt.netG != "global",
+             "--use_laplace": opt.use_laplace,
+             "--limb_coords": opt.limb_coords,
+             "flip augmentation (pass --no_flip)": not opt.no_flip,
+             "crop modes (--resize_or_crop *crop)":
+                 "crop" in opt.resize_or_crop}
+    asked = [k for k, v in later.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"the PyTorch port's pretraining does not support "
+            f"{', '.join(asked)} yet")
+
+
+@dataclasses.dataclass
+class PretrainState:
+    """What a pretrain step updates in place: one generator (TransG or
+    TexG) and its optimizer."""
+    step: int
+    net: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    device: torch.device
+    step_seconds: List[float] = dataclasses.field(default_factory=list)
+    metrics: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def lr_schedule(opt, steps_per_epoch: int = 0) -> Callable[[int], float]:
@@ -96,11 +126,30 @@ class ScheduledAdam(torch.optim.Adam):
         self.count += 1
         return loss
 
+    def state_dict(self):
+        """torch's Adam state plus the update count the schedule reads."""
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict) -> None:
+        state_dict = dict(state_dict)
+        count = int(state_dict.pop("count", 0))
+        super().load_state_dict(state_dict)
+        self.count = count
+
 
 def make_optimizer(opt, params, steps_per_epoch: int = 0) -> ScheduledAdam:
     """Adam(lr, beta1, beta2) with pix2pixHD's LR schedule."""
     return ScheduledAdam(params, opt.lr, (opt.beta1, opt.beta2),
                          lr_schedule(opt, steps_per_epoch))
+
+
+def to_nchw(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
+    """A (..., H, W, C) numpy asset -> a float32 (..., C, H, W) tensor on
+    `device` (None stays None)."""
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(np.asarray(a, np.float32), -1, -3))).to(device)
 
 
 def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
@@ -122,11 +171,6 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
         from ..models.vgg import build_vgg
         vgg = build_vgg(opt.seed + 2, dtype=torch.bfloat16).to(dev)
 
-    def nchw(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(np.moveaxis(np.asarray(a, np.float32), -1, -3))
-        ).to(dev)
-
     g_ema = None
     if opt.ema_decay > 0:
         g_ema = {k: v.detach().clone()
@@ -135,5 +179,6 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
         step=0, renderer=renderer.train(), disc=disc.train(), vgg=vgg,
         g_opt=make_optimizer(opt, renderer.parameters(), steps_per_epoch),
         d_opt=make_optimizer(opt, disc.parameters(), steps_per_epoch),
-        static_tex=nchw(static_tex), bg=nchw(bg), tex_mask=nchw(tex_mask),
+        static_tex=to_nchw(static_tex, dev), bg=to_nchw(bg, dev),
+        tex_mask=to_nchw(tex_mask, dev),
         g_ema=g_ema)

@@ -1,8 +1,9 @@
 """Pose-input assembly, the inference forward and the stage-2 train step.
 
 Port of the JAX package's ``train/steps.py``: ``build_pose_input``,
-``make_forward_fn``, ``ema_blend`` and ``make_train_step`` (the stage-1
-UV and texture pretrain steps come with a later slice).
+``make_forward_fn``, ``ema_blend``, ``make_train_step`` and the stage-1 UV
+and texture pretrain steps (``make_pretrain_uv_step``,
+``make_pretrain_tex_step``).
 """
 
 from __future__ import annotations
@@ -180,5 +181,69 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
         metrics["G_total"] = g_total.detach()
         metrics["D_total"] = d_total.detach()
         return metrics
+
+    return step
+
+
+def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
+    """Stage 1: supervised IUV regression of TransG, the UV L1 at the GT
+    part plus the part cross-entropy inside the mask, weighted by
+    --lambda_UV (1000 when unset) and --lambda_Prob (10 when unset).
+
+    step(state, batch) -> metrics (UV, Prob, total), updating transg and
+    state.step in place (state: a PretrainState)."""
+    w_uv = opt.lambda_UV if opt.lambda_UV > 0 else 1000.0
+    w_prob = opt.lambda_Prob if opt.lambda_Prob > 0 else 10.0
+
+    def step(state, batch):
+        b = unpack_batch(batch, state.device)
+        pose = build_pose_input(opt, b["joints"])
+        optimizer.zero_grad(set_to_none=True)
+        logits, uv = transg(pose)
+        losses = {"UV": w_uv * L.uv_loss(uv, b["dp_uv"], b["dp_parts"]),
+                  "Prob": w_prob * L.part_ce_loss(logits, b["dp_parts"],
+                                                  b.get("mask"))}
+        total = losses["UV"] + losses["Prob"]
+        total.backward()
+        optimizer.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total"] = total.detach()
+        return metrics
+
+    return step
+
+
+def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
+                           tex_mask: Optional[torch.Tensor] = None) -> Callable:
+    """Texture pretrain: TexG's dynamic texture clip(static + residual)
+    against the per-frame part textures (L1; residual and error confined
+    to the texel mask when given), plus the L1 against a pose-conditioned
+    texture where the batch has one. static_tex (P, 3, T, T), tex_mask
+    (P, 1, T, T) on the device.
+
+    step(state, batch) -> {"Tex_L1": loss}, updating texg and state.step
+    in place."""
+
+    def step(state, batch):
+        b = unpack_batch(batch, state.device)
+        pose = build_pose_input(opt, b["joints"])
+        gt = b["part_texture"].permute(0, 1, 4, 2, 3)     # (B, P, 3, T, T)
+        optimizer.zero_grad(set_to_none=True)
+        res = texg(pose)
+        if tex_mask is not None:
+            res = res * tex_mask
+        dyn = torch.clamp(static_tex[None] + res, -1.0, 1.0)
+        err = torch.abs(dyn - gt)
+        if tex_mask is not None:
+            err = err * tex_mask
+        loss = err.mean()
+        if "pose_texture" in b:
+            loss = loss + torch.abs(
+                dyn - b["pose_texture"].permute(0, 1, 4, 2, 3)).mean()
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        return {"Tex_L1": loss.detach()}
 
     return step

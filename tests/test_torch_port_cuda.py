@@ -1,7 +1,8 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes, the launch counters, the wrappers'
-refusals, and a backward through a tiny renderer on the card against the
-CPU. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
+refusals, a backward through a tiny renderer on the card against the CPU,
+a checkpoint saved on the card read on the CPU, and a stage-2 resume on
+the card. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
 torch.cuda.is_available() is False. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -444,3 +445,83 @@ def test_renderer_backward_on_the_card_matches_cpu(cuda):
     head = "TransG.GlobalGenerator_0." + \
         cpu.TransG.GlobalGenerator_0.order[-1] + ".Conv_0.weight"
     assert float(grads["card"][head].abs().max()) > 0
+
+
+_TINY_TRAIN = ("--loadSize 32 --tex_tile 16 --ngf 4 --ngf_global 4 --ndf 4 "
+               "--n_layers_D 2 --n_blocks_translate 1 "
+               "--n_downsample_translate 2 --n_blocks_global 1 "
+               "--n_downsample_global 1 --n_blocks_bg 1 --n_downsample_bg 1 "
+               "--stem_s2d 2 --head_s2d 2 --bg_s2d 4 --pad_mode same "
+               "--dtype float32 --pose_heatmaps --coord_conv --warp_topk 24 "
+               "--warp_eps 0 --no_flip --no_vgg_loss --ema_decay 0.999 "
+               "--lambda_L2 500 --lambda_UV 1000 --lambda_Prob 10 "
+               "--lambda_Temp 500 --use_densepose_loss --temporal_prev real "
+               "--batchSize 8 --print_freq 100 --gpu_ids 0").split()
+
+
+def test_checkpoint_saved_on_the_card_loads_on_the_cpu(cuda, tmp_path):
+    """G saved from the card (save_net moves it to the CPU) loads into a
+    CPU renderer bit for bit, and the two forwards agree (all parts
+    blended, TF32 off; cuDNN sums in another order than the CPU: 1e-3)."""
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data.dataset import \
+        SyntheticDataset
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_forward_fn
+    from neural_human_video_rendering_tpu_torch.utils import checkpoint as ckpt
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = TestOptions().parse(_TINY_TRAIN[:-2] + [
+        "--checkpoints_dir", str(tmp_path), "--name", "t", "--which_epoch",
+        "1"], save=False)
+    card = init_params(renderer_from_options(opt), 4).to(cuda)
+    ckpt.save_net(opt.run_dir, "G", 1, card.state_dict())
+    cpu = td.build_renderer(opt, torch.device("cpu"))
+    for k, v in card.state_dict().items():
+        assert torch.equal(cpu.state_dict()[k], v.cpu()), k
+    syn = SyntheticDataset(opt, length=2)
+    outs = {}
+    for name, m, d in (("cpu", cpu, torch.device("cpu")),
+                       ("card", card.eval(), cuda)):
+        outs[name] = make_forward_fn(opt, m)(
+            td.assets_to_device(opt, syn.texture_atlas(), syn.background(), d),
+            torch.from_numpy(syn.joints).to(d))["fake"].cpu()
+    assert float((outs["card"] - outs["cpu"]).abs().max()) <= 1e-3
+
+
+def test_stage2_resume_on_the_card_is_bit_identical(cuda, tmp_path):
+    """A tiny stage-2 run on the card, one epoch, its epoch save, then
+    --continue_train into a fresh state: weights, both Adam states and
+    counts, the EMA and the step equal the saving run's bit for bit (the
+    saving run's state is the straight run's at that point); the resumed
+    run then trains on (finite losses, 4 more steps)."""
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.train.drivers import run_train
+    base = _TINY_TRAIN + ["--checkpoints_dir", str(tmp_path), "--name", "r",
+                          "--niter", "2", "--no_decay"]
+    first = run_train(TrainOptions().parse(base), epochs=1)
+    resumed = run_train(TrainOptions().parse(base + ["--continue_train"]),
+                        max_steps=0)
+    assert resumed.start_epoch == 2 and resumed.step == first.step == 4
+
+    def tensors(st):
+        out = {f"G.{k}": v for k, v in st.renderer.state_dict().items()}
+        out.update({f"D.{k}": v for k, v in st.disc.state_dict().items()})
+        out.update({f"EMA.{k}": v for k, v in st.g_ema.items()})
+        for name, o in (("g", st.g_opt), ("d", st.d_opt)):
+            assert o.count == 4
+            for i, s in o.state_dict()["state"].items():
+                out.update({f"{name}.{i}.{k}": v for k, v in s.items()})
+        return out
+
+    a, b = tensors(first), tensors(resumed)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].device == b[k].device, k
+        assert torch.equal(a[k], b[k]), k
+    on = run_train(TrainOptions().parse(base + ["--continue_train"]))
+    assert on.step == 8
+    assert all(torch.isfinite(v).all() for v in on.metrics.values())

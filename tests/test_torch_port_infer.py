@@ -71,17 +71,54 @@ def test_run_inference_writes_frames_and_gallery(tmp_path, capsys):
     assert all(f"images/{f}" in html for f in imgs)
 
 
-def test_run_inference_refuses_jax_checkpoint(tmp_path):
+def test_run_inference_renders_jax_checkpoint(tmp_path, capsys):
+    """A run dir the JAX package's trainer wrote (random-init weights,
+    saved by its checkpoint module as 10_net_G.msgpack): run_inference
+    loads and renders it; the frames equal a forward of the same weights
+    carried across by the bridge."""
+    import jax
+    from neural_human_video_rendering_tpu.config import Options as JOptions
+    from neural_human_video_rendering_tpu.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu.utils import checkpoint as jckpt
+    from neural_human_video_rendering_tpu_torch.models.bridge import \
+        params_from_jax
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_forward_fn
     kp_dir = str(tmp_path / "kp")
     opt = PortTestOptions().parse(TINY + [
         "--pose_path", kp_dir, "--results_dir", str(tmp_path / "res"),
-        "--checkpoints_dir", str(tmp_path / "ckpt"), "--name", "t"],
-        save=False)
-    _write_sequence(kp_dir, opt, 2)
-    os.makedirs(opt.run_dir)
-    open(os.path.join(opt.run_dir, "10_net_G.msgpack"), "wb").close()
-    with pytest.raises(NotImplementedError):
-        run_inference(opt)
+        "--checkpoints_dir", str(tmp_path / "ckpt"), "--name", "t",
+        "--which_epoch", "10"], save=False)
+    syn = _write_sequence(kp_dir, opt, 2)
+    jopt = JOptions(**{k: getattr(opt, k) for k in (
+        "loadSize", "tex_tile", "ngf", "ngf_global", "n_blocks_translate",
+        "n_downsample_translate", "n_blocks_global", "n_downsample_global",
+        "n_blocks_bg", "n_downsample_bg", "dtype", "pose_heatmaps",
+        "coord_conv")})
+    g = create_train_state(jopt, jax.random.PRNGKey(1), syn.texture_atlas(),
+                           syn.background(),
+                           with_discriminator=False)["state"].g_params
+    g = jax.tree.map(np.asarray, g)
+    jckpt.save_net(opt.run_dir, "G", 10, g)
+    assets = (syn.texture_atlas(), syn.background())
+    assert run_inference(opt, assets=assets) == 2
+    assert "loaded G epoch 10" in capsys.readouterr().out
+    ref = init_params(renderer_from_options(opt), 0)
+    ref.load_state_dict(params_from_jax(g))
+    from neural_human_video_rendering_tpu_torch.infer.test_driver import (
+        assets_to_device, load_driving_joints)
+    _, joints = load_driving_joints(opt)
+    fake = make_forward_fn(opt, ref.eval())(
+        assets_to_device(opt, *assets, torch.device("cpu")),
+        torch.from_numpy(joints))["fake"]
+    for i in range(2):
+        png = read_png(str(tmp_path / "res" / "images"
+                           / f"frame{i:05d}_synthesized.png"))
+        np.testing.assert_array_equal(png, to_uint8(
+            fake[i].permute(1, 2, 0).numpy()))
 
 
 def test_png_roundtrip(tmp_path):
@@ -134,7 +171,8 @@ def test_synthetic_assets_match_jax(tiny_opt):
     np.testing.assert_array_equal(t.background(), j.background())
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "neural_human_video_rendering_tpu")
+_FORBIDDEN = ("jax", "flax", "optax", "msgpack",
+              "neural_human_video_rendering_tpu")
 
 
 def _imported_modules(path):

@@ -1,7 +1,8 @@
 """PyTorch port, the stage-2 train step: one step of the port's
 make_train_step against the JAX package's on the same batch with the same
 weights, Adam with the pix2pixHD schedule against optax, the EMA, the
-trainer on the CPU, and the options the port refuses.
+trainer on the CPU, the options the port refuses, and the checkpoint and
+real-data options it now runs.
 
 The step comparison runs a tiny float32 config with every part blended
 (--warp_topk 24 --warp_eps 0: JAX on the CPU takes the XLA all-parts warp)
@@ -49,6 +50,16 @@ from neural_human_video_rendering_tpu_torch.train.steps import (
     ema_blend, make_train_step)
 
 LOSS_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and torch's CPU thread pool slows many-fold when they share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 STEP_FLAGS = dict(
     loadSize=32, tex_tile=16, batchSize=2, n_blocks_translate=1,
@@ -229,8 +240,7 @@ def test_run_train_on_the_cpu(temporal_prev, tmp_path, capsys):
     ["--no_temporal_detach_prev"], ["--pool_size", "4"], ["--no_flip"],
     ["--resize_or_crop", "resize_and_crop"], ["--lambda_UVgrad", "1"],
     ["--netG", "local"], ["--uv_refine", "1"], ["--ms_uv", "1"],
-    ["--instance_feat"], ["--img_path", "frames"], ["--continue_train"],
-    ["--load_pretrain", "run"], ["--load_pretrain_TransG", "run"]])
+    ["--instance_feat"]])
 def test_unported_training_options_raise(flags, tmp_path):
     base = [f for f in TINY if f != "--no_flip"]
     if flags != ["--no_flip"]:
@@ -240,3 +250,54 @@ def test_unported_training_options_raise(flags, tmp_path):
                                save=False)
     with pytest.raises(NotImplementedError):
         run_train(opt, max_steps=1)
+
+
+@pytest.mark.parametrize("flag", ["--img_path", "--continue_train",
+                                  "--load_pretrain", "--load_pretrain_TransG"])
+def test_checkpoint_and_data_options_run(flag, tmp_path, capsys):
+    """The options this slice ported, through run_train: real frames
+    (FrameDataset), a resume, a warm start of G and D, and the stage-1
+    TransG handoff (the weights checked before any step)."""
+    from neural_human_video_rendering_tpu_torch.data.dataset import \
+        SyntheticDataset
+    from neural_human_video_rendering_tpu_torch.train.drivers import \
+        save_checkpoint
+    from neural_human_video_rendering_tpu_torch.utils import checkpoint as ckpt
+    from neural_human_video_rendering_tpu_torch.utils.image import save_image
+    base = TINY + ["--no_vgg_loss", "--checkpoints_dir", str(tmp_path),
+                   "--name", "t", "--print_freq", "100"]
+    src = str(tmp_path / "src")
+    donor = tstate.create_train_state(
+        dataclasses.replace(TrainOptions().parse(base, save=False), seed=5),
+        np.zeros((24, 16, 16, 3), np.float32), np.zeros((32, 32, 3),
+                                                        np.float32))
+    if flag == "--img_path":
+        syn = SyntheticDataset(TrainOptions().parse(base, save=False), length=4)
+        for i in range(4):
+            save_image(str(tmp_path / "frames" / f"frame{i:05d}.png"),
+                       syn[i]["image"])
+        st = run_train(TrainOptions().parse(
+            base + [flag, str(tmp_path / "frames")]), max_steps=1)
+        assert st.step == 1 and len(st.metrics) >= 3
+    elif flag == "--continue_train":
+        run_train(TrainOptions().parse(base), epochs=1)       # 8 steps
+        st = run_train(TrainOptions().parse(base + [flag]), epochs=2,
+                       max_steps=1)
+        assert "resumed at epoch 2 (step 8" in capsys.readouterr().out
+        assert st.start_epoch == 2 and st.step == 9
+    elif flag == "--load_pretrain":
+        save_checkpoint(src, donor, 4)
+        st = run_train(TrainOptions().parse(
+            base + [flag, src, "--which_epoch", "4"]), max_steps=0)
+        for a, b in ((st.renderer, donor.renderer), (st.disc, donor.disc)):
+            for (k, x), y in zip(a.state_dict().items(),
+                                 b.state_dict().values()):
+                assert torch.equal(x, y), k
+    else:
+        ckpt.save_net(src, "TransG", 2, donor.renderer.TransG.state_dict())
+        st = run_train(TrainOptions().parse(
+            base + [flag, src, "--which_epoch_TransG", "2"]), max_steps=0)
+        for k, v in st.renderer.TransG.state_dict().items():
+            assert torch.equal(v, donor.renderer.TransG.state_dict()[k]), k
+        assert any(not torch.equal(v, donor.renderer.TexG.state_dict()[k])
+                   for k, v in st.renderer.TexG.state_dict().items())
