@@ -8,14 +8,16 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      TF32 settings; build the CUDA kernels from csrc/ with nvcc (one nvcc
      per source, all started together).
   2. kernel vs plain version at the serving shapes (B=8, P=24, 512x512,
-     T=64, k=4, eps=1e-3), k=P, block_parts=8, tile 128, bf16 texture.
+     T=64, k=4, eps=1e-3), k=P, block_parts=8, tile 128 (256x256 at B=2,
+     and phase 8's 512x512 at B=8 and B=2), bf16 texture.
      Top-k must match exactly; the forward with w given and the fused
      forward (both modes; not with block_parts) within 2e-5 (float32), the
      fused forward's kept w exactly. Then at the train step's shapes
-     (B=2): the warp backward (k=4 eps=1e-3, k=P, tile 128, texture batch
-     1) within 1e-5 + 1e-5 * max|plain| (float atomics reorder dtex's
-     sums); TextureWarp's three gradients with a bf16 texture against the
-     float32 plain versions' within 3e-2 of max|plain|; the flow warp (C=5,
+     (B=2): the warp backward (k=4 eps=1e-3, k=P, tile 128 at 256x256 and
+     at phase 8's 512x512, texture batch 1) within 1e-5 + 1e-5 * max|plain|
+     (float atomics reorder dtex's sums); TextureWarp's three gradients
+     with a bf16 texture against the float32 plain versions' within 3e-2
+     of max|plain|; the flow warp (C=5,
      flow ~ 8 N(0,1) px, some of it leaving the image; a smooth flow, a
      strided channel view, and W=510) within 2e-5.
   3. main path: 16 synthetic OpenPose JSONs through the port's
@@ -65,6 +67,16 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      steps/s and peak memory, the stage-2 step with FrameDataset and the
      loader against the same step on one packed batch, decode ms a sample
      and the decoder, checkpoint bytes, save and load seconds.
+  8. the reference launchers: every script under launchers/ run through
+     the port's entry points with its own flags (paths and epoch caps
+     edited; --tf_log dropped where tensorboard does not import) on a
+     corpus of 20 frames at 512 px in their layout (LaplaceProj as PNG and
+     as 78-channel .npy, pre-rendered pose images, part and pose textures,
+     the unfolded texture.jpg): pose retargeting, stage 1, the texture
+     pretrain, stage 2 with LaplaceProj and the encoder E, encode_features,
+     serving twice (stage 2's model with cluster codes and a video;
+     test_infer.sh's flags at batch 8), a profiler window and
+     --debug_nans (launchers_path has the details).
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -795,6 +807,142 @@ def write_corpus(opt, root):
     return d
 
 
+DANCE = "dance"
+
+
+def synthetic_laplace(torch, joints, size, channels):
+    """(channels, size, size) float32 LaplaceProj stand-in in [-1, 1],
+    computed from a frame's joints: the limb-local channels at two
+    envelope widths and the joint heatmaps, cut to `channels`."""
+    from neural_human_video_rendering_tpu_torch.data.rasterize import (
+        joint_heatmaps, limb_coord_maps)
+    j = torch.from_numpy(joints[None].astype("float32"))
+    sig = size / 40.0
+    planes = torch.cat([limb_coord_maps(j, size, size, sigma=sig),
+                        limb_coord_maps(j, size, size, sigma=2 * sig),
+                        joint_heatmaps(j, size, size, sigma=sig) * 2 - 1], 1)
+    return planes[0, :channels].clamp(-1, 1).numpy()
+
+
+def write_launcher_corpus(root, n, size, tile=128):
+    """What the five reference launchers read, from the port's
+    SyntheticDataset, at `size` px with n frames, under root:
+      {DANCE}/ for train_e2e.sh / test_infer.sh (ROOT=root): openpose_json
+        (keypoint JSONs), {DANCE}/ (frames), mask, densepose (IUV), flow
+        and flow_inv (.npy), LaplaceProj (3-channel PNG), bg.jpg and the
+        unfolded texture.jpg (data/texture_unfold, timed);
+      all/ for pretrain_trans.sh (DATA): keypoints, mask, densepose;
+      seq/ for pretrain_tex.sh (SEQ): openpose_img (the skeleton rendered
+        to PNG), LaplaceProj (78-channel float16 .npy, the --input_nc 81
+        contract), part_texture and Laplace_texture
+        (per-frame atlases at `tile`), texture.jpg;
+      align/target, align/source for run_align_pose.sh (TGT, SRC): two
+        persons' keypoints on the launcher's 1024 x 1024 canvas, the
+        target the corpus's person;
+      serve/{DANCE}/ for test_infer.sh at the aligned poses (ROOT): the
+        target's 1024 px keypoints as openpose_json, bg.jpg, texture.jpg.
+    Returns {name: path} and the unfold's seconds."""
+    import cv2
+    import numpy as np
+    import torch
+    from neural_human_video_rendering_tpu_torch.config import Options
+    from neural_human_video_rendering_tpu_torch.data.dataset import \
+        SyntheticDataset
+    from neural_human_video_rendering_tpu_torch.data.densepose import \
+        encode_iuv
+    from neural_human_video_rendering_tpu_torch.data.keypoints import (
+        BODY25_TO_COCO18, write_keypoint_json)
+    from neural_human_video_rendering_tpu_torch.data.rasterize import \
+        render_skeleton
+    from neural_human_video_rendering_tpu_torch.data.texture_unfold import \
+        unfold_texture
+    from neural_human_video_rendering_tpu_torch.utils.image import (
+        encode_png, save_image, to_uint8)
+    shutil.rmtree(root, ignore_errors=True)
+    opt = Options(loadSize=size, tex_tile=tile)
+    syn = SyntheticDataset(opt, length=n, seed=0)
+    other = SyntheticDataset(opt, length=n, seed=1)
+    dance = os.path.join(root, DANCE)
+    p = {k: os.path.join(dance, k) for k in (
+        "openpose_json", DANCE, "mask", "densepose", "flow", "flow_inv",
+        "LaplaceProj")}
+    p.update({k: os.path.join(root, "seq", k) for k in (
+        "openpose_img", "LaplaceProj78", "part_texture", "Laplace_texture")})
+    p["LaplaceProj78"] = os.path.join(root, "seq", "LaplaceProj")
+    p.update({"align_target": os.path.join(root, "align", "target"),
+              "align_source": os.path.join(root, "align", "source")})
+    for d in p.values():
+        os.makedirs(d)
+
+    def keypoints(path, joints):
+        body = np.zeros((25, 3), np.float32)
+        body[BODY25_TO_COCO18] = joints
+        write_keypoint_json(path, body)
+
+    def png(path, img01):
+        with open(path, "wb") as f:
+            f.write(encode_png(img01))
+
+    scale = 1024.0 / size                 # run_align_pose.sh's canvas
+    samples = [syn[i] for i in range(n)]
+    for i, s in enumerate(samples):
+        name = f"frame{i:05d}"
+        keypoints(os.path.join(p["openpose_json"], f"{name}_keypoints.json"),
+                  s["joints"])
+        save_image(os.path.join(p[DANCE], f"{name}.png"), s["image"])
+        png(os.path.join(p["mask"], f"{name}.png"),
+            to_uint8(s["mask"], assume_01=True))
+        png(os.path.join(p["densepose"], f"{name}.png"),
+            encode_iuv(s["dp_parts"], s["dp_uv"]))
+        if i + 1 < n:                # flow[j] maps frame j+1 back to frame j
+            np.save(os.path.join(p["flow"], f"{i:05d}.npy"),
+                    samples[i + 1]["flow"])
+            np.save(os.path.join(p["flow_inv"], f"{i:05d}.npy"),
+                    samples[i + 1]["flow_inv"])
+        lap = synthetic_laplace(torch, s["joints"], size, 78)
+        save_image(os.path.join(p["LaplaceProj"], f"{name}.png"),
+                   lap[:3].transpose(1, 2, 0))
+        np.save(os.path.join(p["LaplaceProj78"], f"{name}.npy"),
+                lap.transpose(1, 2, 0).astype(np.float16))
+        skel = render_skeleton(torch.from_numpy(s["joints"][None]), size, size)
+        save_image(os.path.join(p["openpose_img"], f"{name}.png"),
+                   skel[0].permute(1, 2, 0).numpy())
+        wave = np.sin(0.3 * i + np.arange(3, dtype=np.float32))
+        _atlas_png(os.path.join(p["part_texture"], f"{name}.png"),
+                   np.clip(syn.texture_atlas() + 0.05 * wave, -1, 1))
+        _atlas_png(os.path.join(p["Laplace_texture"], f"{name}.png"),
+                   np.clip(syn.texture_atlas() - 0.05 * wave, -1, 1))
+        tgt = s["joints"].copy()
+        tgt[:, :2] *= scale
+        keypoints(os.path.join(p["align_target"], f"{name}_keypoints.json"),
+                  tgt)
+        src = other.joints[i].copy()            # a smaller, shifted person
+        src[:, :2] = src[:, :2] * scale * 0.8 + 60.0
+        keypoints(os.path.join(p["align_source"], f"{name}_keypoints.json"),
+                  src)
+    p["bg.jpg"] = os.path.join(dance, "bg.jpg")
+    cv2.imwrite(p["bg.jpg"], cv2.cvtColor(to_uint8(syn.background()),
+                                          cv2.COLOR_RGB2BGR))
+    p["texture.jpg"] = os.path.join(dance, "texture.jpg")
+    t0 = time.perf_counter()
+    unfold_texture(p[DANCE], p["densepose"], p["texture.jpg"], tile=tile)
+    unfold_s = time.perf_counter() - t0
+    shutil.copy(p["texture.jpg"], os.path.join(root, "seq", "texture.jpg"))
+    for k, src in (("keypoints", "openpose_json"), ("mask", "mask"),
+                   ("densepose", "densepose")):
+        os.makedirs(os.path.join(root, "all"), exist_ok=True)
+        os.symlink(p[src], os.path.join(root, "all", k))
+    serve = os.path.join(root, "serve", DANCE)
+    os.makedirs(serve)
+    os.symlink(p["align_target"], os.path.join(serve, "openpose_json"))
+    for f in ("bg.jpg", "texture.jpg"):
+        os.symlink(p[f], os.path.join(serve, f))
+    p.update({"root": root, "all": os.path.join(root, "all"),
+              "seq": os.path.join(root, "seq"),
+              "serve_root": os.path.join(root, "serve")})
+    return p, unfold_s
+
+
 def through_main(module, driver, argv):
     """Run an entry point's main(argv) (python -m <module> argv) and return
     the state its driver returned, for the checks and the numbers."""
@@ -1051,6 +1199,331 @@ def pipeline_path(torch, smoke, tk, fk, repo, dev, smi):
     return {"stage2_epoch": l1}
 
 
+LAUNCH_FRAMES = 20
+
+
+def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 8: the reference launchers, each script's argv read from the
+    script under launchers/ (launch.launcher_argv) and run through its
+    entry point's main, with only paths and epoch caps edited, and
+    --tf_log dropped where torch.utils.tensorboard does not import:
+    run_align_pose.sh; pretrain_trans.sh for 2 epochs (train_e2e.sh loads
+    its epoch 2; its 5 residual blocks go into stage 2's 9 partially);
+    pretrain_tex.sh for one epoch (pose images, 78 LaplaceProj channels
+    from .npy, --input_nc 81, 200 px); train_e2e.sh for one epoch
+    (LaplaceProj, encoder E, --lambda_Temp 500 with the default
+    --temporal_prev fake); encode_features on stage 2's run dir. Every
+    stage runs at the launcher's own widths, at 512 px but for
+    pretrain_tex.sh's --loadSize 200.
+
+    Serving runs twice, because the launchers disagree on the pose input:
+    train_e2e.sh has --use_laplace with --input_nc 3 and no
+    --pose_plus_laplace (pose_nc 3: LaplaceProj only, plus E's 3 codes at
+    TexG), test_infer.sh has --pose_plus_laplace (pose_nc 6), so
+    test_infer.sh cannot load stage 2's weights. First stage 2's model
+    flags (train_e2e.sh's argv) with the serving-only flags --which_epoch,
+    --load_features, --cluster_idx and --save_video, from the stage-2 run
+    dir; then test_infer.sh's exact flags (batch 8) on the poses
+    run_align_pose.sh aligned, from a random init.
+
+    Checks: each stage's finite losses, its launches (none in the pretrain
+    stages; a stage-2 step 2 fused forwards, 1 backward and 1 flow warp,
+    and 1 fused forward a held-out or serving batch), the video's frame
+    count, the centers' shape, a profiler window (--profile_dir, 3 steps of
+    stage 2) wrote a trace, --debug_nans raised on a batch with a NaN.
+    Numbers: each stage's median step ms, steps/s and peak memory, E's
+    forward ms inside the stage-2 step, the unfold's seconds, serving
+    frames/s at batch 8 under test_infer.sh's flags. Returns stage 2's
+    launches."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import (encode_features,
+                                                        graph_posenorm,
+                                                        pre_train,
+                                                        pre_train_tex)
+    from neural_human_video_rendering_tpu_torch.config import (TestOptions,
+                                                               TrainOptions)
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.launch import launcher_argv
+    from neural_human_video_rendering_tpu_torch.models import generators
+    from neural_human_video_rendering_tpu_torch.train import __main__ as train
+    from neural_human_video_rendering_tpu_torch.train import drivers, loop
+    from neural_human_video_rendering_tpu_torch.train.steps import (
+        make_forward_fn, make_train_step)
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "launchers")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    p, unfold_s = write_launcher_corpus(os.path.join(work, "data"),
+                                        LAUNCH_FRAMES, 512)
+    corpus_s = time.perf_counter() - t0
+    print(f"[launchers] corpus of {LAUNCH_FRAMES} frames at 512 px written in "
+          f"{corpus_s:.1f} s; texture unfold (texture.jpg, tile 128) "
+          f"{unfold_s:.3f} s | {smi}", flush=True)
+    ck = os.path.join(work, "ckpt")
+    env = {"TGT": p["align_target"], "SRC": p["align_source"],
+           "OUT": os.path.join(work, "aligned"), "DATA": p["all"],
+           "CKPTS": ck, "ROOT": p["root"]}
+    drop = []
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError:
+        drop = ["--tf_log"]
+        print("[launchers] torch.utils.tensorboard does not import here: "
+              "--tf_log dropped from the launchers' argv (metrics.jsonl "
+              "records every scalar)", flush=True)
+    none = {k: 0 for k in REPLACES}
+    stages, launches = {}, {}
+
+    def argv_of(script, args=(), e=None):
+        _, argv = launcher_argv(os.path.join(repo, "launchers", script), args,
+                                env if e is None else e)
+        return [a for a in argv if a not in drop]
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+
+    def record(name, st, t_wall):
+        torch.cuda.synchronize()
+        launches[name] = launch_counts(tk, fk)
+        times = sorted(st.step_seconds)
+        med = times[len(times) // 2] * 1e3
+        stages[name] = {"steps": len(st.step_seconds), "ms_median": med,
+                        "steps_per_s": 1e3 / med,
+                        "ms_steps": [t * 1e3 for t in st.step_seconds],
+                        "wall_s": t_wall, "launches": launches[name],
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                        "losses": {k: float(v) for k, v in st.metrics.items()}}
+        print(f"[launchers] {name}: {json.dumps(stages[name])} | {smi}",
+              flush=True)
+        smoke.require(f"{name}: finite losses", all(
+            np.isfinite(v) for v in stages[name]["losses"].values()))
+
+    # ---- run_align_pose.sh
+    t = time.perf_counter()
+    smoke.require("run_align_pose.sh", graph_posenorm.main(
+        argv_of("run_align_pose.sh")) == 0)
+    align_s = time.perf_counter() - t
+    aligned = [f for f in os.listdir(env["OUT"]) if f.endswith(".json")]
+    smoke.require("run_align_pose.sh: aligned keypoints and align_meta.json",
+                  len(aligned) == LAUNCH_FRAMES + 1, str(len(aligned)))
+
+    # ---- pretrain_trans.sh (stage 1), 2 epochs
+    reset()
+    t = time.perf_counter()
+    st = through_main(pre_train, "run_pretrain_uv",
+                      argv_of("pretrain_trans.sh") + ["--niter", "2"])
+    record("pretrain_trans", st, time.perf_counter() - t)
+    smoke.require("pretrain_trans.sh: 2 epochs of 3 steps at batch 6, no "
+                  "kernel, epoch 2 saved",
+                  st.step == 6 and launches["pretrain_trans"] == none
+                  and os.path.isfile(os.path.join(
+                      ck, "uvGenerator_pretrain", "2_net_TransG.pth")),
+                  f"({st.step} steps)")
+    del st
+
+    # ---- pretrain_tex.sh, one epoch (--checkpoints_dir: a path the
+    # script leaves at ./checkpoints)
+    reset()
+    t = time.perf_counter()
+    st = through_main(pre_train_tex, "run_pretrain_tex",
+                      argv_of("pretrain_tex.sh", [p["seq"]])
+                      + ["--niter", "1", "--checkpoints_dir", ck])
+    record("pretrain_tex", st, time.perf_counter() - t)
+    n_tex = int(round(LAUNCH_FRAMES * 0.9)) // 2
+    smoke.require("pretrain_tex.sh: one epoch at 200 px with pose images and "
+                  "78 LaplaceProj channels (pose_nc 81), no kernel",
+                  st.step == n_tex and launches["pretrain_tex"] == none
+                  and st.net.GlobalGenerator_0.ConvNormRelu_0.Conv_0.weight
+                  .shape[1] == 81 * 4, f"({st.step} steps)")
+    del st
+    torch.cuda.empty_cache()
+
+    # ---- train_e2e.sh (stage 2), one epoch, E's forwards timed
+    e2e = argv_of("train_e2e.sh", [DANCE])
+    cap = ["--niter", "1", "--niter_decay", "0"]
+    feat_ev = []
+    forward = generators.FeatEncoder.forward
+
+    def timed_forward(self, img):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = forward(self, img)
+        b.record()
+        feat_ev.append((torch.is_grad_enabled(), a, b))
+        return out
+
+    generators.FeatEncoder.forward = timed_forward
+    reset()
+    t = time.perf_counter()
+    try:
+        st = through_main(train, "run_train", e2e + cap)
+    finally:
+        generators.FeatEncoder.forward = forward
+    record("train_e2e", st, time.perf_counter() - t)
+    n2 = int(round(LAUNCH_FRAMES * 0.9)) // 2
+    want = {**none, "texture_warp_topk_fwd": 2 * n2 + 1,
+            "texture_warp_bwd": n2, "flow_warp_fwd": n2}
+    smoke.require("train_e2e.sh: one epoch; a step 2 fused forwards (t, the "
+                  "detached t-1), 1 backward, 1 flow warp; 1 fused forward "
+                  "for the held-out batch",
+                  st.step == n2 and launches["train_e2e"] == want,
+                  f"({st.step} steps, {launches['train_e2e']})")
+    run = os.path.join(ck, f"{DANCE}_18Feature_Temporal")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        vals = [json.loads(ln) for ln in f if "val_PSNR" in ln]
+    smoke.require("train_e2e.sh: held-out PSNR / SSIM finite (E encodes the "
+                  "held-out frame)", len(vals) == 1 and np.isfinite(
+                      [vals[0]["val_PSNR"], vals[0]["val_SSIM"]]).all(),
+                  json.dumps(vals))
+    g = st.renderer
+    smoke.require("train_e2e.sh: E in G and in G's Adam state; TexG takes "
+                  "pose_nc 3 + 3 codes",
+                  hasattr(g, "FeatE") and all(
+                      p_ in st.g_opt.state for p_ in g.FeatE.parameters())
+                  and g.TexG.GlobalGenerator_0.ConvNormRelu_0.Conv_0.weight
+                  .shape[1] == 6 * 4)
+    torch.cuda.synchronize()
+    feat_ms = {"with_grad": [], "without_grad": []}
+    for grad, a, b in feat_ev:
+        feat_ms["with_grad" if grad else "without_grad"].append(
+            a.elapsed_time(b))
+    feat = {k: {"calls": len(v), "ms_median": sorted(v)[len(v) // 2]}
+            for k, v in feat_ms.items() if v}
+    feat["step_ms_median"] = stages["train_e2e"]["ms_median"]
+    print(f"[launchers] E's forward inside stage 2 (batch 2, 512 px; "
+          f"with_grad: frame t, without_grad: the detached t-1 render and the "
+          f"held-out batch): {json.dumps(feat)} | {smi}", flush=True)
+    del st, g
+    torch.cuda.empty_cache()
+
+    # ---- encode_features on stage 2's run dir
+    npz = os.path.join(work, "features.npz")
+    t = time.perf_counter()
+    smoke.require("encode_features", encode_features.main(
+        e2e + ["--out", npz, "--which_epoch", "1"]) == 0)
+    enc_s = time.perf_counter() - t
+    centers = np.load(npz)["centers"]
+    smoke.require("encode_features: centers (10, 25, 3), finite",
+                  centers.shape == (10, 25, 3) and np.isfinite(centers).all(),
+                  str(centers.shape))
+
+    # ---- serving 1: stage 2's model with its codes and a video
+    r1 = os.path.join(work, "serve_e2e")
+    reset()
+    t = time.perf_counter()
+    n_s1 = through_main(td, "run_inference", e2e + [
+        "--results_dir", r1, "--which_epoch", "1", "--load_features", npz,
+        "--cluster_idx", "0", "--save_video"])
+    serve1_s = time.perf_counter() - t
+    l_s1 = launch_counts(tk, fk)
+    videos = [f for f in os.listdir(r1) if f.startswith("video.")]
+    import cv2
+    cap_v = cv2.VideoCapture(os.path.join(r1, videos[0])) if videos else None
+    n_video = 0
+    while cap_v is not None and cap_v.read()[0]:
+        n_video += 1
+    batches = -(-LAUNCH_FRAMES // 8)
+    smoke.require("serving stage 2 (codes, --save_video): all frames, the "
+                  "video holds them, 1 fused forward a batch",
+                  n_s1 == LAUNCH_FRAMES and n_video == n_s1 and l_s1 == {
+                      **none, "texture_warp_topk_fwd": batches},
+                  f"({n_s1} frames, {videos} of {n_video} frames, {l_s1})")
+
+    # ---- serving 2: test_infer.sh's flags on the aligned poses, batch 8
+    env2 = dict(env, ROOT=p["serve_root"], POSE=env["OUT"],
+                CKPTS=os.path.join(work, "no_ckpt"),
+                RESULTS=os.path.join(work, "results"))
+    ti = argv_of("test_infer.sh", [DANCE], env2)
+    reset()
+    t = time.perf_counter()
+    n_s2 = through_main(td, "run_inference", ti)
+    serve2_s = time.perf_counter() - t
+    l_s2 = launch_counts(tk, fk)
+    smoke.require("test_infer.sh: all frames, 1 fused forward a batch",
+                  n_s2 == LAUNCH_FRAMES and l_s2 == {
+                      **none, "texture_warp_topk_fwd": batches},
+                  f"({n_s2} frames, {l_s2})")
+    topt = TestOptions().parse(ti, save=False)
+    renderer = td.build_renderer(topt, dev)
+    _, joints, _ = td.load_driving_poses(topt)
+    fwd = make_forward_fn(topt, renderer)
+    state_assets = td.assets_to_device(topt, *td.load_assets(topt), dev)
+    jb = torch.from_numpy(joints[:8].astype(np.float32)).to(dev)
+    out = fwd(state_assets, jb)
+    smoke.require("test_infer.sh forward: finite (8, 3, 512, 512)",
+                  tuple(out["fake"].shape) == (8, 3, 512, 512)
+                  and bool(torch.isfinite(out["fake"]).all()))
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        fwd(state_assets, jb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        fwd(state_assets, jb)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t) * 1e3 / 10
+    serve_peak = torch.cuda.max_memory_allocated()
+    del renderer, fwd, state_assets, jb
+    torch.cuda.empty_cache()
+
+    # ---- --profile_dir (3 steps of stage 2), then --debug_nans
+    prof = os.path.join(work, "profile")
+    opt_p = TrainOptions().parse(e2e + cap + [
+        "--name", "e2e_profile", "--profile_dir", prof, "--profile_start",
+        "1", "--profile_steps", "3"])
+    t = time.perf_counter()
+    st = drivers.run_train(opt_p, max_steps=4)
+    torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t
+    traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    trace_bytes = sum(os.path.getsize(os.path.join(prof, f)) for f in traces)
+    smoke.require("--profile_dir: a trace of steps 1-3",
+                  traces == ["steps_1-3.trace.json"] and trace_bytes > 0,
+                  f"({traces}, {trace_bytes} bytes)")
+    opt_n = TrainOptions().parse(e2e + cap + ["--name", "e2e_nan",
+                                              "--debug_nans"])
+    ds = dsm.FrameDataset(opt_n)
+    batch = dsm.collate([ds[0], ds[1]])
+    batch["image"][0, 5, 5, 0] = np.nan
+    step = make_train_step(opt_n, st.renderer, st.disc, st.vgg, st.g_opt,
+                           st.d_opt)
+    raised = ""
+    try:
+        loop.run_training(opt_n, iter([batch]), step, st, 1)
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"[launchers] --debug_nans: {raised}", flush=True)
+    smoke.require("--debug_nans raised FloatingPointError naming the loss",
+                  "G_" in raised)
+    del st, step, batch
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"launchers": {
+        "frames": LAUNCH_FRAMES, "size": 512, "stages": stages,
+        "feat_encoder_ms": feat, "corpus_write_s": corpus_s,
+        "texture_unfold_s": unfold_s, "align_s": align_s,
+        "encode_features_s": enc_s,
+        "serving_e2e_codes_video": {"frames": n_s1, "video_frames": n_video,
+                                    "wall_s": serve1_s, "launches": l_s1},
+        "serving_test_infer": {"frames": n_s2, "wall_s": serve2_s,
+                               "launches": l_s2, "batch": 8,
+                               "ms_per_batch": serve_ms,
+                               "fps": 8e3 / serve_ms,
+                               "peak_mem_bytes": serve_peak},
+        "profile": {"run_s": prof_s, "trace_bytes": trace_bytes},
+        "tf_log_dropped": bool(drop), "phase_s": phase_s,
+        "card": smi}}), flush=True)
+    shutil.rmtree(work, ignore_errors=True)    # checkpoints, 78-channel .npy
+    return launches["train_e2e"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1113,6 +1586,12 @@ def main() -> int:
     tex128, uv128, probs128 = warp_inputs(torch, 2, P, 256, 256, 128, 1, dev)
     compare_kernels(torch, tk, smoke, "tile 128", tex128, uv128, probs128,
                     K, 0, EPS)
+    # phase 8's shapes: tile 128 on 512x512 frames, serving at B=8 and the
+    # train step's forward keeping w at B=2
+    for b, seed in ((8, 6), (2, 7)):
+        tex128, uv128, probs128 = warp_inputs(torch, b, P, S, S, 128, seed, dev)
+        compare_kernels(torch, tk, smoke, f"tile 128 B={b} {S}px", tex128,
+                        uv128, probs128, K, 0, EPS)
     compare_kernels(torch, tk, smoke, "bf16 texture",
                     tex.bfloat16().float(), uv, probs, K, 0, EPS)
     del tex128, uv128, probs128
@@ -1126,6 +1605,9 @@ def main() -> int:
     bf16_grads(torch, tk, smoke, tex2, uv2, probs2, K, EPS)
     tex128, uv128, probs128 = warp_inputs(torch, 2, P, 256, 256, 128, 3, dev)
     compare_bwd(torch, tk, smoke, "tile 128", tex128, uv128, probs128, K, EPS)
+    tex128, uv128, probs128 = warp_inputs(torch, 2, P, S, S, 128, 8, dev)
+    compare_bwd(torch, tk, smoke, f"tile 128 B=2 {S}px", tex128, uv128,
+                probs128, K, EPS)
     img, flow = flow_inputs(torch, 2, S, 5, dev)
     out_k = fk.flow_warp_fwd(img, flow)
     out_p = fk.flow_warp_fwd_plain(img, flow)
@@ -1330,6 +1812,8 @@ def main() -> int:
                              keep_w=True)
     # ------------------------------------------------------- 7. pipeline
     pipe = pipeline_path(torch, smoke, tk, fk, repo, dev, smi)
+    # -------------------------------------------- 8. the reference launchers
+    launch_e2e = launchers_path(torch, smoke, tk, fk, repo, dev, smi)
 
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
@@ -1346,6 +1830,7 @@ def main() -> int:
                  "launches_path": main_run[name][1],
                  "launches_per_train_step": train["per_step"][name],
                  "launches_pipeline_stage2_epoch": pipe["stage2_epoch"][name],
+                 "launches_train_e2e_sh_epoch": launch_e2e[name],
                  "max_abs_err": errs[name], **row, "card": smi}
         if name in serving:
             entry["launches_serving"] = launches[name]

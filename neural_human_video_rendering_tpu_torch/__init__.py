@@ -5,15 +5,22 @@ reference; this package imports nothing of it and keeps its own copies of
 the host-side modules it needs. Layout is NCHW throughout; public op
 functions that the tests compare with the JAX package keep the JAX layout.
 
-Layer map (the serving path, keypoints -> frames):
+Layer map:
   config     the reference flag surface; --gpu_ids picks the device
-  data/      keypoint JSONs, pose alignment, pose rasterization, assets
-  models/    TransG / TexG / BGNet generators and the NeuralRenderer
-  ops/       texture warp: plain PyTorch versions + the CUDA kernels
+  data/      datasets, keypoint JSONs, pose alignment, pose rasterization,
+             DensePose / LaplaceProj loading, the texture atlas unfold
+  models/    TransG / TexG / BGNet, the encoder E, the NeuralRenderer, the
+             discriminator, the VGG, the flax->torch bridge
+  ops/       texture and flow warps: plain PyTorch versions + the CUDA kernels
   csrc/      the CUDA sources (sm_90a), built with nvcc at first use
-  train/     pose-input assembly and the inference forward
-  infer/     the test.py driver: batched forward, PNG frames, gallery
-  utils/     uint8 conversion, PNG writer, HTML gallery
+  losses/    GAN, reconstruction, perceptual and temporal losses
+  train/     pose-input assembly, the steps, the state, the loop, the drivers
+  infer/     the test.py driver: batched forward, PNG frames, gallery, video
+  utils/     images, checkpoints, metrics, visualizer, HTML gallery, video
+Entry points (python -m neural_human_video_rendering_tpu_torch.<name>):
+  pre_train, pre_train_tex, train, infer.test_driver, unfold_texture,
+  graph_posenorm, encode_features, and launch (a reference launcher
+  script's own argv through these).
 """
 
 __version__ = "0.1.0"

@@ -10,9 +10,12 @@ with path edits only, so every flag name below (including the upstream typo
 
 Internally everything lands in one dataclass ``Options``. ``--gpu_ids``
 picks the device (``resolve_device``): the first id names the CUDA card,
-``-1`` the CPU. Flags that only steered the TPU build (``mesh_shape``,
-``use_pallas_warp``, ``wire_pack``, ``debug_nans``, ``profile_*``) are
-accepted and ignored, so launch scripts run unchanged.
+``-1`` the CPU. The two flags that only steered the TPU build
+(``mesh_shape``, ``use_pallas_warp``) are accepted and ignored, so launch
+scripts run unchanged. ``--wire_pack`` picks the loader's batch format
+(``data/wire.py``); ``--debug_nans`` checks every step's losses and
+``--profile_dir`` / ``--profile_start`` / ``--profile_steps`` write a
+torch.profiler trace of a window of steps (``train/loop.py``).
 """
 
 from __future__ import annotations
@@ -121,7 +124,7 @@ class Options:
     feat_num: int = 3                # appearance-code channels (pix2pixHD default)
     nef: int = 16                    # encoder E width (pix2pixHD default)
     n_downsample_E: int = 4          # encoder E depth (pix2pixHD default)
-    load_features: str = ""          # .npz of per-part cluster codes for inference (tools/encode_features.py)
+    load_features: str = ""          # .npz of per-part cluster codes for inference (python -m ...encode_features)
     cluster_idx: int = 0             # which cluster center to render with
 
     # ---- discriminator ----
@@ -217,8 +220,8 @@ class Options:
     bg_s2d: int = 4                  # space-to-depth/pixel-shuffle factor for BGNet (1 = off)
     pad_mode: str = "same"           # conv padding: same (TPU default, no pre-pad copies) | reflect (pix2pixHD parity)
     upsample_mode: str = "deconv"    # decoder upsample: deconv (parity) | resize (faster, no checkerboard)
-    debug_nans: bool = False         # jax_debug_nans: fail fast on non-finite values (SURVEY.md §5 sanitizers)
-    profile_dir: str = ""            # write a jax.profiler trace of steps [profile_start, profile_start+profile_steps)
+    debug_nans: bool = False         # fail fast: FloatingPointError on a step's non-finite loss (train/loop.py)
+    profile_dir: str = ""            # write a torch.profiler trace of steps [profile_start, profile_start+profile_steps)
     profile_start: int = 3
     profile_steps: int = 5
     seed: int = 0

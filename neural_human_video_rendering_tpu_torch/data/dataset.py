@@ -166,8 +166,7 @@ class FrameDataset:
         self.pose_names: List[str] = []
         self.pose_img_names: List[str] = []
         if _dir(opt.pose_path):
-            self.pose_names = sorted(
-                f for f in os.listdir(opt.pose_path) if f.endswith(".json"))
+            self.pose_names = kp.keypoint_jsons(opt.pose_path)
             if not self.pose_names:
                 self.pose_img_names = list_images(opt.pose_path)
         self.img_names = list_images(opt.img_path) if _dir(opt.img_path) else []

@@ -73,12 +73,24 @@ def body25_to_coco18(body: np.ndarray) -> np.ndarray:
     return body[BODY25_TO_COCO18]
 
 
+# the fit graph_posenorm writes beside the aligned keypoint JSONs
+ALIGN_META = "align_meta.json"
+
+
+def keypoint_jsons(pose_dir: str) -> List[str]:
+    """The keypoint JSONs of a directory, sorted: every .json but the
+    align_meta.json sidecar of an aligned directory (the JAX package
+    counts that sidecar as a frame)."""
+    return sorted(f for f in os.listdir(pose_dir)
+                  if f.endswith(".json") and f != ALIGN_META)
+
+
 def load_pose_dir(pose_dir: str) -> Tuple[List[str], np.ndarray]:
-    """Load every *_keypoints.json in a directory (sorted).
+    """Load every keypoint JSON in a directory (sorted).
 
     Returns (filenames, (N,18,3) COCO-18 array).
     """
-    names = sorted(f for f in os.listdir(pose_dir) if f.endswith(".json"))
+    names = keypoint_jsons(pose_dir)
     out = np.zeros((len(names), N_COCO18, 3), np.float32)
     for i, n in enumerate(names):
         out[i] = body25_to_coco18(parse_keypoint_json(os.path.join(pose_dir, n))["body"])

@@ -5,9 +5,10 @@ The reference optionally concatenates precomputed 3D pose-label images
 ("LaplaceProj", arXiv:2003.13510) with the 2D pose input when
 ``--use_laplace`` / ``--pose_plus_laplace``. They are per-frame image files
 (or .npy arrays) in a directory; this loader reads, resizes and normalizes
-them to [-1, 1] float32 channels that FrameDataset adds to a sample. The
-port's models do not take these channels yet (``--use_laplace`` is
-refused), so a sample carries them and the step ignores them.
+them to [-1, 1] float32 channels that FrameDataset adds to a sample and
+the inference driver loads per batch; ``train/steps.build_pose_input``
+appends them to the pose input (``laplace_nc_eff`` of them: 78 under the
+texture pretrain's --input_nc 81 contract, laplace_nc otherwise).
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
-"""Inference / pose-transfer driver: keypoints -> frames (test.py).
+"""Inference / pose-transfer driver: driving poses -> frames (test.py).
 
-Port of the JAX package's ``infer/test_driver.py`` for keypoint driving:
-load the target assets (texture atlas, background), align the driving
-keypoints to the target person, build the renderer, then run the batched
-pose -> IUV -> texture-warp -> composite forward and write PNG frames and
-an HTML gallery to --results_dir.
+Port of the JAX package's ``infer/test_driver.py``: load the target
+assets (texture atlas, background), load the driving poses (keypoint
+JSONs aligned to the target person, or pre-rendered pose images read with
+the training geometry), build the renderer, then run the batched pose ->
+IUV -> texture-warp -> composite forward and write PNG frames and an HTML
+gallery to --results_dir, and with --save_video {results_dir}/video.mp4.
+Each batch also takes its LaplaceProj frames (--use_laplace with
+--lapalce_path) and, under --instance_feat, the appearance codes of
+--load_features / --cluster_idx (zero codes without them).
 
 The forward of batch k+1 runs on the card while batch k is copied to
 pinned host memory and a thread pool encodes batch k-1's PNGs.
@@ -15,15 +19,14 @@ pinned host memory and a thread pool encodes batch k-1's PNGs.
 The weights come from --checkpoints_dir/--name at --which_epoch (the
 port's .pth files or the JAX package's .msgpack files, G_ema preferred;
 see ``build_renderer``), else a seeded random init.
-
-Not in this slice: driving with pre-rendered pose images, LaplaceProj
-channels, feature-encoder codes and video assembly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -35,6 +38,7 @@ import torch
 from ..config import TestOptions, resolve_device
 from ..data import dataset as dsm
 from ..data import keypoints as kp
+from ..data import laplace as lp
 from ..data import pose_align
 from ..models.renderer import init_params, renderer_from_options
 from ..train.steps import make_forward_fn
@@ -91,8 +95,7 @@ def load_driving_joints(opt) -> Tuple[List[str], np.ndarray]:
     names, joints = kp.load_pose_dir(opt.pose_path)
     if not names:
         raise FileNotFoundError(
-            f"--pose_path {opt.pose_path!r} holds no keypoint JSONs (driving "
-            "with pre-rendered pose images is not in the PyTorch port yet)")
+            f"--pose_path {opt.pose_path!r} holds no keypoint JSONs")
     if opt.pose_tgt_path and os.path.isdir(opt.pose_tgt_path):
         s, t = pose_align.fit_scale_translation(
             opt.pose_tgt_path, opt.pose_path,
@@ -109,6 +112,66 @@ def load_driving_joints(opt) -> Tuple[List[str], np.ndarray]:
         if np.all(np.isfinite(hi)):
             canvas = (float(hi[1]), float(hi[0]))
     return names, map_driving_joints(opt, joints, canvas)
+
+
+def load_driving_poses(opt):
+    """(names, (N, 18, 3) joints on the model canvas, pose-image dataset or
+    None): keypoint JSONs (load_driving_joints) or, where --pose_path holds
+    none, pre-rendered pose images, read through a FrameDataset so they
+    get the training geometry (loadSize canvas, scale_width letterbox, the
+    eval centre crop). Pose images cannot be retargeted: --pose_tgt_path
+    is then ignored, with a warning."""
+    if kp.keypoint_jsons(opt.pose_path):
+        return (*load_driving_joints(opt), None)
+    names = dsm.list_images(opt.pose_path)
+    if not names:
+        raise FileNotFoundError(
+            f"--pose_path {opt.pose_path!r} contains neither keypoint JSONs "
+            "nor pose images")
+    pose_ds = dsm.FrameDataset(dataclasses.replace(
+        opt, img_path="", mask_path="", densepose_path="", flow_path="",
+        flow_inv_path="", lapalce_path="", data_ratio=1.0, no_flip=True),
+        "test")
+    if opt.pose_tgt_path:
+        print("[align] WARNING: --pose_tgt_path ignored: pose-image driving "
+              "cannot be retargeted (alignment needs keypoints)", flush=True)
+    print(f"[pose] driving with {len(names)} pre-rendered pose images",
+          flush=True)
+    return names, np.zeros((len(names), kp.N_COCO18, 3), np.float32), pose_ds
+
+
+def load_cluster_feats(opt) -> Optional[np.ndarray]:
+    """Under --instance_feat / --label_feat: the (P+1, feat_num) codes of
+    cluster --cluster_idx in --load_features (encode_features' .npz), or
+    None for zero codes; the JAX driver's errors for a missing file and an
+    index out of range."""
+    if not (opt.instance_feat or opt.label_feat):
+        return None
+    if not opt.load_features:
+        print("[feat] --instance_feat/--label_feat without --load_features: "
+              "rendering with ZERO appearance codes (build codes with "
+              "python -m neural_human_video_rendering_tpu_torch."
+              "encode_features)", flush=True)
+        return None
+    if not os.path.isfile(opt.load_features):
+        raise FileNotFoundError(
+            f"--load_features {opt.load_features!r} does not exist (build it "
+            "with python -m neural_human_video_rendering_tpu_torch."
+            "encode_features)")
+    centers = np.load(opt.load_features)["centers"]
+    if not 0 <= opt.cluster_idx < len(centers):
+        raise ValueError(
+            f"--cluster_idx {opt.cluster_idx} out of range: "
+            f"{opt.load_features} has {len(centers)} clusters")
+    print(f"[feat] cluster {opt.cluster_idx} codes from {opt.load_features}",
+          flush=True)
+    return centers[opt.cluster_idx]
+
+
+def _nchw(arrays, device: torch.device) -> torch.Tensor:
+    """A list of (S, S, C) numpy arrays -> a (B, C, S, S) float32 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.stack(arrays).transpose(0, 3, 1, 2), np.float32)).to(device)
 
 
 def load_assets(opt) -> Tuple[np.ndarray, np.ndarray]:
@@ -168,16 +231,29 @@ def run_inference(opt, batch_size: Optional[int] = None,
     [-1, 1] to use instead of --texture_path / --bg_path (e.g. the
     synthetic ones of data.dataset.SyntheticDataset).
     """
+    if opt.save_video:
+        try:
+            import cv2  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "--save_video writes the video with OpenCV, and cv2 does not "
+                "import here: drop --save_video (the frames are written as "
+                "PNG)") from e
     device = resolve_device(opt.gpu_ids)
+    S = opt.train_size
     if batch_size is None:
         batch_size = max(1, opt.infer_batch)
-    names, joints = load_driving_joints(opt)
+    names, joints, pose_ds = load_driving_poses(opt)
     n = len(names) if max_frames is None else min(len(names), max_frames)
     n = min(n, opt.how_many)
     tex, bg = load_assets(opt) if assets is None else assets
     state_assets = assets_to_device(opt, tex, bg, device)
     renderer = build_renderer(opt, device)
-    fwd = make_forward_fn(opt, renderer)
+    fwd = make_forward_fn(opt, renderer, load_cluster_feats(opt))
+    lap_files = (lp.list_frames(opt.lapalce_path) if opt.use_laplace
+                 and opt.lapalce_path and os.path.isdir(opt.lapalce_path)
+                 else [])
+    lap_nc = opt.laplace_nc_eff or opt.laplace_nc
     os.makedirs(opt.results_dir, exist_ok=True)
     gallery = HTMLGallery(opt.results_dir, f"{opt.name} @ {opt.which_epoch}")
     on_cuda = device.type == "cuda"
@@ -210,7 +286,14 @@ def run_inference(opt, batch_size: Optional[int] = None,
             # pad the tail so every forward sees one batch shape
             padded = sel + [sel[-1]] * (batch_size - len(sel))
             jb = torch.from_numpy(joints[padded].astype(np.float32)).to(device)
-            fake = fwd(state_assets, jb)["fake"]
+            lap = pimg = None
+            if lap_files:
+                lap = _nchw([lp.load_laplace(os.path.join(
+                    opt.lapalce_path, lap_files[min(i, len(lap_files) - 1)]),
+                    S, lap_nc) for i in padded], device)
+            if pose_ds is not None:
+                pimg = _nchw([pose_ds[i]["pose_img"] for i in padded], device)
+            fake = fwd(state_assets, jb, lap, pimg)["fake"]
             if on_cuda:
                 host = torch.empty(fake.shape, dtype=fake.dtype,
                                    pin_memory=True)
@@ -228,15 +311,21 @@ def run_inference(opt, batch_size: Optional[int] = None,
             w.result()                  # surface any encode errors
     gallery.save()
     secs = time.perf_counter() - t0
+    if opt.save_video and written:
+        from ..utils.video import write_video
+        nv, vpath = write_video(os.path.join(opt.results_dir, "images"),
+                                os.path.join(opt.results_dir, "video.mp4"),
+                                fps=opt.video_fps)
+        print(f"[infer] wrote {nv}-frame video -> {vpath}", flush=True)
     print(f"[infer] wrote {written} frames -> {opt.results_dir} "
           f"({secs:.2f} s, device {device})", flush=True)
     return written
 
 
 def main(argv=None) -> int:
-    opt = TestOptions().parse(argv, save=False)
-    return run_inference(opt)
+    run_inference(TestOptions().parse(argv, save=False))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -23,6 +23,13 @@ grid_sample yardstick are this checkout's chip_smoke.py's:
     texture_warp_planes under torch.inference_mode at B=8; and the train
     step's forward launches at B=2: texture_warp_topk_fwd keeping w where
     the tree has it, else topk_select and then texture_warp_fwd.
+With --step it times the flagship stage-2 step instead (chip_smoke phase
+6's fixed-batch step: this checkout's chip_smoke.py TRAIN flags, 512 px,
+batch 2, the recipe's losses, random weights from --seed 0, one
+pre-packed batch, no loader): 5 warm-up steps, then 30 steps each ended
+by a synchronise (host clock), then the phases of 10 more by CUDA events
+(make_train_step's marks); it prints the median, quartiles, minimum and
+the phases' medians.
 Run parent, change, change, parent in one command. Prints one JSON line;
 exits non-zero without a CUDA card.
 """
@@ -119,10 +126,64 @@ def forward_times(torch, smoke, tk, ttw, tex8, uv8, probs8):
     return out
 
 
+def step_times(torch, smoke, tree):
+    """{median_ms, q1_ms, q3_ms, min_ms, phases_ms} of the fixed-batch
+    stage-2 step of the checkout at tree (see the module's docstring)."""
+    import time
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.ops import build
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    opt = TrainOptions().parse(smoke.TRAIN + [
+        "--checkpoints_dir", os.path.join(tree, "build", "step_ab"),
+        "--name", "step_ab"], save=False)
+    ds = dsm.SyntheticDataset(opt, length=4, seed=opt.seed)
+    batch = pack_batch(dsm.collate([ds[0], ds[1]]))
+    st = create_train_state(opt, ds.texture_atlas(), ds.background())
+    step = make_train_step(opt, st.renderer, st.disc, st.vgg, st.g_opt,
+                           st.d_opt)
+    for _ in range(5):
+        step(st, batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(30):
+        t = time.perf_counter()
+        step(st, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    phases = {}
+    for _ in range(10):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, e))
+
+        step(st, batch, mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(events, events[1:]):
+            phases.setdefault(name, []).append(a.elapsed_time(b))
+    s = sorted(times)
+    return {"median_ms": s[15], "q1_ms": s[7], "q3_ms": s[22], "min_ms": s[0],
+            "phases_ms": {k: sorted(v)[5] for k, v in phases.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT, help="root of the checkout timed")
-    tree = os.path.abspath(ap.parse_args().tree)
+    ap.add_argument("--step", action="store_true",
+                    help="time the flagship stage-2 step, not the kernels")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
     # the timed checkout's package, not this script's directory
     sys.path[0] = tree
     spec = importlib.util.spec_from_file_location(
@@ -140,10 +201,15 @@ def main() -> int:
         texture_warp_kernel as tk
     if not fk.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {fk.__file__}, not from {tree}")
+    out = {"tree": os.path.relpath(tree, ROOT)}
+    if args.step:
+        out.update(step_times(torch, smoke, tree),
+                   card=torch.cuda.get_device_name(0))
+        print(json.dumps(out), flush=True)
+        return 0
     dev = torch.device("cuda", 0)
     img, noise = smoke.flow_inputs(torch, 2, 512, 5, dev)
     flows = {"noise": noise, "smooth": smoke.smooth_flow(torch, noise)}
-    out = {"tree": os.path.relpath(tree, ROOT)}
     for name, fl in flows.items():
         grid = smoke.flow_grid(torch, fl)
         out[f"flow_{name}_ms"] = smoke.graph_ms(

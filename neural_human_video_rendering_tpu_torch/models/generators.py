@@ -1,14 +1,17 @@
-"""Generator networks in NCHW: GlobalGenerator trunk, TransG, TexG, BGNet.
+"""Generator networks in NCHW: GlobalGenerator trunk, TransG, TexG, BGNet
+and the feature encoder E.
 
-Port of the JAX package's ``models/generators.py`` for the serving path
-(``LocalEnhancer``, ``FeatEncoder``, the ``uv_refine`` head and the
-``ms_uv`` aux heads come with later slices).
+Port of the JAX package's ``models/generators.py`` (``LocalEnhancer``,
+the ``uv_refine`` head and the ``ms_uv`` aux heads come with later
+slices).
 
 Outputs:
   TransG:  pose labels -> part logits (B, P+1, H, W), background at 0, and
            per-part UV in [0, 1] as (B, P, 2, H, W) (u then v).
   TexG:    pose labels -> per-part texture residual (B, P, 3, T, T).
   BGNet:   static background -> refined background in [-1, 1].
+  FeatEncoder: a frame -> feat_num feature channels in [-1, 1], which
+           part_pool averages per body part (--instance_feat).
 """
 
 from __future__ import annotations
@@ -156,3 +159,63 @@ class BGNet(nn.Module):
 
     def forward(self, bg: torch.Tensor) -> torch.Tensor:
         return torch.clamp(bg + self.GlobalGenerator_0(bg), -1.0, 1.0)
+
+
+def region_mean(fmap: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Mean feature per region: fmap (B, F, H, W), onehot (B, C, H, W) ->
+    (B, C, F). The one pooling rule: part_pool scatters from it and
+    encode_features clusters it."""
+    B, C = onehot.shape[:2]
+    oh = onehot.reshape(B, C, -1)
+    s = torch.bmm(oh, fmap.reshape(B, fmap.shape[1], -1).transpose(1, 2))
+    n = oh.sum(2)
+    return s / (n[..., None] + 1e-6)
+
+
+def part_pool(fmap: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Region-wise average pooling (pix2pixHD's encoder semantics): fmap
+    (B, F, H, W), onehot (B, C, H, W) -> (B, F, H, W), every pixel the
+    mean feature of its region, as products with the one-hot map."""
+    B, C, H, W = onehot.shape
+    mean = region_mean(fmap, onehot)                        # (B, C, F)
+    return torch.bmm(mean.transpose(1, 2),
+                     onehot.reshape(B, C, -1)).view(B, -1, H, W)
+
+
+class FeatEncoder(nn.Module):
+    """pix2pixHD's encoder E (--instance_feat / --label_feat): c7s1-nef,
+    n_downsampling stride-2 convs, the mirrored upsamples, a c7s1-feat_num
+    head with tanh. The renderer pools its output per DensePose body part
+    (part_pool): the human-video data has no object-instance maps, so the
+    part map takes their place. Submodules carry flax's names
+    (ConvNormRelu_0..n+1, Upsample_0..n-1)."""
+
+    def __init__(self, feat_num: int = 3, nef: int = 16,
+                 n_downsampling: int = 4, pad_mode: str = "reflect",
+                 upsample_mode: str = "deconv",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.n = n_downsampling
+        self.ConvNormRelu_0 = ConvNormRelu(3, nef, 7, pad_mode=pad_mode)
+        for i in range(n_downsampling):
+            setattr(self, f"ConvNormRelu_{i + 1}", ConvNormRelu(
+                nef * 2 ** i, nef * 2 ** (i + 1), 3, stride=2,
+                pad_mode=pad_mode))
+        for i in range(n_downsampling):
+            setattr(self, f"Upsample_{i}", Upsample(
+                nef * 2 ** (n_downsampling - i),
+                nef * 2 ** (n_downsampling - i - 1), mode=upsample_mode,
+                pad_mode=pad_mode))
+        setattr(self, f"ConvNormRelu_{n_downsampling + 1}", ConvNormRelu(
+            nef, feat_num, 7, use_norm=False, use_relu=False,
+            pad_mode=pad_mode))
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        x = img.to(self.dtype)
+        for i in range(self.n + 1):
+            x = getattr(self, f"ConvNormRelu_{i}")(x)
+        for i in range(self.n):
+            x = getattr(self, f"Upsample_{i}")(x)
+        x = getattr(self, f"ConvNormRelu_{self.n + 1}")(x)
+        return torch.tanh(x.float())

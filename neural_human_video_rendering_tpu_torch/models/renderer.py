@@ -1,10 +1,12 @@
 """The flagship composed model: pose -> IUV -> textured foreground -> frame.
 
-Port of the JAX package's ``models/renderer.py`` for the serving path:
-TransG + TexG + the static texture atlas + the texture warp (the CUDA
-kernels of ``ops/texture_warp_kernel``) + BGNet + the soft-mask
-compositor. Parameters live under the ``TransG`` / ``TexG`` / ``BGNet``
-namespaces, as in the JAX package. Tensors are NCHW.
+Port of the JAX package's ``models/renderer.py``: TransG + TexG + the
+static texture atlas + the texture warp (the CUDA kernels of
+``ops/texture_warp_kernel``) + BGNet + the soft-mask compositor, and with
+--instance_feat / --label_feat the encoder E (``FeatE``), whose features,
+averaged per predicted body part, join TexG's input. Parameters live
+under the ``TransG`` / ``TexG`` / ``BGNet`` / ``FeatE`` namespaces, as in
+the JAX package. Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.texture_warp import texture_warp_planes
-from .generators import BGNet, TexG, TransG
+from .generators import BGNet, FeatEncoder, TexG, TransG, part_pool
 
 
 class NeuralRenderer(nn.Module):
@@ -32,6 +34,8 @@ class NeuralRenderer(nn.Module):
                  warp_dtype: str = "float32", stem_s2d: int = 1,
                  head_s2d: int = 1, bg_s2d: int = 1,
                  pad_mode: str = "reflect", upsample_mode: str = "deconv",
+                 use_feat: bool = False, feat_num: int = 3, nef: int = 16,
+                 n_downsample_E: int = 4,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         conv = dict(pad_mode=pad_mode, upsample_mode=upsample_mode,
@@ -39,17 +43,25 @@ class NeuralRenderer(nn.Module):
         self.TransG = TransG(pose_nc, n_parts, transg_ngf, transg_downs,
                              transg_blocks, stem_s2d=stem_s2d,
                              head_s2d=head_s2d, **conv)
-        self.TexG = TexG(pose_nc, n_parts, tex_tile, texg_ngf, texg_downs,
-                         texg_blocks, stem_s2d=stem_s2d, head_s2d=head_s2d,
-                         **conv)
+        # flax infers TexG's input width; here it is declared: the pose
+        # labels, plus E's feat_num pooled channels under use_feat
+        self.TexG = TexG(pose_nc + (feat_num if use_feat else 0), n_parts,
+                         tex_tile, texg_ngf, texg_downs, texg_blocks,
+                         stem_s2d=stem_s2d, head_s2d=head_s2d, **conv)
         self.BGNet = BGNet(32, bg_downs, bg_blocks, s2d=bg_s2d, **conv)
+        self.use_feat = use_feat
+        self.feat_num = feat_num
+        if use_feat:
+            self.FeatE = FeatEncoder(feat_num, nef, n_downsample_E, **conv)
         self.use_mask_texture = use_mask_texture
         self.warp = dict(k=warp_k, block_parts=warp_block_parts, eps=warp_eps,
                          compute_dtype=warp_dtype)
 
     def forward(self, pose: torch.Tensor, bg: torch.Tensor,
                 static_tex: torch.Tensor,
-                tex_mask: Optional[torch.Tensor] = None
+                tex_mask: Optional[torch.Tensor] = None,
+                feat_image: Optional[torch.Tensor] = None,
+                cluster_feats: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """Render one batch of frames.
 
@@ -57,6 +69,15 @@ class NeuralRenderer(nn.Module):
         background in [-1, 1]; batch 1 runs BGNet once and broadcasts.
         static_tex: (B or 1, P, 3, T, T) atlas in [-1, 1]. tex_mask:
         optional (P, 1, T, T) texel validity mask (--use_mask_texture).
+        Under use_feat, TexG also takes feat_num channels of appearance
+        codes, one code per predicted body part (the argmax of probs, a
+        selection without gradient):
+          * feat_image (B, 3, H, W), a real frame (training, held-out
+            eval): E encodes it and part_pool averages E's features per
+            part; E is differentiated;
+          * cluster_feats (P+1, feat_num) codes per part (inference with
+            --load_features): the part one-hot times the codes;
+          * neither: zero codes, and E does not run.
 
         Returns float32 NCHW tensors: fake, fg, mask (B, 1, H, W), probs
         (B, P+1, H, W), logits, uv (B, P, 2, H, W), texture
@@ -65,7 +86,11 @@ class NeuralRenderer(nn.Module):
         B = pose.shape[0]
         logits, uv = self.TransG(pose)
         probs = torch.softmax(logits.float(), dim=1)
-        residual = self.TexG(pose)
+        texg_in = pose
+        if self.use_feat:
+            texg_in = torch.cat([pose, self._codes(probs, feat_image,
+                                                   cluster_feats)], dim=1)
+        residual = self.TexG(texg_in)
         if self.use_mask_texture and tex_mask is not None:
             residual = residual * tex_mask
         texture = torch.clamp(static_tex + residual, -1.0, 1.0)
@@ -79,13 +104,24 @@ class NeuralRenderer(nn.Module):
                 "logits": logits, "uv": uv, "texture": texture,
                 "bg_refined": bg_refined}
 
+    def _codes(self, probs: torch.Tensor, feat_image, cluster_feats
+               ) -> torch.Tensor:
+        """(B, feat_num, H, W) float32 appearance codes for TexG."""
+        B, C, H, W = probs.shape
+        if feat_image is None and cluster_feats is None:
+            return probs.new_zeros((B, self.feat_num, H, W))
+        onehot = torch.zeros_like(probs).scatter_(
+            1, probs.detach().argmax(1, keepdim=True), 1.0)
+        if feat_image is not None:
+            return part_pool(self.FeatE(feat_image), onehot)
+        codes = cluster_feats.to(device=probs.device, dtype=torch.float32)
+        return torch.einsum("bchw,cf->bfhw", onehot, codes)
+
 
 def check_serving_options(opt) -> None:
     """Raise on options whose modules this port does not have yet."""
     later = {"netG local": opt.netG != "global", "uv_refine": opt.uv_refine,
-             "ms_uv": opt.ms_uv,
-             "instance_feat/label_feat": opt.instance_feat or opt.label_feat,
-             "use_laplace": opt.use_laplace, "limb_coords": opt.limb_coords}
+             "ms_uv": opt.ms_uv}
     asked = [k for k, v in later.items() if v]
     if asked:
         raise NotImplementedError(
@@ -109,7 +145,9 @@ def renderer_from_options(opt) -> NeuralRenderer:
             warp_eps=opt.warp_eps, warp_dtype=opt.warp_dtype,
             stem_s2d=opt.stem_s2d, head_s2d=opt.head_s2d, bg_s2d=opt.bg_s2d,
             pad_mode=opt.pad_mode, upsample_mode=opt.upsample_mode,
-            dtype=dtype)
+            use_feat=opt.instance_feat or opt.label_feat,
+            feat_num=opt.feat_num, nef=opt.nef,
+            n_downsample_E=opt.n_downsample_E, dtype=dtype)
 
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:

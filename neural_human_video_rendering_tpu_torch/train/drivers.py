@@ -37,8 +37,8 @@ from ..utils.visualizer import prune_metrics_after
 from .loop import run_training
 from .state import (PretrainState, check_pretrain_options, check_train_options,
                     create_train_state, make_optimizer, to_nchw)
-from .steps import (build_pose_input, make_pretrain_tex_step,
-                    make_pretrain_uv_step, make_train_step)
+from .steps import (make_pretrain_tex_step, make_pretrain_uv_step,
+                    make_train_step, pose_from_batch)
 
 
 def _dataset(opt, phase: str = "train"):
@@ -47,13 +47,7 @@ def _dataset(opt, phase: str = "train"):
     SyntheticDataset."""
     if any(p and os.path.isdir(p) for p in (opt.pose_path, opt.img_path,
                                             opt.densepose_path, opt.mask_path)):
-        ds = dsm.FrameDataset(opt, phase)
-        if ds.pose_img_names:
-            raise NotImplementedError(
-                f"--pose_path {opt.pose_path!r} holds pose images, not "
-                "keypoint JSONs: driving with pre-rendered pose images is not "
-                "in the PyTorch port yet")
-        return ds
+        return dsm.FrameDataset(opt, phase)
     print("[data] no real dataset dirs found -> SyntheticDataset", flush=True)
     return dsm.SyntheticDataset(opt, length=max(opt.batchSize * 4, 16),
                                 seed=opt.seed)
@@ -175,13 +169,20 @@ def resume_train(opt, st, steps_per_epoch: int) -> Optional[int]:
     return start
 
 
-def _render(st, pose: torch.Tensor):
-    """The renderer's forward on the state's assets with the EMA weights
-    when a track is kept (what inference serves), else the raw ones."""
-    args = (pose, st.bg[None], st.static_tex[None], st.tex_mask)
+def _render(opt, st, b):
+    """The renderer's forward of an unpacked batch (its LaplaceProj
+    channels and pose images where it has them) on the state's assets,
+    with the EMA weights when a track is kept (what inference serves),
+    else the raw ones. Under --instance_feat the batch's real frame is
+    encoded, so the eval measures the model in the configuration it
+    trains in."""
+    args = (pose_from_batch(opt, b), st.bg[None], st.static_tex[None],
+            st.tex_mask)
+    kw = ({"feat_image": b["image"]}
+          if (opt.instance_feat or opt.label_feat) and "image" in b else {})
     if st.g_ema is not None:
-        return torch.func.functional_call(st.renderer, st.g_ema, args)
-    return st.renderer(*args)
+        return torch.func.functional_call(st.renderer, st.g_ema, args, kw)
+    return st.renderer(*args, **kw)
 
 
 def _eval_fn(opt, device):
@@ -200,7 +201,7 @@ def _eval_fn(opt, device):
         ps, ss, n = 0.0, 0.0, 0
         for eb in loader:
             b = unpack_batch(eb, device)
-            fake = _render(st, build_pose_input(opt, b["joints"]))["fake"]
+            fake = _render(opt, st, b)["fake"]
             ps += float(psnr(fake, b["image"]).sum())
             ss += float(ssim(fake, b["image"]).sum())
             n += fake.shape[0]
@@ -213,7 +214,7 @@ def _visuals_fn(opt, device):
     @torch.inference_mode()
     def visuals_fn(st, batch):
         b = unpack_batch({k: v[:1] for k, v in batch.items()}, device)
-        outs = _render(st, build_pose_input(opt, b["joints"]))
+        outs = _render(opt, st, b)
 
         def hwc(t):
             return t[0].float().permute(1, 2, 0).cpu().numpy()

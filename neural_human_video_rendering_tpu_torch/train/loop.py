@@ -5,16 +5,80 @@ Epoch loop -> prefetched host batches -> the train step -> a loss line at
 --print_freq, the HTML gallery at --display_freq, an iteration 'latest'
 checkpoint at --save_latest_freq; after each epoch the held-out eval and,
 at --save_epoch_freq and the final epoch, the epoch checkpoint.
+
+Two debugging flags act here, for every stage:
+  * --profile_dir: a torch.profiler window over this run's steps
+    [profile_start, profile_start + profile_steps), written as a Chrome
+    trace under --profile_dir (the JAX loop writes a jax.profiler trace of
+    the same window);
+  * --debug_nans: every step's losses are checked for NaN / inf (one
+    device sync a step, so only with the flag); a non-finite loss raises
+    FloatingPointError naming it.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..utils.visualizer import Visualizer
+
+
+def check_finite(metrics: Dict[str, torch.Tensor], step: int) -> None:
+    """--debug_nans: raise FloatingPointError naming every non-finite loss
+    of a step (one sync for all of them)."""
+    names = list(metrics)
+    ok = torch.isfinite(torch.stack([metrics[k].detach().float().reshape(())
+                                     for k in names])).tolist()
+    bad = [k for k, good in zip(names, ok) if not good]
+    if bad:
+        vals = ", ".join(f"{k}={float(metrics[k])}" for k in bad)
+        raise FloatingPointError(f"--debug_nans: non-finite loss at step "
+                                 f"{step}: {vals}")
+
+
+class ProfileWindow:
+    """A torch.profiler trace of the steps [start, start + steps) of a run
+    (counted from 0), CPU and, on the card, CUDA activity, exported as
+    {profile_dir}/steps_{first}-{last}.trace.json."""
+
+    def __init__(self, opt, cuda: bool):
+        self.dir = opt.profile_dir
+        self.start = opt.profile_start
+        self.stop_at = opt.profile_start + max(1, opt.profile_steps)
+        self.cuda = cuda
+        self.prof = None
+
+    def before_step(self, total: int) -> None:
+        if self.dir and self.prof is None and total == self.start:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.cuda:
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+            self.first = total
+
+    def after_step(self, total: int) -> None:
+        if self.prof is not None and total >= self.stop_at:
+            self.close(total)
+
+    def close(self, total: int) -> None:
+        if self.prof is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir,
+                            f"steps_{self.first}-{total - 1}.trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print(f"[profile] trace of steps {self.first}-{total - 1} written "
+              f"-> {path}", flush=True)
 
 
 def run_training(opt, loader, step_fn: Callable, state, epochs: int,
@@ -35,6 +99,7 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
     meanwhile)."""
     cuda = state.device.type == "cuda"
     vis = Visualizer(opt)
+    window = ProfileWindow(opt, cuda)
     total = 0
     try:
         for epoch in range(start_epoch, epochs + 1):
@@ -46,6 +111,7 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
                     if max_steps is not None and total >= max_steps:
                         cut = True
                         break
+                    window.before_step(total)
                     t0 = time.perf_counter()
                     metrics = step_fn(state, batch)
                     if cuda:
@@ -53,6 +119,9 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
                     state.step_seconds.append(time.perf_counter() - t0)
                     state.metrics = metrics
                     total += 1
+                    window.after_step(total)
+                    if opt.debug_nans:
+                        check_finite(metrics, state.step)
                     if total % opt.print_freq == 0:
                         vis.log_losses(epoch, it, metrics, state.step)
                     if visuals_fn is not None and total % opt.display_freq == 0:
@@ -64,7 +133,8 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
                         # knows where the save sits in the schedule
                         save_fn(state, "latest", epoch - 1)
             finally:
-                batches.close()
+                if hasattr(batches, "close"):      # BatchLoader's generator
+                    batches.close()
             if cut:
                 break
             print(f"End of epoch {epoch} / {epochs} "
@@ -79,5 +149,6 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
             if max_steps is not None and total >= max_steps:
                 break
     finally:
+        window.close(total)
         vis.close()
     return state

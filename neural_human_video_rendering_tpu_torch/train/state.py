@@ -71,8 +71,6 @@ def check_pretrain_options(opt) -> None:
     later = {"--lambda_UVgrad > 0": opt.lambda_UVgrad > 0,
              "--ms_uv": opt.ms_uv > 0, "--uv_refine": opt.uv_refine > 0,
              "--netG local": opt.netG != "global",
-             "--use_laplace": opt.use_laplace,
-             "--limb_coords": opt.limb_coords,
              "flip augmentation (pass --no_flip)": not opt.no_flip,
              "crop modes (--resize_or_crop *crop)":
                  "crop" in opt.resize_or_crop}
@@ -158,7 +156,9 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
                        device: Optional[torch.device] = None) -> TrainState:
     """Random-init G and D (flax's default init, seeded from --seed), the
     VGG of the perceptual loss (bf16, unless --no_vgg_loss), two Adam
-    optimizers with the schedule, the EMA copy, and the assets: static_tex
+    optimizers with the schedule, the EMA copy (with --instance_feat the
+    encoder E is part of G: of its parameters, its EMA and its Adam
+    state, as in the JAX package), and the assets: static_tex
     (P, T, T, 3) and bg (S, S, 3) in [-1, 1], tex_mask (P, T, T, 1), as the
     JAX package's create_train_state takes them. ``device`` defaults to
     --gpu_ids."""

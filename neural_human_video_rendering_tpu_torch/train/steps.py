@@ -15,22 +15,31 @@ import numpy as np
 import torch
 
 from .. import losses as L
-from ..data.rasterize import joint_heatmaps, render_skeleton
+from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
 from ..data.wire import unpack_batch
 
 
-def build_pose_input(opt, joints: torch.Tensor) -> torch.Tensor:
+def build_pose_input(opt, joints: torch.Tensor,
+                     laplace: Optional[torch.Tensor] = None,
+                     pose_img: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, 18, 3) joints -> (B, pose_nc, S, S) float32 pose labels.
 
-    Channel order: the 3-channel skeleton render, then (--pose_heatmaps)
-    18 joint heatmaps mapped to [-1, 1], then (--coord_conv) the x ramp and
-    the y ramp in [-1, 1].
+    Channel order: the 3-channel pose render (a pre-rendered pose image
+    (B, 3, S, S) where the dataset gives one, else the skeleton rasterized
+    from the joints), then (--pose_heatmaps) 18 joint heatmaps mapped to
+    [-1, 1], then (--coord_conv) the x ramp and the y ramp in [-1, 1], then
+    (--limb_coords) two limb-local channels a limb, then (--use_laplace)
+    the LaplaceProj channels (B, laplace_nc_eff, S, S): 78 under the
+    --input_nc 81 contract, laplace_nc otherwise, zeros where none are
+    given. The render is left out under --use_laplace with --input_nc 3
+    and no --pose_plus_laplace (``opt.use_pose_render``).
     """
     S = opt.train_size
     B, dev = joints.shape[0], joints.device
     chans = []
     if opt.use_pose_render:
-        chans.append(render_skeleton(joints, S, S))
+        chans.append(pose_img if pose_img is not None
+                     else render_skeleton(joints, S, S))
     if opt.pose_heatmaps:
         chans.append(joint_heatmaps(joints, S, S, sigma=opt.heatmap_sigma)
                      * 2.0 - 1.0)
@@ -38,27 +47,65 @@ def build_pose_input(opt, joints: torch.Tensor) -> torch.Tensor:
         ramp = torch.linspace(-1.0, 1.0, S, dtype=torch.float32, device=dev)
         chans.append(ramp.view(1, 1, 1, S).expand(B, 1, S, S))
         chans.append(ramp.view(1, 1, S, 1).expand(B, 1, S, S))
+    if opt.limb_coords:
+        chans.append(limb_coord_maps(joints, S, S, sigma=opt.limb_sigma))
+    if opt.use_laplace:
+        if laplace is None:
+            laplace = torch.zeros((B, opt.laplace_nc_eff, S, S),
+                                  dtype=torch.float32, device=dev)
+        chans.append(laplace)
     pose = torch.cat(chans, dim=1)
     if pose.shape[1] != opt.pose_nc:
-        raise ValueError(f"pose input has {pose.shape[1]} channels, config "
-                         f"demands {opt.pose_nc}")
+        raise ValueError(
+            f"pose input has {pose.shape[1]} channels, config demands "
+            f"{opt.pose_nc} (input_nc={opt.input_nc}, use_laplace="
+            f"{opt.use_laplace}, laplace channels {opt.laplace_nc_eff})")
     return pose
 
 
-def make_forward_fn(opt, renderer) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Inference forward: (assets, joints) -> rendered frame dict.
+def pose_from_batch(opt, b: Dict[str, torch.Tensor],
+                    prev: bool = False) -> torch.Tensor:
+    """build_pose_input on an unpacked batch: frame t, or (prev) frame t-1
+    from joints_prev and pose_img_prev. Frame t-1 takes frame t's
+    LaplaceProj channels, as the JAX package's step does."""
+    if prev:
+        return build_pose_input(opt, b["joints_prev"], b.get("laplace"),
+                                b.get("pose_img_prev"))
+    return build_pose_input(opt, b["joints"], b.get("laplace"),
+                            b.get("pose_img"))
+
+
+def make_forward_fn(opt, renderer, cluster_feats=None
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Inference forward: (assets, joints[, laplace, pose_img, feat_image])
+    -> rendered frame dict.
 
     assets = (static_tex (P, 3, T, T), bg (3, S, S), tex_mask or None) on
     the renderer's device; they enter with batch 1, so BGNet runs once per
-    batch and the compositor broadcasts.
+    batch and the compositor broadcasts. laplace (B, C, S, S) and pose_img
+    (B, 3, S, S) feed build_pose_input. Under --instance_feat: feat_image
+    (B, 3, S, S), a real frame, is encoded as the train step encodes it
+    (held-out eval); else cluster_feats (P+1, feat_num), the codes of
+    --load_features; else zero codes.
     """
+    codes = None
+    if renderer.use_feat and cluster_feats is not None:
+        codes = torch.as_tensor(np.asarray(cluster_feats, np.float32))
 
     @torch.inference_mode()
     def fwd(assets: Tuple[torch.Tensor, torch.Tensor, object],
-            joints: torch.Tensor) -> Dict[str, torch.Tensor]:
+            joints: torch.Tensor, laplace: Optional[torch.Tensor] = None,
+            pose_img: Optional[torch.Tensor] = None,
+            feat_image: Optional[torch.Tensor] = None
+            ) -> Dict[str, torch.Tensor]:
         static_tex, bg, tex_mask = assets
-        pose = build_pose_input(opt, joints)
-        return renderer(pose, bg[None], static_tex[None], tex_mask)
+        pose = build_pose_input(opt, joints, laplace, pose_img)
+        kw = {}
+        if renderer.use_feat and feat_image is not None:
+            kw["feat_image"] = feat_image
+        elif codes is not None:
+            kw["cluster_feats"] = codes
+        return renderer(pose, bg[None], static_tex[None], tex_mask, **kw)
 
     return fwd
 
@@ -96,7 +143,8 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
     frame. ``mark(name)``, when given, is called at the end of each phase
     (inputs: the upload and the pose input; prev_render; g_forward;
     d_for_g; vgg; g_losses; g_backward; d_step; update) so a caller can
-    time the phases.
+    time the phases. Under --instance_feat the renderer encodes the real
+    frame t (and, for the t-1 render, the real frame t-1: image_prev).
     """
     use_temporal = opt.lambda_Temp > 0
     use_vgg = (not opt.no_vgg_loss) and vgg is not None
@@ -104,6 +152,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
     use_lsgan = not opt.no_lsgan
     real_prev = use_temporal and opt.temporal_prev == "real"
     detach_prev = use_temporal and not real_prev
+    use_feat = opt.instance_feat or opt.label_feat
 
     def no_mark(name):
         pass
@@ -111,7 +160,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
     def step(state, batch, mark: Optional[Callable[[str], None]] = None):
         mark = mark or no_mark
         batch = unpack_batch(batch, state.static_tex.device)
-        pose = build_pose_input(opt, batch["joints"])
+        pose = pose_from_batch(opt, batch)
         real = batch["image"]
         tex, bg, tex_mask = state.static_tex[None], state.bg[None], \
             state.tex_mask
@@ -121,15 +170,18 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
         prev_fake = None
         if detach_prev:
             with torch.no_grad():
-                pose_prev = build_pose_input(opt, batch["joints_prev"])
-                prev_fake = renderer(pose_prev, bg, tex, tex_mask)["fake"]
+                prev_kw = ({"feat_image": batch.get("image_prev", real)}
+                           if use_feat else {})
+                prev_fake = renderer(pose_from_batch(opt, batch, prev=True),
+                                     bg, tex, tex_mask, **prev_kw)["fake"]
             mark("prev_render")
         elif real_prev:
             prev_fake = batch["image_prev"]
 
         # ---- G: D frozen, its real features detached
         disc.requires_grad_(False)
-        cur = renderer(pose, bg, tex, tex_mask)
+        cur = renderer(pose, bg, tex, tex_mask,
+                       **({"feat_image": real} if use_feat else {}))
         fake = cur["fake"]
         mark("g_forward")
         d_fake = disc(torch.cat([pose, fake], dim=1))
@@ -197,7 +249,7 @@ def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
 
     def step(state, batch):
         b = unpack_batch(batch, state.device)
-        pose = build_pose_input(opt, b["joints"])
+        pose = pose_from_batch(opt, b)
         optimizer.zero_grad(set_to_none=True)
         logits, uv = transg(pose)
         losses = {"UV": w_uv * L.uv_loss(uv, b["dp_uv"], b["dp_parts"]),
@@ -227,7 +279,7 @@ def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
 
     def step(state, batch):
         b = unpack_batch(batch, state.device)
-        pose = build_pose_input(opt, b["joints"])
+        pose = pose_from_batch(opt, b)
         gt = b["part_texture"].permute(0, 1, 4, 2, 3)     # (B, P, 3, T, T)
         optimizer.zero_grad(set_to_none=True)
         res = texg(pose)

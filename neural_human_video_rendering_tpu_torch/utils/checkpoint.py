@@ -18,6 +18,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 from typing import Dict, Optional
 
 import torch
@@ -28,6 +29,8 @@ EXT = ".pth"
 JAX_EXT = ".msgpack"
 STATE_FILE = "latest_state" + EXT
 ANCHOR_FILE = "latest_anchor.json"
+# a residual block's prefix in a state_dict key
+_RESBLOCK = re.compile(r"^(.*\.)?ResnetBlock_\d+(?=\.)")
 
 
 def _path(run_dir: str, epoch, label: str, ext: str = EXT) -> str:
@@ -179,5 +182,35 @@ def load_train_state(run_dir: str, g_opt, d_opt):
 def load_transg_into(renderer: torch.nn.Module, pretrain_dir: str,
                      epoch="latest") -> str:
     """Partial restore: a stage-1 TransG into the stage-2 renderer
-    (--load_pretrain_TransG / --which_epoch_TransG)."""
-    return load_net_into(renderer.TransG, pretrain_dir, "TransG", epoch)
+    (--load_pretrain_TransG / --which_epoch_TransG).
+
+    A file of the module's structure loads strictly. One that differs from
+    it only in the number of residual blocks loads as pix2pixHD's
+    load_network loads it: the blocks both have come from the file, the
+    others keep their fresh init, and the run says which. The reference's
+    own launchers need it: pretrain_trans.sh trains a 5-block TransG,
+    train_e2e.sh builds the default 9 (the JAX package refuses that pair).
+    Any other difference (a width, the input channels, the downsampling)
+    is refused as before."""
+    module = renderer.TransG
+    saved = load_net(pretrain_dir, "TransG", epoch)
+    path = find_net(pretrain_dir, "TransG", epoch)
+    own = module.state_dict()
+    odd = own.keys() ^ saved.keys()
+    clash = sorted(k for k in own.keys() & saved.keys()
+                   if own[k].shape != saved[k].shape)
+    other = sorted(k for k in odd if not _RESBLOCK.match(k))
+    if clash or other:
+        raise RuntimeError(
+            f"{path} does not fit this TransG beyond its number of residual "
+            f"blocks: shapes differ in {clash[:4]}, keys in {other[:4]}")
+    module.load_state_dict({**own, **{k: saved[k] for k in own if k in saved}},
+                           strict=True)
+    if odd:
+        fresh = sorted({_RESBLOCK.match(k).group(0) for k in own if k in odd})
+        unused = sorted({_RESBLOCK.match(k).group(0)
+                         for k in saved if k in odd})
+        print(f"[ckpt] {path} has another number of residual blocks than "
+              f"this TransG: fresh init kept in {fresh}; not used from the "
+              f"file: {unused}", flush=True)
+    return path

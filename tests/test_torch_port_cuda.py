@@ -525,3 +525,95 @@ def test_stage2_resume_on_the_card_is_bit_identical(cuda, tmp_path):
     on = run_train(TrainOptions().parse(base + ["--continue_train"]))
     assert on.step == 8
     assert all(torch.isfinite(v).all() for v in on.metrics.values())
+
+
+def test_stage2_step_laplace_feat_on_the_card_matches_cpu(cuda):
+    """One tiny stage-2 step under train_e2e.sh's --use_laplace
+    --instance_feat (--temporal_prev fake: E encodes frame t with gradient
+    and image_prev for the detached t-1 render) on the card and on the CPU
+    from the same weights, SGD lr 1, TF32 off: the losses within 1e-4
+    relative and every parameter's change within 1e-4 * max|change| over
+    the net + 1e-3 * max|change| of the tensor (chip_smoke's tiny step).
+    E pools over the argmax of the part probabilities: TransG's weights
+    are drawn from numpy's generator (seed 0, the same on any torch
+    version), which gives every pixel a top-two logit gap of ten times the
+    card-CPU difference or more (asserted). TransG's uv outputs are held
+    mid-cell (zero weights, one bias) so no sample lies near a texel edge,
+    where the bilinear gradient jumps."""
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu_torch.train.steps import (
+        build_pose_input, make_train_step)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = TrainOptions().parse(_TINY_TRAIN + [
+        "--use_laplace", "--instance_feat", "--nef", "4", "--n_downsample_E",
+        "2", "--temporal_prev", "fake", "--batchSize", "2", "--seed", "12"],
+        save=False)
+    syn = dsm.SyntheticDataset(opt, length=4, seed=opt.seed)
+    batch = dsm.collate([syn[i] for i in (1, 2)])
+    rng = np.random.default_rng(8)
+    batch["laplace"] = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    batch["image_prev"] = np.clip(batch["image"] + rng.normal(
+        0, 0.1, batch["image"].shape), -1, 1).astype(np.float32)
+    states = {name: create_train_state(opt, syn.texture_atlas(),
+                                       syn.background(), device=d)
+              for name, d in (("cpu", torch.device("cpu")), ("card", cuda))}
+    cpu, card = states["cpu"], states["card"]
+    draw = np.random.default_rng(0)
+    with torch.no_grad():
+        for m in cpu.renderer.TransG.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                w = m.weight
+                fan_in = w[0].numel() if isinstance(m, torch.nn.Conv2d) \
+                    else w.shape[0] * w.shape[2] * w.shape[3]
+                w.copy_(torch.from_numpy((draw.standard_normal(w.shape)
+                                          / np.sqrt(fan_in)).astype(np.float32)))
+    head = getattr(cpu.renderer.TransG.GlobalGenerator_0,
+                   cpu.renderer.TransG.GlobalGenerator_0.order[-1]).Conv_0
+    C = opt.transg_out_nc
+    uv_out = [k * C + c for k in range(4) for c in range(25, C)]
+    with torch.no_grad():
+        head.weight[uv_out] = 0.0
+        head.bias[uv_out] = float(np.arctanh(2 * 5.5 / 15 - 1))
+    card.renderer.load_state_dict(cpu.renderer.state_dict())
+    card.disc.load_state_dict(cpu.disc.state_dict())
+    lap = torch.from_numpy(batch["laplace"].transpose(0, 3, 1, 2).copy())
+    for key in ("joints", "joints_prev"):
+        logits = {}
+        for name, st in states.items():
+            d = st.device
+            with torch.no_grad():
+                logits[name] = st.renderer.TransG(build_pose_input(
+                    opt, torch.from_numpy(batch[key]).to(d), lap.to(d)))[0].cpu()
+        diff = float((logits["card"] - logits["cpu"]).abs().max())
+        top2 = logits["cpu"].sort(1).values[:, -2:]
+        assert float((top2[:, 1] - top2[:, 0]).min()) > 10 * diff, key
+    before = {"G": {k: v.clone() for k, v in cpu.renderer.state_dict().items()},
+              "D": {k: v.clone() for k, v in cpu.disc.state_dict().items()}}
+    metrics = {}
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    for name, st in states.items():
+        step = make_train_step(
+            opt, st.renderer, st.disc, None,
+            torch.optim.SGD(st.renderer.parameters(), lr=1.0),
+            torch.optim.SGD(st.disc.parameters(), lr=1.0))
+        metrics[name] = {k: float(v) for k, v in step(st, batch).items()}
+    assert _launches() == (0, 0, 2, 1) and fk.flow_warp_fwd.launches == 1
+    for k, ref in metrics["cpu"].items():
+        assert abs(metrics["card"][k] - ref) <= 1e-4 * max(abs(ref), 1e-12), k
+    for tag, mods in (("G", (cpu.renderer, card.renderer)),
+                      ("D", (cpu.disc, card.disc))):
+        b = before[tag]
+        ref = {k: v - b[k] for k, v in mods[0].state_dict().items()}
+        got = {k: v.cpu() - b[k] for k, v in mods[1].state_dict().items()}
+        scale = max(float(d.abs().max()) for d in ref.values())
+        for k, d in ref.items():
+            err = float((got[k] - d).abs().max())
+            assert err <= 1e-4 * scale + 1e-3 * float(d.abs().max()), k
+    assert max(float(ref.abs().max()) for k, ref in (
+        (k, cpu.renderer.state_dict()[k] - before["G"][k])
+        for k in before["G"] if k.startswith("FeatE."))) > 0

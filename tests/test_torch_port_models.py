@@ -250,8 +250,7 @@ def test_init_params_is_seeded_and_flax_scaled():
 
 
 def test_unported_options_raise():
-    for over in ({"netG": "local"}, {"uv_refine": 1}, {"ms_uv": 1},
-                 {"instance_feat": True}):
+    for over in ({"netG": "local"}, {"uv_refine": 1}, {"ms_uv": 1}):
         with pytest.raises(NotImplementedError):
             renderer_from_options(dataclasses.replace(TOptions(**_flags()),
                                                       **over))

@@ -239,8 +239,7 @@ def test_run_train_on_the_cpu(temporal_prev, tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--no_temporal_detach_prev"], ["--pool_size", "4"], ["--no_flip"],
     ["--resize_or_crop", "resize_and_crop"], ["--lambda_UVgrad", "1"],
-    ["--netG", "local"], ["--uv_refine", "1"], ["--ms_uv", "1"],
-    ["--instance_feat"]])
+    ["--netG", "local"], ["--uv_refine", "1"], ["--ms_uv", "1"]])
 def test_unported_training_options_raise(flags, tmp_path):
     base = [f for f in TINY if f != "--no_flip"]
     if flags != ["--no_flip"]:
