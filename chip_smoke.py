@@ -77,6 +77,20 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      serving twice (stage 2's model with cluster codes and a video;
      test_infer.sh's flags at batch 8), a profiler window and
      --debug_nans (launchers_path has the details).
+  9. measure: the port's benchmark and quality entry points. bench.main
+     (--ckpt '': the random-init regime at the JAX bench's operating
+     point, tile 128, bf16 warp texture) and bench_infer.main in process,
+     their JSON lines and the launches per train step (the fused forward
+     keeping w, the fused forward without w for the t-1 render, the
+     backward, the flow warp) and per inference batch (the fused forward
+     without w); the bilinear corpus oracle on the fused kernel (a 512 px
+     frame of data/synthetic_video within 1e-5 of the warp of its own IUV);
+     make_demo_data at 512 px (24 frames bilinear, 8 with --corrupt 0.5)
+     read back through FrameDataset; quality_run at FULL_FLAGS cut in depth
+     (24 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
+     parity JSON and stage 2's launches; evaluate on the card (identical
+     dirs, and renders against the GT against the CPU: PSNR 1e-3 dB, SSIM
+     1e-5, flicker 1e-5 relative, VGG distance and LPIPS 3e-2 relative).
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -275,13 +289,11 @@ TRAIN_LAUNCHES_PER_STEP = {"topk_select": 0, "texture_warp_fwd": 0,
                            "texture_warp_bwd": 1, "flow_warp_fwd": 1}
 
 
-def launch_counts(tk, fk):
+def launch_counts():
     """Every kernel wrapper's launch count, by REPLACES' names."""
-    return {"topk_select": tk.topk_select.launches,
-            "texture_warp_fwd": tk.texture_warp_fwd.launches,
-            "texture_warp_topk_fwd": tk.texture_warp_topk_fwd.launches,
-            "texture_warp_bwd": tk.texture_warp_bwd.launches,
-            "flow_warp_fwd": fk.flow_warp_fwd.launches}
+    from neural_human_video_rendering_tpu_torch.train.drivers import \
+        kernel_launches
+    return kernel_launches()
 
 
 def warp_inputs(torch, B, P, H, W, T, seed, device):
@@ -641,7 +653,7 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
     ckpt = ["--checkpoints_dir", os.path.join(work, "ckpt")]
 
     def counts():
-        return launch_counts(tk, fk)
+        return launch_counts()
 
     def reset():
         tk.reset_launch_counts()
@@ -1003,7 +1015,7 @@ def pipeline_path(torch, smoke, tk, fk, repo, dev, smi):
     stages = {}
 
     def counts():
-        return launch_counts(tk, fk)
+        return launch_counts()
 
     def reset():
         torch.cuda.synchronize()
@@ -1288,7 +1300,7 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
 
     def record(name, st, t_wall):
         torch.cuda.synchronize()
-        launches[name] = launch_counts(tk, fk)
+        launches[name] = launch_counts()
         times = sorted(st.step_seconds)
         med = times[len(times) // 2] * 1e3
         stages[name] = {"steps": len(st.step_seconds), "ms_median": med,
@@ -1420,7 +1432,7 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
         "--results_dir", r1, "--which_epoch", "1", "--load_features", npz,
         "--cluster_idx", "0", "--save_video"])
     serve1_s = time.perf_counter() - t
-    l_s1 = launch_counts(tk, fk)
+    l_s1 = launch_counts()
     videos = [f for f in os.listdir(r1) if f.startswith("video.")]
     import cv2
     cap_v = cv2.VideoCapture(os.path.join(r1, videos[0])) if videos else None
@@ -1443,7 +1455,7 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     t = time.perf_counter()
     n_s2 = through_main(td, "run_inference", ti)
     serve2_s = time.perf_counter() - t
-    l_s2 = launch_counts(tk, fk)
+    l_s2 = launch_counts()
     smoke.require("test_infer.sh: all frames, 1 fused forward a batch",
                   n_s2 == LAUNCH_FRAMES and l_s2 == {
                       **none, "texture_warp_topk_fwd": batches},
@@ -1522,6 +1534,315 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
         "card": smi}}), flush=True)
     shutil.rmtree(work, ignore_errors=True)    # checkpoints, 78-channel .npy
     return launches["train_e2e"]
+
+
+QUALITY_FRAMES = 24
+CORRUPT_FRAMES = 8
+# the oracle's bound: the JAX package's (tests/test_synthetic_video.py)
+ORACLE_TOL = 1e-5
+# evaluate on the card against the CPU on the same dirs
+EVAL_PSNR_TOL, EVAL_SSIM_TOL, EVAL_FLICKER_RTOL, EVAL_VGG_RTOL = (
+    1e-3, 1e-5, 1e-5, 3e-2)
+EVAL_CPU_FRAMES = 4
+# bench.py's and bench_infer.py's rounds: one warm-up, then 2 x 20 steps;
+# one warm-up and 1 x 20 forwards (bench_infer: 2 x 20)
+BENCH_STEPS, BENCH_FORWARDS, BENCH_INFER_FORWARDS = 1 + 2 * 20, 1 + 20, 1 + 2 * 20
+
+
+def captured_main(main, argv):
+    """main(argv) with its standard output captured (and echoed); returns
+    (its return value, the last line it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    return rc, (lines[-1] if lines else "")
+
+
+def measure_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 9: the port measures itself. (a) bench.main and (b)
+    bench_infer.main in process: their JSON lines (keys, finite values
+    > 0) and the launches of each train step and inference batch (the
+    fused forward's two modes told apart by a spy on the dispatcher's
+    call); (c) the bilinear corpus oracle on the fused kernel: a 512 px
+    frame of data/synthetic_video rendered by texture_warp_planes on the
+    card from its own IUV, atlas and bg, within 1e-5; (d) make_demo_data
+    at 512 px (24 frames bilinear; 8 frames with --corrupt 0.5), read back
+    through FrameDataset; (e) quality_run at FULL_FLAGS, cut in depth only
+    (24 frames, 1 pre-epoch, 2 epochs): its val curve, the served frames,
+    the parity JSON, and stage 2's launches from its log; (f) evaluate on
+    the card: identical dirs score perfectly, and the renders against the
+    GT agree with the same command on the CPU. Returns the launches per
+    bench step and per inference batch."""
+    import math
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import (bench, bench_infer,
+                                                        make_demo_data,
+                                                        quality_run)
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data import \
+        synthetic_video as sv
+    from neural_human_video_rendering_tpu_torch.infer import evaluate
+    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "measure")
+    shutil.rmtree(work, ignore_errors=True)
+    none = {k: 0 for k in REPLACES}
+    numbers = {}
+
+    # ---- a, b: the benchmark entry points, launches per step and batch
+    fused = ttw.texture_warp_topk_fwd
+    modes = {"keep_w": 0, "no_w": 0}
+
+    def spy(*args, return_w=False, **kw):
+        modes["keep_w" if return_w else "no_w"] += 1
+        return fused(*args, return_w=return_w, **kw)
+
+    seen = {}
+
+    def counted(name, module, fn_name):
+        fn = getattr(module, fn_name)
+
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            tk.reset_launch_counts()
+            fk.reset_launch_counts()
+            modes.update(keep_w=0, no_w=0)
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seen[name] = {**launch_counts(), **modes}
+            return out
+        return fn, wrapped
+
+    patches = [(bench, "train_steps_per_sec", "bench_train"),
+               (bench, "inference_fps", "bench_inference"),
+               (bench_infer, "inference_fps", "bench_infer")]
+    saved = []
+    ttw.texture_warp_topk_fwd = spy
+    try:
+        for module, fn_name, name in patches:
+            fn, wrapped = counted(name, module, fn_name)
+            saved.append((module, fn_name, fn))
+            setattr(module, fn_name, wrapped)
+        lines = {}
+        for name, main, argv in (
+                ("bench", bench.main, ["--ckpt", "", "--gpu_ids", "0"]),
+                ("bench_infer", bench_infer.main, ["--gpu_ids", "0"])):
+            t = time.perf_counter()
+            rc, last = captured_main(main, argv)
+            numbers[f"{name}_wall_s"] = time.perf_counter() - t
+            lines[name] = json.loads(last)
+            smoke.require(f"{name}.main exits 0", rc == 0)
+            torch.cuda.empty_cache()
+    finally:
+        ttw.texture_warp_topk_fwd = fused
+        for module, fn_name, fn in saved:
+            setattr(module, fn_name, fn)
+    b, bi = lines["bench"], lines["bench_infer"]
+    smoke.require("bench: its JSON line's keys, finite values > 0",
+                  list(b) == ["metric", "value", "unit", "inference_fps",
+                              "regime"]
+                  and b["metric"] == "train_steps_per_sec_512px_bs2"
+                  and b["regime"] == "randinit+bf16warp"
+                  and all(math.isfinite(b[k]) and b[k] > 0
+                          for k in ("value", "inference_fps")), json.dumps(b))
+    smoke.require("bench_infer: its JSON line's keys, finite values > 0",
+                  list(bi) == ["metric", "value", "unit", "vs_baseline"]
+                  and bi["metric"] == "inference_fps_512px"
+                  and all(math.isfinite(bi[k]) and bi[k] > 0
+                          for k in ("value", "vs_baseline")), json.dumps(bi))
+    want_step = {**none, "texture_warp_topk_fwd": 2, "texture_warp_bwd": 1,
+                 "flow_warp_fwd": 1, "keep_w": 1, "no_w": 1}
+    smoke.require(
+        "bench: a train step launches the fused forward keeping w once, the "
+        "fused forward without w once (the t-1 render), the backward and "
+        "the flow warp once; top-k and the w-given forward never",
+        seen["bench_train"] == {k: v * BENCH_STEPS
+                                for k, v in want_step.items()},
+        f"({seen['bench_train']} in {BENCH_STEPS} steps)")
+    for name, n in (("bench_inference", BENCH_FORWARDS),
+                    ("bench_infer", BENCH_INFER_FORWARDS)):
+        smoke.require(f"{name}: the fused forward without w once a batch, "
+                      "no other kernel",
+                      seen[name] == {**none, "texture_warp_topk_fwd": n,
+                                     "keep_w": 0, "no_w": n},
+                      f"({seen[name]} in {n} batches)")
+    per_step = {k: seen["bench_train"][k] / BENCH_STEPS for k in REPLACES}
+    per_batch = {k: seen["bench_inference"][k] / BENCH_FORWARDS
+                 for k in REPLACES}
+    print(f"[measure] bench: {json.dumps(b)}; bench_infer: {json.dumps(bi)};"
+          f" launches {json.dumps(seen)} | {smi}", flush=True)
+
+    # ---- c: the bilinear corpus oracle on the fused kernel
+    S, T = 512, 64
+    kp_dir = os.path.join(work, "keypoints")
+    base = TrainOptions().parse(TRAIN, save=False)
+    write_driving_sequence(base, kp_dir, QUALITY_FRAMES)
+    joints = sv.load_reference_joints(kp_dir, S)
+    parts, uv, _ = sv.rasterize_iuv(joints[QUALITY_FRAMES // 2], S)
+    atlas, bg = sv.part_texture_atlas(tile=T), sv.background_image(S)
+    frame, mask = sv.render_frame(parts, uv, atlas, bg, "bilinear")
+    P = atlas.shape[0]
+    tex_t = torch.from_numpy(atlas).permute(0, 3, 1, 2)[None].to(dev)
+    uv_t = torch.from_numpy(uv).permute(2, 0, 1)[None, None].expand(
+        1, P, 2, S, S).contiguous().to(dev)
+    probs_t = torch.from_numpy(np.eye(P + 1, dtype=np.float32)[parts]).permute(
+        2, 0, 1)[None].contiguous().to(dev)
+    launches_before = tk.texture_warp_topk_fwd.launches
+    with torch.no_grad():
+        fg = ttw.texture_warp_planes(tex_t, uv_t, probs_t, k=4, eps=1e-3)
+    torch.cuda.synchronize()
+    smoke.require("oracle: texture_warp_planes launched the fused kernel",
+                  tk.texture_warp_topk_fwd.launches == launches_before + 1)
+    fg = fg[0].permute(1, 2, 0).cpu().numpy()
+    err = float(np.abs(mask * fg + (1 - mask) * bg - frame).max())
+    numbers["oracle_max_abs_err"] = err
+    smoke.check(f"oracle: a bilinear {S} px corpus frame (T={T}, "
+                f"{int((parts > 0).sum())} body pixels) == the fused kernel's "
+                "warp of its own IUV, composited", err, ORACLE_TOL)
+    del tex_t, uv_t, probs_t
+
+    # ---- d: make_demo_data at 512 px, read back through FrameDataset
+    data = os.path.join(work, "demo")
+    t = time.perf_counter()
+    smoke.require("make_demo_data (24 frames, bilinear)", make_demo_data.main([
+        "--out", data, "--keypoints", kp_dir, "--size", str(S), "--tile",
+        str(T), "--sampling", "bilinear"]) == 0)
+    numbers["make_demo_data_24_frames_s"] = time.perf_counter() - t
+    kp8 = os.path.join(work, "keypoints8")
+    write_driving_sequence(base, kp8, CORRUPT_FRAMES)
+    noisy = os.path.join(work, "demo_corrupt")
+    t = time.perf_counter()
+    smoke.require("make_demo_data (8 frames, --corrupt 0.5)",
+                  make_demo_data.main(["--out", noisy, "--keypoints", kp8,
+                                       "--size", str(S), "--tile", str(T),
+                                       "--corrupt", "0.5"]) == 0)
+    numbers["make_demo_data_8_frames_corrupt_s"] = time.perf_counter() - t
+    for root, n, corrupt in ((data, QUALITY_FRAMES, False),
+                             (noisy, CORRUPT_FRAMES, True)):
+        fopt = TrainOptions().parse([
+            "--loadSize", str(S), "--tex_tile", str(T),
+            "--pose_path", f"{root}/openpose_json", "--img_path",
+            f"{root}/frames", "--mask_path", f"{root}/mask",
+            "--densepose_path", f"{root}/densepose", "--flow_path",
+            f"{root}/flow", "--flow_inv_path", f"{root}/flow_inv",
+            "--no_flip"], save=False)
+        ds = dsm.FrameDataset(fopt)
+        s1 = ds[1]
+        true_mask = (sv.rasterize_iuv(sv.load_reference_joints(
+            fopt.pose_path, S)[1], S)[0] > 0).astype(np.float32)
+        mask_differs = bool((s1["mask"][..., 0] != true_mask).any())
+        flo = dsm.read_flo(os.path.join(root, "flow", "frame00000.flo"))
+        smoke.require(
+            f"make_demo_data {os.path.basename(root)}: FrameDataset reads "
+            f"{n} frames at {S} px with keypoints, mask, IUV and .flo flows; "
+            f"the mask is {'corrupted' if corrupt else 'the true one'}",
+            len(ds) == n and s1["image"].shape == (S, S, 3)
+            and s1["dp_parts"].shape == (S, S) and s1["joints"].shape == (18, 3)
+            and np.array_equal(s1["flow"], flo)
+            and mask_differs == corrupt
+            and os.path.isfile(os.path.join(root, "texture.png")),
+            f"({len(ds)} frames, mask differs {mask_differs})")
+
+    # ---- e: quality_run at FULL_FLAGS, cut in depth
+    q = os.path.join(work, "quality")
+    cut = {"frames": QUALITY_FRAMES, "pre_epochs": 1, "epochs": 2}
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rc, _ = captured_main(quality_run.main, [
+        "--out", q, "--keypoints", kp_dir, "--size", str(S), "--tile",
+        str(T), "--pre_epochs", "1", "--epochs", "2", "--extra",
+        "--gpu_ids 0"])
+    numbers["quality_run_wall_s"] = time.perf_counter() - t
+    smoke.require("quality_run exits 0", rc == 0)
+    with open(os.path.join(q, "quality_run.json")) as f:
+        qr = json.load(f)
+    curve = qr["val_curve"]
+    smoke.require("quality_run: 2 finite val points",
+                  [p["epoch"] for p in curve] == [1, 2] and all(
+                      math.isfinite(p["val_PSNR"]) and math.isfinite(
+                          p["val_SSIM"]) for p in curve), json.dumps(curve))
+    served = dsm.list_images(os.path.join(q, "renders", "images"))
+    smoke.require("quality_run: one served frame per corpus frame",
+                  len(served) == QUALITY_FRAMES == qr["config"]["frames"],
+                  str(len(served)))
+    parity = qr["final_parity_all_frames"]
+    smoke.require("quality_run: the parity JSON is finite",
+                  set(parity) == {"psnr", "ssim", "temporal_l1",
+                                  "temporal_l1_gt", "flicker_ratio", "frames"}
+                  and all(math.isfinite(v) for v in parity.values()),
+                  json.dumps(parity))
+    with open(os.path.join(q, "ckpt", "e2e", "metrics.jsonl")) as f:
+        steps = max(json.loads(ln)["step"] for ln in f if ln.strip())
+    qopt = TrainOptions().parse([
+        "--loadSize", str(S), "--img_path", f"{q}/data/frames",
+        "--data_ratio", "0.9", "--no_flip"], save=False)
+    held_out = len(dsm.FrameDataset(qopt, "test"))
+    with open(os.path.join(q, "run.log")) as f:
+        logged = [json.loads(ln.split(": ", 1)[1]) for ln in f
+                  if ln.startswith("[kernels] launches")]
+    # temporal_prev fake: t and the t-1 render; one fused launch per
+    # held-out batch of each epoch's eval
+    want = {**none, "texture_warp_topk_fwd": 2 * steps + 2 * math.ceil(
+        held_out / 2), "texture_warp_bwd": steps, "flow_warp_fwd": steps}
+    smoke.require("quality_run stage 2: per step 2 fused forwards, 1 "
+                  "backward, 1 flow warp (real .flo flows); 1 fused forward a "
+                  "held-out batch", logged == [want],
+                  f"({logged}, {steps} steps, {held_out} held out)")
+    print(f"[measure] quality_run at FULL_FLAGS 512 px tile 64, cut in depth "
+          f"only ({json.dumps(cut)}): {json.dumps(qr)} | {smi}", flush=True)
+
+    # ---- f: evaluate on the card
+    gt = os.path.join(q, "data", "frames")
+    res = os.path.join(q, "renders", "images")
+    common = ["--loadSize", str(S), "--metric", "lpips,temporal"]
+    t = time.perf_counter()
+    same = evaluate.main(["--results_dir", gt, "--gt_dir", gt, "--gpu_ids",
+                          "0"] + common)
+    numbers["evaluate_identical_s"] = time.perf_counter() - t
+    smoke.require("evaluate, identical dirs: PSNR >= 100, SSIM 1 +- 1e-5, "
+                  "VGG distance and LPIPS 0 +- 1e-6",
+                  same["psnr"] >= 100 and abs(same["ssim"] - 1) <= 1e-5
+                  and abs(same["vgg_dist"]) <= 1e-6
+                  and abs(same["lpips"]) <= 1e-6, json.dumps(same))
+    runs = {}
+    for name, ids in (("card", "0"), ("cpu", "-1")):
+        t = time.perf_counter()
+        runs[name] = evaluate.main(["--results_dir", res, "--gt_dir", gt,
+                                    "--gpu_ids", ids, "--max_frames",
+                                    str(EVAL_CPU_FRAMES)] + common)
+        numbers[f"evaluate_{name}_{EVAL_CPU_FRAMES}_frames_s"] = \
+            time.perf_counter() - t
+    card, cpu = runs["card"], runs["cpu"]
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
+           for k in ("temporal_l1", "temporal_l1_gt", "flicker_ratio",
+                     "vgg_dist", "lpips")}
+    numbers["evaluate_card_vs_cpu"] = {
+        "psnr_abs": abs(card["psnr"] - cpu["psnr"]),
+        "ssim_abs": abs(card["ssim"] - cpu["ssim"]), **{
+            f"{k}_rel": v for k, v in rel.items()}}
+    smoke.check("evaluate card vs cpu: PSNR (dB)",
+                abs(card["psnr"] - cpu["psnr"]), EVAL_PSNR_TOL)
+    smoke.check("evaluate card vs cpu: SSIM", abs(card["ssim"] - cpu["ssim"]),
+                EVAL_SSIM_TOL)
+    smoke.check("evaluate card vs cpu: flicker (relative)",
+                max(rel[k] for k in ("temporal_l1", "temporal_l1_gt",
+                                     "flicker_ratio")), EVAL_FLICKER_RTOL)
+    smoke.check("evaluate card vs cpu: VGG distance, LPIPS (relative, bf16)",
+                max(rel["vgg_dist"], rel["lpips"]), EVAL_VGG_RTOL)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"measure": {
+        "bench": b, "bench_infer": bi, "launches": seen,
+        "quality_run": qr, "quality_run_cut": cut,
+        "evaluate_identical": same, "evaluate_card": card,
+        "evaluate_cpu": cpu, **numbers, "card": smi}}), flush=True)
+    shutil.rmtree(work, ignore_errors=True)       # checkpoints, corpora
+    return {"per_train_step": per_step, "per_inference_batch": per_batch}
 
 
 def main() -> int:
@@ -1654,7 +1975,7 @@ def main() -> int:
     n = td.run_inference(opt, assets=assets)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
-    launches = launch_counts(tk, fk)
+    launches = launch_counts()
     batches = -(-16 // opt.infer_batch)
     print(f"[main] run_inference wrote {n} frames in {e2e_s:.2f} s; "
           f"launches {launches} for {batches} batches", flush=True)
@@ -1678,7 +1999,7 @@ def main() -> int:
     fk.reset_launch_counts()
     n_bp = td.run_inference(opt_bp, max_frames=8, assets=assets)
     torch.cuda.synchronize()
-    bp_launches = launch_counts(tk, fk)
+    bp_launches = launch_counts()
     print(f"[main] --warp_block_parts 8: {n_bp} frames, launches "
           f"{bp_launches}", flush=True)
     smoke.require("block_parts route: 8 frames, topk_select and "
@@ -1814,6 +2135,8 @@ def main() -> int:
     pipe = pipeline_path(torch, smoke, tk, fk, repo, dev, smi)
     # -------------------------------------------- 8. the reference launchers
     launch_e2e = launchers_path(torch, smoke, tk, fk, repo, dev, smi)
+    # ----------------------------------------------------------- 9. measure
+    launch_bench = measure_path(torch, smoke, tk, fk, repo, dev, smi)
 
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
@@ -1831,6 +2154,7 @@ def main() -> int:
                  "launches_per_train_step": train["per_step"][name],
                  "launches_pipeline_stage2_epoch": pipe["stage2_epoch"][name],
                  "launches_train_e2e_sh_epoch": launch_e2e[name],
+                 "launches_bench": {k: v[name] for k, v in launch_bench.items()},
                  "max_abs_err": errs[name], **row, "card": smi}
         if name in serving:
             entry["launches_serving"] = launches[name]

@@ -19,6 +19,7 @@ holds only JAX files is refused.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 from typing import Optional
@@ -31,6 +32,8 @@ from ..data import dataset as dsm
 from ..data.wire import pack_batch, unpack_batch
 from ..models.generators import TexG, TransG
 from ..models.renderer import init_params
+from ..ops import flow_warp_kernel as fk
+from ..ops import texture_warp_kernel as tk
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import psnr, ssim
 from ..utils.visualizer import prune_metrics_after
@@ -268,12 +271,27 @@ def run_train(opt, epochs: Optional[int] = None,
 
     step = make_train_step(opt, state.renderer, state.disc, state.vgg,
                            state.g_opt, state.d_opt)
-    return run_training(
+    state = run_training(
         opt, loader, step, state, _epochs(opt, epochs),
         lambda st, epoch, completed=None: save_checkpoint(run_dir, st, epoch,
                                                           completed),
         _visuals_fn(opt, device), _eval_fn(opt, device),
         start_epoch=state.start_epoch, max_steps=max_steps)
+    print(f"[kernels] launches since the counters' reset: "
+          f"{json.dumps(kernel_launches())}", flush=True)
+    return state
+
+
+def kernel_launches() -> dict:
+    """Each CUDA kernel wrapper's launch count since its counter's reset
+    (zero on the CPU, where the wrappers run their plain versions).
+    run_train prints it at its end, so a run in a subprocess can be
+    checked from its log."""
+    return {"topk_select": tk.topk_select.launches,
+            "texture_warp_fwd": tk.texture_warp_fwd.launches,
+            "texture_warp_topk_fwd": tk.texture_warp_topk_fwd.launches,
+            "texture_warp_bwd": tk.texture_warp_bwd.launches,
+            "flow_warp_fwd": fk.flow_warp_fwd.launches}
 
 
 # ----------------------------------------------------------------------

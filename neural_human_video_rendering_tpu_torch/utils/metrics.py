@@ -1,5 +1,6 @@
 """Quality metrics for held-out evaluation: the port of the JAX package's
-``utils/metrics.py`` (PSNR and SSIM, one value per sample).
+``utils/metrics.py`` (PSNR, SSIM and the VGG distance, one value per
+sample).
 
 Images are NCHW in [-1, 1]. SSIM's 11-tap Gaussian (sigma 1.5, VALID) is
 applied as two separable sums of shifted slices in float32, so no
@@ -44,3 +45,24 @@ def ssim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
         (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2))
     return s.flatten(1).mean(1)
+
+
+def vgg_distance_taps(fa, fb) -> torch.Tensor:
+    """(B,) sum over the five taps of FEATURE_WEIGHTS[l] * mean |fa_l -
+    fb_l|: the VGG distance of two images' taps (``models.vgg``'s
+    VGG19Features output, float32)."""
+    from ..models.vgg import FEATURE_WEIGHTS
+    d = 0.0
+    for w, x, y in zip(FEATURE_WEIGHTS, fa, fb):
+        d = d + w * (x - y).abs().flatten(1).mean(1)
+    return d
+
+
+def vgg_distance(vgg, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B,) LPIPS-style perceptual distance of images (B, 3, H, W) in
+    [-1, 1] over the VGG's taps (the JAX package's
+    ``vgg_distance(..., per_sample=True)``). Build ``vgg`` in bfloat16, as
+    that package runs it; its taps come back float32. Tap 0 is compared
+    space-to-depth packed: a mean over its channels is the mean over the
+    unpacked pixels."""
+    return vgg_distance_taps(vgg(a), vgg(b))

@@ -617,3 +617,39 @@ def test_stage2_step_laplace_feat_on_the_card_matches_cpu(cuda):
     assert max(float(ref.abs().max()) for k, ref in (
         (k, cpu.renderer.state_dict()[k] - before["G"][k])
         for k in before["G"] if k.startswith("FeatE."))) > 0
+
+
+def test_evaluate_dirs_on_the_card_matches_cpu(cuda, tmp_path):
+    """infer/evaluate on the card against the CPU on the same dirs (LPIPS
+    and flicker on): PSNR within 1e-3 dB, SSIM 1e-5, the flicker metrics
+    1e-5 relative, the VGG distance and LPIPS 3e-2 relative (the bf16 VGG
+    rounds differently on the two devices). 6 frames at batch 4: the
+    last batch is padded."""
+    import os
+    from neural_human_video_rendering_tpu_torch.infer.evaluate import \
+        evaluate_dirs
+    from neural_human_video_rendering_tpu_torch.utils.image import save_image
+    rng = np.random.default_rng(3)
+    res, gt = str(tmp_path / "res"), str(tmp_path / "gt")
+    os.makedirs(res)
+    os.makedirs(gt)
+    S = 64
+    yy, xx = np.mgrid[0:S, 0:S].astype(np.float32) / S
+    for i in range(6):
+        img = np.stack([np.sin(7 * xx + 0.4 * i), np.cos(5 * yy - 0.3 * i),
+                        np.sin(4 * (xx + yy))], -1) * 0.7
+        save_image(os.path.join(gt, f"frame{i:05d}.png"), img)
+        save_image(os.path.join(res, f"frame{i:05d}_synthesized.png"),
+                   np.clip(img + rng.normal(0, 0.1, img.shape), -1, 1))
+    kw = dict(size=S, batch_size=4, use_vgg=True, use_lpips=True,
+              use_temporal=True)
+    card = evaluate_dirs(res, gt, device=cuda, **kw)
+    cpu = evaluate_dirs(res, gt, device=torch.device("cpu"), **kw)
+    assert set(card) == set(cpu) and card["frames"] == 6
+    assert abs(card["psnr"] - cpu["psnr"]) <= 1e-3
+    assert abs(card["ssim"] - cpu["ssim"]) <= 1e-5
+    for k in ("temporal_l1", "temporal_l1_gt", "flicker_ratio"):
+        assert card[k] == pytest.approx(cpu[k], rel=1e-5), k
+    for k in ("vgg_dist", "lpips"):
+        assert card[k] == pytest.approx(cpu[k], rel=3e-2), k
+        assert card[k] > 0, k
