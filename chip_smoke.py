@@ -91,6 +91,28 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      parity JSON and stage 2's launches; evaluate on the card (identical
      dirs, and renders against the GT against the CPU: PSNR 1e-3 dB, SSIM
      1e-5, flicker 1e-5 relative, VGG distance and LPIPS 3e-2 relative).
+ 10. options: every model and training option of the JAX package at full
+     width through the drivers' functions, 5 steps a stage on a corpus of
+     6 frames: (a) r4's uv_uvr -> e2e_uvr (--uv_refine 3, the TransG
+     handoff), (b) r5's uv_msuv -> e2e_msuv with --lambda_UVgrad 500, (c)
+     the flagship with --temporal_prev fake --no_temporal_detach_prev
+     --pool_size 50, flip and --resize_or_crop resize_and_crop at 576 ->
+     512, (d) pix2pixHD's 1024 px setting (--netG local --ngf 32, the
+     trunk frozen for its first epoch by --niter_fix_global 1), then
+     serving at batch 8 at 1024^2. Checks: finite losses with the JAX
+     package's keys; per stage-2 step the fused forward keeping w, the
+     backward and the flow warp once each (at 2B in the symmetric step),
+     per serving batch one fused forward; in (d) every global_trunk
+     parameter bit-equal while frozen and moved after, the enhancers
+     moved from the first step; the kernels against their plain versions
+     at 1024^2 (B=8 and B=2), at 2B=4 with a texture per sample and the
+     flow warp at 1024^2 (phase 2's tolerances); tiny float32 steps card
+     vs CPU with --netG local and --uv_refine, with --ms_uv, --uv_refine
+     and --lambda_UVgrad, and in the symmetric mode with the pool.
+     Numbers: each run's median step, its device busy share (trace of the
+     step on one packed batch), peak memory and launches; serving ms a
+     batch of 8 at 1024^2; the symmetric step's flow-warp backward (the
+     plain version's VJP, the only PyTorch backward on the path).
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -573,11 +595,12 @@ def linear_atlas(np, P, T, seed=5):
             ).astype(np.float32)
 
 
-def tiny_step_card_vs_cpu(torch, smoke, dev, work):
+def tiny_step_card_vs_cpu(torch, smoke, dev, work, extra=(), tag="tiny"):
     """One tiny float32 train step (all parts blended, SGD lr 1, TF32 off)
     on the CPU and on the card from the same weights: the losses and every
     parameter's change, which is its gradient (the warp's backward kernel
-    on the card, its plain version on the CPU)."""
+    on the card, its plain version on the CPU). ``extra``: more flags
+    (phase 10's options)."""
     import numpy as np
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
     from neural_human_video_rendering_tpu_torch.data import dataset as dsm
@@ -585,7 +608,7 @@ def tiny_step_card_vs_cpu(torch, smoke, dev, work):
         create_train_state
     from neural_human_video_rendering_tpu_torch.train.steps import \
         make_train_step
-    opt = TrainOptions().parse(TINY_TRAIN + [
+    opt = TrainOptions().parse(TINY_TRAIN + list(extra) + [
         "--gpu_ids", "0", "--checkpoints_dir", os.path.join(work, "ckpt"),
         "--name", "tiny"], save=False)
     syn = dsm.SyntheticDataset(opt, length=4, seed=opt.seed)
@@ -594,9 +617,10 @@ def tiny_step_card_vs_cpu(torch, smoke, dev, work):
     states = {name: create_train_state(opt, atlas, syn.background(), device=d)
               for name, d in (("cpu", torch.device("cpu")), ("card", dev))}
     cpu, card = states["cpu"], states["card"]
-    texg = cpu.renderer.TexG.GlobalGenerator_0
+    texg = cpu.renderer.TexG.backbone
+    head = texg.head if opt.netG == "local" else getattr(texg, texg.order[-1])
     with torch.no_grad():      # TexG's head at 0: the texture stays linear
-        getattr(texg, texg.order[-1]).Conv_0.weight.zero_()
+        head.Conv_0.weight.zero_()
     card.renderer.load_state_dict(cpu.renderer.state_dict())
     card.disc.load_state_dict(cpu.disc.state_dict())
     before = {"G": {k: v.clone() for k, v in cpu.renderer.state_dict().items()},
@@ -614,11 +638,14 @@ def tiny_step_card_vs_cpu(torch, smoke, dev, work):
     for k, ref in metrics["cpu"].items():
         rel = abs(metrics["card"][k] - ref) / max(abs(ref), 1e-12)
         worst = max(worst, rel)
-    smoke.check("tiny train step losses card vs cpu (relative)", worst,
+    smoke.require(f"{tag} train step: the same losses on both",
+                  sorted(metrics["cpu"]) == sorted(metrics["card"]),
+                  str(sorted(metrics["cpu"])))
+    smoke.check(f"{tag} train step losses card vs cpu (relative)", worst,
                 STEP_LOSS_RTOL)
-    for tag, mods in (("G", (cpu.renderer, card.renderer)),
-                      ("D", (cpu.disc, card.disc))):
-        b = before[tag]
+    for mod_tag, mods in (("G", (cpu.renderer, card.renderer)),
+                          ("D", (cpu.disc, card.disc))):
+        b = before[mod_tag]
         ref = {k: v - b[k] for k, v in mods[0].state_dict().items()}
         got = {k: v.cpu() - b[k] for k, v in mods[1].state_dict().items()}
         scale = max(float(d.abs().max()) for d in ref.values())
@@ -628,11 +655,11 @@ def tiny_step_card_vs_cpu(torch, smoke, dev, work):
             tol = STEP_SCALE_TOL * scale + STEP_TENSOR_TOL * float(d.abs().max())
             ratio = max(ratio, err / tol)
             err_scale = max(err_scale, err / scale)
-        print(f"[train] tiny step {tag} deltas card vs cpu: max err / "
+        print(f"[train] {tag} step {mod_tag} deltas card vs cpu: max err / "
               f"max|delta| {err_scale:.3e}, worst err / tol {ratio:.3f}",
               flush=True)
-        smoke.check(f"tiny train step {tag} deltas card vs cpu (err/tol)",
-                    ratio, 1.0)
+        smoke.check(f"{tag} train step {mod_tag} deltas card vs cpu "
+                    "(err/tol)", ratio, 1.0)
 
 
 def train_path(torch, smoke, tk, fk, repo, dev, smi):
@@ -775,11 +802,11 @@ def _atlas_png(path, atlas):
         f.write(encode_png(to_uint8(grid.reshape(4 * T, 6 * T, 3))))
 
 
-def write_corpus(opt, root):
-    """A real-format corpus of PIPE_FRAMES frames at 512 px from the port's
-    SyntheticDataset, in the reference layout: keypoint JSONs; frames,
-    masks and DensePose IUV as PNG; pairwise flow / flow_inv as .npy;
-    bg.png, texture.png and per-frame part textures."""
+def write_corpus(opt, root, n=None):
+    """A real-format corpus of n (PIPE_FRAMES) frames at 512 px from the
+    port's SyntheticDataset, in the reference layout: keypoint JSONs;
+    frames, masks and DensePose IUV as PNG; pairwise flow / flow_inv as
+    .npy; bg.png, texture.png and per-frame part textures."""
     import numpy as np
     from neural_human_video_rendering_tpu_torch.data.dataset import \
         SyntheticDataset
@@ -789,14 +816,15 @@ def write_corpus(opt, root):
         BODY25_TO_COCO18, write_keypoint_json)
     from neural_human_video_rendering_tpu_torch.utils.image import (
         encode_png, save_image, to_uint8)
+    n = n or PIPE_FRAMES
     shutil.rmtree(root, ignore_errors=True)
-    syn = SyntheticDataset(opt, length=PIPE_FRAMES, seed=opt.seed)
+    syn = SyntheticDataset(opt, length=n, seed=opt.seed)
     d = {k: os.path.join(root, k) for k in
          ("openpose_json", "frames", "mask", "densepose", "flow", "flow_inv",
           "part_texture")}
     for p in d.values():
         os.makedirs(p)
-    samples = [syn[i] for i in range(PIPE_FRAMES)]
+    samples = [syn[i] for i in range(n)]
     for i, s in enumerate(samples):
         body = np.zeros((25, 3), np.float32)
         body[BODY25_TO_COCO18] = s["joints"]
@@ -807,7 +835,7 @@ def write_corpus(opt, root):
             f.write(encode_png(to_uint8(s["mask"], assume_01=True)))
         with open(os.path.join(d["densepose"], f"frame{i:05d}.png"), "wb") as f:
             f.write(encode_png(encode_iuv(s["dp_parts"], s["dp_uv"])))
-        if i + 1 < PIPE_FRAMES:      # flow[j] maps frame j+1 back to frame j
+        if i + 1 < n:      # flow[j] maps frame j+1 back to frame j
             np.save(os.path.join(d["flow"], f"{i:05d}.npy"),
                     samples[i + 1]["flow"])
             np.save(os.path.join(d["flow_inv"], f"{i:05d}.npy"),
@@ -1845,6 +1873,422 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
     return {"per_train_step": per_step, "per_inference_batch": per_batch}
 
 
+# phase 10: every model and training option of the JAX package
+OPT_FRAMES = 6            # batch 2: 3 steps an epoch; stage 1 (batch 6): 1
+OPT_STEPS = 5             # each stage's steps: (d) crosses the unfreeze
+OPT_S, OPT_SERVE = 1024, 8
+OPT_SYM_S = 512           # the flagship's frames: the symmetric step's 2B
+# the recipe flags phase 10 replaces with its corpus and run dir
+RECIPE_PATHS = ("--name", "--checkpoints_dir", "--pose_path", "--mask_path",
+                "--img_path", "--densepose_path", "--bg_path",
+                "--texture_path", "--flow_path", "--flow_inv_path",
+                "--load_pretrain_TransG", "--which_epoch_TransG")
+# a stage-2 step of the flagship's kind (--temporal_prev real): the fused
+# forward keeping w, the backward, the flow warp, once each; the
+# symmetric step (--no_temporal_detach_prev) the same, its forward at 2B
+OPT_STEP_LAUNCHES = {**{k: 0 for k in REPLACES}, "texture_warp_topk_fwd": 1,
+                     "texture_warp_bwd": 1, "flow_warp_fwd": 1,
+                     "keep_w": 1, "no_w": 0}
+S2_KEYS = ["D_total", "G_FM", "G_GAN", "G_L2", "G_Mask", "G_Prob", "G_Temp",
+           "G_UV", "G_VGG", "G_total"]
+
+
+def recipe_argv(repo, run, drop=()):
+    """A recipe's own flags (checkpoints/<run>/recipe.json), without its
+    paths and without the flags in ``drop``."""
+    with open(os.path.join(repo, "checkpoints", run, "recipe.json")) as f:
+        argv = json.load(f)["argv"][1:]
+    out, i = [], 0
+    while i < len(argv):
+        if argv[i] in RECIPE_PATHS:
+            i += 2
+            continue
+        if argv[i] not in drop:
+            out.append(argv[i])
+        i += 1
+    return out
+
+
+def options_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 10: the model and training options of the JAX package at full
+    width, through the drivers' functions (OPT_STEPS steps a stage) on a
+    real-format corpus of OPT_FRAMES frames: (a) r4's uv_uvr -> e2e_uvr
+    (--uv_refine 3, the TransG handoff); (b) r5's uv_msuv -> e2e_msuv with
+    --lambda_UVgrad 500; (c) the flagship with --temporal_prev fake
+    --no_temporal_detach_prev --pool_size 50, flip, --resize_or_crop
+    resize_and_crop --loadSize 576 --fineSize 512; (d) pix2pixHD's 1024 px
+    setting (--netG local --ngf 32 --loadSize 1024: the trunk is the
+    flagship's 64-wide TransG at 512 px) with --niter_fix_global 1 across
+    the unfreeze, then serving at batch 8. Checks: finite losses, JAX's
+    loss keys, the launches per step, the trunk frozen then moving, the
+    kernels against their plain versions at 1024^2 and at 2B, tiny steps
+    card vs CPU with the options. Returns the launches and numbers."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import (TestOptions,
+                                                               TrainOptions)
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
+    from neural_human_video_rendering_tpu_torch.train import drivers
+    from neural_human_video_rendering_tpu_torch.train.steps import (
+        make_forward_fn, make_train_step)
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "options")
+    shutil.rmtree(work, ignore_errors=True)
+    corpus, ck = os.path.join(work, "corpus"), os.path.join(work, "ckpt")
+    t = time.perf_counter()
+    d = write_corpus(TrainOptions().parse(TRAIN, save=False), corpus,
+                     OPT_FRAMES)
+    print(f"[options] corpus of {OPT_FRAMES} frames at 512 px in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    data = ["--pose_path", d["openpose_json"], "--mask_path", d["mask"],
+            "--densepose_path", d["densepose"], "--checkpoints_dir", ck,
+            "--gpu_ids", "0", "--seed", "0", "--print_freq", "1",
+            "--display_freq", "10000", "--save_epoch_freq", "10000"]
+    s2 = data + ["--img_path", d["frames"], "--flow_path", d["flow"],
+                 "--flow_inv_path", d["flow_inv"], "--bg_path",
+                 os.path.join(corpus, "bg.png"), "--texture_path",
+                 os.path.join(corpus, "texture.png"), "--data_ratio", "1.0",
+                 "--save_latest_freq", "0"]
+    none = {k: 0 for k in REPLACES}
+
+    # the fused forward's modes by a spy on the dispatcher's call; each
+    # stage-2 step's batch keys and an after-step hook by one on the step
+    fused = ttw.texture_warp_topk_fwd
+    modes = {"keep_w": 0, "no_w": 0}
+
+    def spy(*args, return_w=False, **kw):
+        modes["keep_w" if return_w else "no_w"] += 1
+        return fused(*args, return_w=return_w, **kw)
+
+    make = drivers.make_train_step
+    hooks = {"keys": set(), "after": None}
+
+    def spy_make(*args):
+        step = make(*args)
+
+        def wrapped(st, batch, mark=None):
+            hooks["keys"].update(batch)
+            out = step(st, batch, mark)
+            if hooks["after"] is not None:
+                hooks["after"](st)
+            return out
+        return wrapped
+
+    runs = {}
+
+    def run(name, fn, argv):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        modes.update(keep_w=0, no_w=0)
+        hooks["keys"] = set()
+        opt = TrainOptions().parse(argv + ["--name", name], save=False)
+        t = time.perf_counter()
+        st = fn(opt, max_steps=OPT_STEPS)
+        torch.cuda.synchronize()
+        times = sorted(st.step_seconds)
+        med = times[len(times) // 2] * 1e3
+        losses = {k: float(v) for k, v in st.metrics.items()}
+        runs[name] = {"steps": st.step, "ms_median": med,
+                      "ms_steps": [x * 1e3 for x in st.step_seconds],
+                      "wall_s": time.perf_counter() - t,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": {**launch_counts(), **modes},
+                      "losses": losses}
+        print(f"[options] {name}: {json.dumps(runs[name])} | {smi}",
+              flush=True)
+        smoke.require(f"{name}: {OPT_STEPS} steps, finite losses",
+                      st.step == OPT_STEPS and all(
+                          np.isfinite(v) for v in losses.values()),
+                      json.dumps(losses))
+        return st, opt
+
+    def stage2_numbers(name, st, opt, per_step):
+        """The launches a step, then the step on one packed batch of the
+        run's data: its median ms and the device's busy share (trace)."""
+        got = runs[name]["launches"]
+        smoke.require(f"{name}: launches per step {json.dumps(per_step)}",
+                      got == {k: v * OPT_STEPS for k, v in per_step.items()},
+                      json.dumps(got))
+        ds = drivers._dataset(opt, "train")
+        batch = pack_batch(dsm.collate([ds[0], ds[1]]))
+        step = make(opt, st.renderer, st.disc, st.vgg, st.g_opt, st.d_opt)
+        fixed = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(st, batch)
+            torch.cuda.synchronize()
+            fixed.append(time.perf_counter() - t)
+        fixed_ms = sorted(fixed[1:])[1] * 1e3
+        trace = trace_forward(torch, lambda: step(st, batch), iters=2, top=5)
+        runs[name].update(
+            fixed_batch_ms_median=fixed_ms,
+            device_busy_ms=trace["device_busy_ms_per_call"],
+            device_busy_share=trace["device_busy_ms_per_call"] / fixed_ms,
+            port_kernels_ms=trace["port_kernels_ms_per_call"],
+            top_kernels_ms=trace["top_kernels_ms_per_call"])
+        print(f"[options] {name}: {json.dumps(runs[name])} | {smi}",
+              flush=True)
+
+    ttw.texture_warp_topk_fwd = spy
+    drivers.make_train_step = spy_make
+    try:
+        # ---- (a) r4 uv_uvr -> e2e_uvr: --uv_refine 3, the TransG handoff
+        st, _ = run("a_uv_uvr", drivers.run_pretrain_uv,
+                    recipe_argv(repo, "r4/uv_uvr") + data
+                    + ["--save_latest_freq", str(OPT_STEPS)])
+        smoke.require("a_uv_uvr: JAX's losses, the refine stack, no kernel",
+                      sorted(st.metrics) == ["Prob", "UV", "total"]
+                      and hasattr(st.net, "refine_block2")
+                      and runs["a_uv_uvr"]["launches"] == {
+                          **none, "keep_w": 0, "no_w": 0})
+        uv_a = {k: v.cpu() for k, v in st.net.state_dict().items()}
+        del st
+        st, opt = run("a_e2e_uvr", drivers.run_train,
+                      recipe_argv(repo, "r4/e2e_uvr") + s2 + [
+                          "--load_pretrain_TransG",
+                          os.path.join(ck, "a_uv_uvr"),
+                          "--which_epoch_TransG", "latest"])
+        smoke.require("a_e2e_uvr: JAX's loss keys", sorted(st.metrics)
+                      == S2_KEYS, str(sorted(st.metrics)))
+        smoke.require("a_e2e_uvr: the handoff loaded stage 1's TransG "
+                      "(its refine stack included)",
+                      set(uv_a) == set(st.renderer.TransG.state_dict())
+                      and any(k.startswith("refine_") for k in uv_a))
+        stage2_numbers("a_e2e_uvr", st, opt, OPT_STEP_LAUNCHES)
+        del st, uv_a
+
+        # ---- (b) r5 uv_msuv -> e2e_msuv, with r4's --lambda_UVgrad 500
+        st, _ = run("b_uv_msuv", drivers.run_pretrain_uv,
+                    recipe_argv(repo, "r5/uv_msuv") + data
+                    + ["--lambda_UVgrad", "500",
+                       "--save_latest_freq", str(OPT_STEPS)])
+        smoke.require("b_uv_msuv: JAX's losses (UVgrad, MSUV)",
+                      sorted(st.metrics) == ["MSUV", "Prob", "UV", "UVgrad",
+                                             "total"], str(sorted(st.metrics)))
+        del st
+        st, opt = run("b_e2e_msuv", drivers.run_train,
+                      recipe_argv(repo, "r5/e2e_msuv") + s2 + [
+                          "--lambda_UVgrad", "500", "--load_pretrain_TransG",
+                          os.path.join(ck, "b_uv_msuv"),
+                          "--which_epoch_TransG", "latest"])
+        smoke.require("b_e2e_msuv: JAX's loss keys (G_UVgrad, G_MSUV)",
+                      sorted(st.metrics) == sorted(S2_KEYS + ["G_MSUV",
+                                                              "G_UVgrad"]),
+                      str(sorted(st.metrics)))
+        stage2_numbers("b_e2e_msuv", st, opt, OPT_STEP_LAUNCHES)
+        del st
+
+        # ---- (c) the flagship, symmetric temporal mode, pool, flip, crop
+        st, opt = run("c_symmetric", drivers.run_train,
+                      recipe_argv(repo, "flagship", drop=("--no_flip",)) + s2
+                      + ["--temporal_prev", "fake",
+                         "--no_temporal_detach_prev", "--pool_size", "50",
+                         "--resize_or_crop", "resize_and_crop",
+                         "--loadSize", "576", "--fineSize", "512"])
+        smoke.require("c_symmetric: JAX's loss keys", sorted(st.metrics)
+                      == S2_KEYS, str(sorted(st.metrics)))
+        smoke.require("c_symmetric: crop windows of the background in the "
+                      "batch, flip on, the pool filled by 2 a step",
+                      "bg" in hooks["keys"] and not opt.no_flip
+                      and int(st.pool_n) == 2 * OPT_STEPS
+                      and tuple(st.bg.shape[1:]) == (512, 512),
+                      f"({sorted(hooks['keys'])}, pool {int(st.pool_n)})")
+        stage2_numbers("c_symmetric", st, opt, OPT_STEP_LAUNCHES)
+        # the symmetric step's only PyTorch backward on the path: the flow
+        # warp's (the plain version's VJP, as the JAX package's)
+        img, flow = flow_inputs(torch, 2, opt.train_size, 5, dev)
+        img.requires_grad_()
+        g = torch.randn_like(img)
+        runs["c_symmetric"]["flow_warp_bwd_ms"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(
+                fk.flow_warp_fwd_plain(img, flow), img, g), iters=10)
+        print(f"[options] flow warp backward (plain VJP, B=2, C=5, "
+              f"{opt.train_size}^2): {runs['c_symmetric']['flow_warp_bwd_ms']:.4f}"
+              f" ms | {smi}", flush=True)
+        del st, img, flow, g
+
+        # ---- (d) pix2pixHD's 1024 px: --netG local, the trunk frozen for
+        # the first epoch (3 steps), then moving
+        frozen = {"trunk": [], "enh": []}
+        ref = {}
+
+        def split(st):
+            trunk, enh = {}, {}
+            for k, v in st.renderer.named_parameters():
+                if "global_trunk" in k.split("."):
+                    trunk[k] = v
+                elif ".LocalEnhancer_0." in k:
+                    enh[k] = v
+            return trunk, enh
+
+        def after(st):
+            trunk, enh = split(st)
+            frozen["trunk"].append(all(torch.equal(v, ref["trunk"][k])
+                                       for k, v in trunk.items()))
+            frozen["enh"].append(all(torch.equal(v, ref["enh"][k])
+                                     for k, v in enh.items()))
+
+        def first(st):
+            # the state before its first step: run_train's own init
+            trunk, enh = split(st)
+            ref["trunk"] = {k: v.detach().clone() for k, v in trunk.items()}
+            ref["enh"] = {k: v.detach().clone() for k, v in enh.items()}
+
+        orig = drivers.run_training
+
+        def run_training(opt, loader, step, st, *args, **kw):
+            first(st)
+            return orig(opt, loader, step, st, *args, **kw)
+
+        hooks["after"] = after
+        drivers.run_training = run_training
+        try:
+            d_flags = recipe_argv(repo, "flagship") + s2 + [
+                "--netG", "local", "--ngf", "32", "--loadSize", str(OPT_S),
+                "--niter_fix_global", "1"]
+            st, opt = run("d_local_1024", drivers.run_train, d_flags)
+        finally:
+            drivers.run_training = orig
+            hooks["after"] = None
+        spe = OPT_FRAMES // opt.batchSize
+        smoke.require("d_local_1024: JAX's loss keys", sorted(st.metrics)
+                      == S2_KEYS, str(sorted(st.metrics)))
+        smoke.require(
+            f"d_local_1024: every global_trunk parameter bit-equal for the "
+            f"first {spe} steps, moved after; the enhancers moved from step 1",
+            frozen["trunk"] == [True] * spe + [False] * (OPT_STEPS - spe)
+            and frozen["enh"] == [False] * OPT_STEPS
+            and st.g_opt.frozen_steps == spe and len(ref["trunk"]) > 0,
+            json.dumps(frozen))
+        runs["d_local_1024"]["trunk_frozen_by_step"] = frozen["trunk"]
+        runs["d_local_1024"]["trunk_parameters"] = sum(
+            v.numel() for v in ref["trunk"].values())
+        del ref
+        stage2_numbers("d_local_1024", st, opt, OPT_STEP_LAUNCHES)
+        del st
+    finally:
+        ttw.texture_warp_topk_fwd = fused
+        drivers.make_train_step = make
+
+    # ---- (d) serving at batch 8, 1024^2 (random weights from --seed)
+    torch.cuda.empty_cache()
+    topt = TestOptions().parse(
+        recipe_argv(repo, "flagship") + [
+            "--netG", "local", "--ngf", "32", "--loadSize", str(OPT_S),
+            "--pose_path", os.path.join(work, "kp"), "--results_dir",
+            os.path.join(work, "results"), "--checkpoints_dir", ck,
+            "--name", "serve", "--gpu_ids", "0", "--seed", "0",
+            "--infer_batch", str(OPT_SERVE)], save=False)
+    syn = write_driving_sequence(topt, os.path.join(work, "kp"),
+                                 2 * OPT_SERVE)
+    assets = (syn.texture_atlas(), syn.background())
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    n = td.run_inference(topt, assets=assets)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t
+    got = launch_counts()
+    smoke.require(f"serving at {OPT_S}^2: {2 * OPT_SERVE} frames, the fused "
+                  "forward once a batch, no other kernel",
+                  n == 2 * OPT_SERVE and got == {
+                      **none, "texture_warp_topk_fwd": 2}, str(got))
+    renderer = td.build_renderer(topt, dev)
+    fwd = make_forward_fn(topt, renderer)
+    dev_assets = td.assets_to_device(topt, *assets, dev)
+    jb = torch.from_numpy(syn.joints[:OPT_SERVE].astype(np.float32)).to(dev)
+    out = fwd(dev_assets, jb)
+    smoke.require(f"serving: fake ({OPT_SERVE}, 3, {OPT_S}, {OPT_S}), finite",
+                  tuple(out["fake"].shape) == (OPT_SERVE, 3, OPT_S, OPT_S)
+                  and bool(torch.isfinite(out["fake"]).all()))
+    del out
+    serve_ms = cuda_ms(torch, lambda: fwd(dev_assets, jb), iters=5,
+                       warmup=2)
+    trace = trace_forward(torch, lambda: fwd(dev_assets, jb), iters=2, top=5)
+    runs["d_serving_1024"] = {
+        "batch": OPT_SERVE, "ms_per_batch": serve_ms,
+        "fps": OPT_SERVE * 1e3 / serve_ms,
+        "run_inference_wall_s": serve_wall,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": got, "device_busy_ms": trace["device_busy_ms_per_call"],
+        "device_busy_share": trace["device_busy_ms_per_call"] / serve_ms,
+        "port_kernels_ms": trace["port_kernels_ms_per_call"]}
+    print(f"[options] d_serving_1024: {json.dumps(runs['d_serving_1024'])} | "
+          f"{smi}", flush=True)
+    del renderer, fwd, dev_assets, jb
+
+    # ---- the kernels against their plain versions at this phase's shapes
+    P, T, K, EPS = 24, 64, 4, 1e-3
+    S = OPT_S
+    numbers = {}
+    errs = {}
+    for b, seed in ((OPT_SERVE, 21), (2, 22)):
+        tex, uv, probs = warp_inputs(torch, b, P, S, S, T, seed, dev)
+        e, w = compare_kernels(torch, tk, smoke, f"B={b} {S}px", tex, uv,
+                               probs, K, 0, EPS)
+        errs[f"texture_warp_topk_fwd B={b} {S}px"] = \
+            e["texture_warp_topk_fwd"]
+        if b == 2:
+            errs[f"texture_warp_bwd B=2 {S}px"] = compare_bwd(
+                torch, tk, smoke, f"B=2 {S}px", tex, uv, probs, K, EPS)
+            numbers[f"B=2 {S}px keep w"] = kernel_numbers(
+                torch, tk, fk, tex, uv, probs, w, K, EPS,
+                ("texture_warp_topk_fwd", "texture_warp_bwd",
+                 "flow_warp_fwd"), flow=flow_inputs(torch, 2, S, 5, dev),
+                keep_w=True)
+        else:
+            numbers[f"B={b} {S}px serving"] = kernel_numbers(
+                torch, tk, fk, tex, uv, probs, w, K, EPS,
+                ("texture_warp_topk_fwd",))
+        del tex, uv, probs, w
+        torch.cuda.empty_cache()
+    # the symmetric step's 2B = 4 at 512^2, a texture per sample
+    tex, uv, probs = warp_inputs(torch, 4, P, OPT_SYM_S, OPT_SYM_S, T, 23,
+                                 dev)
+    tag = f"2B=4 {OPT_SYM_S}px"
+    e, w = compare_kernels(torch, tk, smoke, tag, tex, uv, probs, K, 0, EPS)
+    errs[f"texture_warp_topk_fwd {tag}"] = e["texture_warp_topk_fwd"]
+    errs[f"texture_warp_bwd {tag}"] = compare_bwd(
+        torch, tk, smoke, f"{tag} per-sample texture", tex, uv, probs, K,
+        EPS)
+    numbers[f"{tag} keep w"] = kernel_numbers(
+        torch, tk, fk, tex, uv, probs, w, K, EPS,
+        ("texture_warp_topk_fwd", "texture_warp_bwd"), keep_w=True)
+    del tex, uv, probs, w
+    img, flow = flow_inputs(torch, 2, S, 5, dev)
+    errs[f"flow_warp_fwd {S}px"] = smoke.check(
+        f"flow_warp_fwd C=5 {S}px", float(
+            (fk.flow_warp_fwd(img, flow)
+             - fk.flow_warp_fwd_plain(img, flow)).abs().max()), FLOW_TOL)
+    del img, flow
+    torch.cuda.empty_cache()
+
+    # ---- tiny steps card vs CPU with the options
+    for tag, extra in (
+            ("local+uv_refine", ["--netG", "local", "--n_blocks_local", "1",
+                                 "--uv_refine", "1", "--uv_refine_ngf", "8"]),
+            ("ms_uv+uv_refine+UVgrad", ["--ms_uv", "1", "--uv_refine", "1",
+                                        "--uv_refine_ngf", "8",
+                                        "--lambda_UVgrad", "100"]),
+            ("symmetric+pool", ["--temporal_prev", "fake",
+                                "--no_temporal_detach_prev",
+                                "--pool_size", "4"])):
+        tiny_step_card_vs_cpu(torch, smoke, dev, work, extra, tag)
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"options": {"runs": runs, "kernels": numbers,
+                                  "max_abs_err": errs, "phase_s": phase_s,
+                                  "card": smi}}), flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    return {"runs": runs, "kernels": numbers, "errs": errs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2137,6 +2581,8 @@ def main() -> int:
     launch_e2e = launchers_path(torch, smoke, tk, fk, repo, dev, smi)
     # ----------------------------------------------------------- 9. measure
     launch_bench = measure_path(torch, smoke, tk, fk, repo, dev, smi)
+    # ---------------------------------------------------------- 10. options
+    options = options_path(torch, smoke, tk, fk, repo, dev, smi)
 
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
@@ -2155,6 +2601,8 @@ def main() -> int:
                  "launches_pipeline_stage2_epoch": pipe["stage2_epoch"][name],
                  "launches_train_e2e_sh_epoch": launch_e2e[name],
                  "launches_bench": {k: v[name] for k, v in launch_bench.items()},
+                 "launches_options": {k: v["launches"][name]
+                                      for k, v in options["runs"].items()},
                  "max_abs_err": errs[name], **row, "card": smi}
         if name in serving:
             entry["launches_serving"] = launches[name]
@@ -2169,6 +2617,8 @@ def main() -> int:
             entry.update(rend_fwd)
         if name == "texture_warp_bwd":
             entry.update(rend_bwd)
+        entry["options_shapes"] = {k: v[name] for k, v in
+                                   options["kernels"].items() if name in v}
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "
                            "calls replayed (warm L2 where the inputs fit); "
                            "host_us: host clock per call, no sync")

@@ -131,8 +131,7 @@ def bench_options(tex_tile: int, warp_dtype: str, gpu_ids: str = "0",
         num_D=2, n_layers_D=3, ndf=64,
         lambda_L2=500, lambda_UV=1000, lambda_Prob=10, lambda_Temp=500,
         use_densepose_loss=True, dtype="bfloat16", warp_dtype=warp_dtype,
-        # SyntheticDataset never flips; the port's trainer refuses flip
-        no_flip=True, gpu_ids=gpu_ids)
+        gpu_ids=gpu_ids)
     for k in _SHAPE_KEYS:
         if k in (recipe_cfg or {}):
             setattr(opt, k, recipe_cfg[k])

@@ -141,10 +141,11 @@ class FrameDataset:
 
     Modalities are index-aligned by sorted filename within each directory
     (frameNNNNN.* across dirs). pose_path holds OpenPose keypoint JSONs
-    (rasterized on the device by the step) or pre-rendered pose images
-    (listed; the port's step refuses them). Augmentation: optional
-    horizontal flip (unless --no_flip) and random crop for the *_crop
-    resize modes; the port's trainer refuses both for now. All randomness
+    (rasterized on the device by the step) or pre-rendered pose images.
+    Augmentation: optional horizontal flip (unless --no_flip; the sample
+    carries ``bg_flip``, and the renderer mirrors the refined background)
+    and random crop for the *_crop resize modes (the sample carries its
+    window of the background, ``bg``). All randomness
     is a deterministic function of (opt.seed, epoch, frame index), so the
     decode order of --nThreads cannot change it; BatchLoader sets
     ``epoch`` before each epoch.

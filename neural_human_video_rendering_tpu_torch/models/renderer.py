@@ -4,9 +4,13 @@ Port of the JAX package's ``models/renderer.py``: TransG + TexG + the
 static texture atlas + the texture warp (the CUDA kernels of
 ``ops/texture_warp_kernel``) + BGNet + the soft-mask compositor, and with
 --instance_feat / --label_feat the encoder E (``FeatE``), whose features,
-averaged per predicted body part, join TexG's input. Parameters live
-under the ``TransG`` / ``TexG`` / ``BGNet`` / ``FeatE`` namespaces, as in
-the JAX package. Tensors are NCHW.
+averaged per predicted body part, join TexG's input. Every model option
+of the JAX package: --netG local (TransG and TexG as LocalEnhancers),
+--uv_refine, --ms_uv (``out["ms_aux"]``, train-time only; serving ignores
+it) and the per-sample mirrored background of flip augmentation
+(``bg_flip``). Parameters live under the ``TransG`` / ``TexG`` /
+``BGNet`` / ``FeatE`` namespaces, as in the JAX package. Tensors are
+NCHW.
 """
 
 from __future__ import annotations
@@ -35,19 +39,25 @@ class NeuralRenderer(nn.Module):
                  head_s2d: int = 1, bg_s2d: int = 1,
                  pad_mode: str = "reflect", upsample_mode: str = "deconv",
                  use_feat: bool = False, feat_num: int = 3, nef: int = 16,
-                 n_downsample_E: int = 4,
+                 n_downsample_E: int = 4, netG: str = "global",
+                 n_local_enhancers: int = 1, n_blocks_local: int = 3,
+                 uv_refine: int = 0, uv_refine_ngf: int = 64,
+                 refine_f: int = 2, ms_uv: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         conv = dict(pad_mode=pad_mode, upsample_mode=upsample_mode,
                     dtype=dtype)
+        gen = dict(netG=netG, n_local_enhancers=n_local_enhancers,
+                   n_blocks_local=n_blocks_local, stem_s2d=stem_s2d,
+                   head_s2d=head_s2d, **conv)
         self.TransG = TransG(pose_nc, n_parts, transg_ngf, transg_downs,
-                             transg_blocks, stem_s2d=stem_s2d,
-                             head_s2d=head_s2d, **conv)
+                             transg_blocks, uv_refine=uv_refine,
+                             uv_refine_ngf=uv_refine_ngf, refine_f=refine_f,
+                             ms_uv=ms_uv, **gen)
         # flax infers TexG's input width; here it is declared: the pose
         # labels, plus E's feat_num pooled channels under use_feat
         self.TexG = TexG(pose_nc + (feat_num if use_feat else 0), n_parts,
-                         tex_tile, texg_ngf, texg_downs, texg_blocks,
-                         stem_s2d=stem_s2d, head_s2d=head_s2d, **conv)
+                         tex_tile, texg_ngf, texg_downs, texg_blocks, **gen)
         self.BGNet = BGNet(32, bg_downs, bg_blocks, s2d=bg_s2d, **conv)
         self.use_feat = use_feat
         self.feat_num = feat_num
@@ -61,8 +71,9 @@ class NeuralRenderer(nn.Module):
                 static_tex: torch.Tensor,
                 tex_mask: Optional[torch.Tensor] = None,
                 feat_image: Optional[torch.Tensor] = None,
-                cluster_feats: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                cluster_feats: Optional[torch.Tensor] = None,
+                bg_flip: Optional[torch.Tensor] = None
+                ) -> Dict[str, object]:
         """Render one batch of frames.
 
         pose: (B, Cp, H, W) pose labels. bg: (B or 1, 3, H, W) static
@@ -78,13 +89,18 @@ class NeuralRenderer(nn.Module):
           * cluster_feats (P+1, feat_num) codes per part (inference with
             --load_features): the part one-hot times the codes;
           * neither: zero codes, and E does not run.
+        bg_flip: optional (B,) float flags of flip augmentation: a sample
+        with flag 1 composites against the refined background mirrored
+        along the width (a per-sample blend, so the batch-1 background
+        still runs BGNet once).
 
         Returns float32 NCHW tensors: fake, fg, mask (B, 1, H, W), probs
         (B, P+1, H, W), logits, uv (B, P, 2, H, W), texture
-        (B, P, 3, T, T), bg_refined.
+        (B, P, 3, T, T), bg_refined; with ms_uv also ms_aux, TransG's
+        ((logits_k, uv_k), ...) at the decoder's coarser resolutions.
         """
         B = pose.shape[0]
-        logits, uv = self.TransG(pose)
+        logits, uv, *ms_aux = self.TransG(pose)
         probs = torch.softmax(logits.float(), dim=1)
         texg_in = pose
         if self.use_feat:
@@ -98,11 +114,18 @@ class NeuralRenderer(nn.Module):
             texture = texture.expand(B, *texture.shape[1:])
         fg = texture_warp_planes(texture, uv, probs, **self.warp)
         bg_refined = self.BGNet(bg)
+        if bg_flip is not None:
+            flag = bg_flip.reshape(-1, 1, 1, 1).to(bg_refined.dtype)
+            bg_refined = (flag * bg_refined.flip(3)
+                          + (1.0 - flag) * bg_refined)
         mask = 1.0 - probs[:, :1]
         fake = mask * fg + (1.0 - mask) * bg_refined
-        return {"fake": fake, "fg": fg, "mask": mask, "probs": probs,
-                "logits": logits, "uv": uv, "texture": texture,
-                "bg_refined": bg_refined}
+        out = {"fake": fake, "fg": fg, "mask": mask, "probs": probs,
+               "logits": logits, "uv": uv, "texture": texture,
+               "bg_refined": bg_refined}
+        if ms_aux:
+            out["ms_aux"] = ms_aux[0]
+        return out
 
     def _codes(self, probs: torch.Tensor, feat_image, cluster_feats
                ) -> torch.Tensor:
@@ -118,20 +141,9 @@ class NeuralRenderer(nn.Module):
         return torch.einsum("bchw,cf->bfhw", onehot, codes)
 
 
-def check_serving_options(opt) -> None:
-    """Raise on options whose modules this port does not have yet."""
-    later = {"netG local": opt.netG != "global", "uv_refine": opt.uv_refine,
-             "ms_uv": opt.ms_uv}
-    asked = [k for k, v in later.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"the PyTorch port does not support {', '.join(asked)} yet")
-
-
 def renderer_from_options(opt) -> NeuralRenderer:
     """The flagship model from the reference-compatible Options (on the
     meta device: call init_params, then move it)."""
-    check_serving_options(opt)
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
     with torch.device("meta"):
         return NeuralRenderer(
@@ -147,7 +159,12 @@ def renderer_from_options(opt) -> NeuralRenderer:
             pad_mode=opt.pad_mode, upsample_mode=opt.upsample_mode,
             use_feat=opt.instance_feat or opt.label_feat,
             feat_num=opt.feat_num, nef=opt.nef,
-            n_downsample_E=opt.n_downsample_E, dtype=dtype)
+            n_downsample_E=opt.n_downsample_E, netG=opt.netG,
+            n_local_enhancers=opt.n_local_enhancers,
+            n_blocks_local=opt.n_blocks_local, uv_refine=opt.uv_refine,
+            uv_refine_ngf=opt.uv_refine_ngf,
+            refine_f=2 if opt.train_size % 2 == 0 else 1, ms_uv=opt.ms_uv,
+            dtype=dtype)
 
 
 def init_params(model: nn.Module, seed: int) -> nn.Module:

@@ -91,9 +91,11 @@ def reset_launch_counts() -> None:
 
 class FlowWarp(torch.autograd.Function):
     """Differentiable flow warp: the kernel forward, the plain version's
-    VJP recomputed for the backward. In the flagship train step the
-    backward never runs (the t-1 frame and the flow are data, or a
-    detached render); the symmetric temporal mode would need it."""
+    VJP recomputed for the backward (as the JAX package takes the XLA VJP
+    of its reference: it has no backward kernel). In the flagship train
+    step the backward never runs (the t-1 frame and the flow are data, or
+    a detached render); the symmetric temporal mode
+    (--no_temporal_detach_prev) runs it, for the t-1 render's gradient."""
 
     @staticmethod
     def forward(ctx, img, flow):

@@ -30,16 +30,15 @@ import torch
 from ..config import TrainOptions, resolve_device
 from ..data import dataset as dsm
 from ..data.wire import pack_batch, unpack_batch
-from ..models.generators import TexG, TransG
-from ..models.renderer import init_params
+from ..models.generators import TexG
+from ..models.renderer import init_params, renderer_from_options
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import psnr, ssim
 from ..utils.visualizer import prune_metrics_after
 from .loop import run_training
-from .state import (PretrainState, check_pretrain_options, check_train_options,
-                    create_train_state, make_optimizer, to_nchw)
+from .state import PretrainState, create_train_state, make_optimizer, to_nchw
 from .steps import (make_pretrain_tex_step, make_pretrain_uv_step,
                     make_train_step, pose_from_batch)
 
@@ -236,8 +235,8 @@ def run_train(opt, epochs: Optional[int] = None,
               max_steps: Optional[int] = None):
     """Stage-2 end-to-end training on --gpu_ids (the card unless -1) for
     niter (+ niter_decay) epochs, or ``epochs``, or ``max_steps`` steps.
-    Returns the TrainState."""
-    check_train_options(opt)
+    The epoch length reaches the optimizers (the LR schedule and
+    --niter_fix_global's freeze). Returns the TrainState."""
     device = resolve_device(opt.gpu_ids)
     torch.manual_seed(opt.seed)
     ds = _dataset(opt, "train")
@@ -298,13 +297,6 @@ def kernel_launches() -> dict:
 # stage 1 and the texture pretrain: one generator each
 # ----------------------------------------------------------------------
 
-def _conv_kw(opt) -> dict:
-    return dict(stem_s2d=opt.stem_s2d, head_s2d=opt.head_s2d,
-                pad_mode=opt.pad_mode, upsample_mode=opt.upsample_mode,
-                dtype=torch.bfloat16 if opt.dtype == "bfloat16"
-                else torch.float32)
-
-
 def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
                     epochs: Optional[int], max_steps: Optional[int]):
     """The pretrain stages' driver: resume the net from --name's run dir
@@ -333,7 +325,7 @@ def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
         else:
             _refuse_jax_resume(run_dir, label)
     state = PretrainState(step=0, net=net, device=device,
-                          optimizer=make_optimizer(opt, net.parameters(),
+                          optimizer=make_optimizer(opt, net.named_parameters(),
                                                    len(loader)))
 
     def save_fn(st, epoch, completed=None):
@@ -352,14 +344,10 @@ def run_pretrain_uv(opt, epochs: Optional[int] = None,
                     max_steps: Optional[int] = None) -> PretrainState:
     """Stage 1: person-agnostic TransG pretrain on DensePose pseudo-GT
     (pre_train.py) for --niter epochs; saves {epoch}_net_TransG."""
-    check_pretrain_options(opt)
     torch.manual_seed(opt.seed)
-    with torch.device("meta"):
-        transg = TransG(opt.pose_nc, opt.n_parts, opt.ngf,
-                        opt.n_downsample_translate, opt.n_blocks_translate,
-                        **_conv_kw(opt))
     return _run_single_net(
-        opt, "TransG", _dataset(opt, "train"), transg,
+        opt, "TransG", _dataset(opt, "train"),
+        renderer_from_options(opt).TransG,          # stage 2's TransG
         lambda st: make_pretrain_uv_step(opt, st.net, st.optimizer),
         epochs, max_steps)
 
@@ -368,7 +356,9 @@ class _TexDataset:
     """A base dataset with each sample's part-texture GT: the atlas image
     of --part_texture_path for the frame (and of --pose_texture_path where
     given); without that directory, the static atlas plus a deterministic
-    wave."""
+    wave. The base sample's flip and crop (its pose, and the bg window or
+    mirror flag the step does not read) pass through; the part textures
+    live in atlas space and stay as they are, as in the JAX package."""
 
     def __init__(self, opt, base):
         self.opt = opt
@@ -420,7 +410,6 @@ def run_pretrain_tex(opt, epochs: Optional[int] = None,
                      max_steps: Optional[int] = None) -> PretrainState:
     """Texture pretrain: TexG against per-frame part textures
     (pre_train_tex.py) for --niter epochs; saves {epoch}_net_TexG."""
-    check_pretrain_options(opt)
     torch.manual_seed(opt.seed)
     base = _dataset(opt, "train")
     tex, _ = _assets(opt, base)
@@ -430,7 +419,12 @@ def run_pretrain_tex(opt, epochs: Optional[int] = None,
     with torch.device("meta"):
         texg = TexG(opt.pose_nc, opt.n_parts, opt.tex_tile, opt.ngf_global,
                     opt.n_downsample_global, opt.n_blocks_global,
-                    **_conv_kw(opt))
+                    netG=opt.netG, n_local_enhancers=opt.n_local_enhancers,
+                    n_blocks_local=opt.n_blocks_local, stem_s2d=opt.stem_s2d,
+                    head_s2d=opt.head_s2d, pad_mode=opt.pad_mode,
+                    upsample_mode=opt.upsample_mode,
+                    dtype=torch.bfloat16 if opt.dtype == "bfloat16"
+                    else torch.float32)
     return _run_single_net(
         opt, "TexG", _TexDataset(opt, base), texg,
         lambda st: make_pretrain_tex_step(opt, st.net, st.optimizer,

@@ -5,8 +5,9 @@ The JAX package threads one immutable pytree through a jitted step; the
 port keeps the same pieces in a mutable ``TrainState`` that the step
 updates in place: the step count, the renderer (G) and the multiscale
 discriminator (D) as modules, their two optimizers, the frozen VGG of the
-perceptual loss, the EMA copy of G's parameters, and the per-identity
-assets (static atlas, background, texel mask).
+perceptual loss, the EMA copy of G's parameters, the per-identity assets
+(static atlas, background, texel mask) and the image pool of --pool_size
+(``train/image_pool.py``) with its generator.
 """
 
 from __future__ import annotations
@@ -41,44 +42,15 @@ class TrainState:
     metrics: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # the epoch this run started at (> 1 after a --continue_train resume)
     start_epoch: int = 1
+    # the image pool (--pool_size > 0): (K + 1, pose_nc + 3, S, S) history
+    # and sink row, the () int64 count of valid entries, its generator
+    pool_buf: Optional[torch.Tensor] = None
+    pool_n: Optional[torch.Tensor] = None
+    pool_gen: Optional[torch.Generator] = None
 
     @property
     def device(self) -> torch.device:
         return self.static_tex.device
-
-
-def check_train_options(opt) -> None:
-    """Raise NotImplementedError on what the port's stage-2 training does
-    not carry yet (the renderer refuses its own unported options)."""
-    later = {
-        "--no_temporal_detach_prev (symmetric temporal gradient)":
-            not opt.temporal_detach_prev,
-        "--pool_size > 0 (image pool)": opt.pool_size > 0,
-        "flip augmentation and bg_flip (pass --no_flip)": not opt.no_flip,
-        "crop modes (--resize_or_crop *crop)": "crop" in opt.resize_or_crop,
-        "--lambda_UVgrad > 0": opt.lambda_UVgrad > 0,
-    }
-    asked = [k for k, v in later.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"the PyTorch port's training does not support {', '.join(asked)}"
-            " yet")
-
-
-def check_pretrain_options(opt) -> None:
-    """Raise NotImplementedError on what the port's pretrain stages do not
-    carry yet."""
-    later = {"--lambda_UVgrad > 0": opt.lambda_UVgrad > 0,
-             "--ms_uv": opt.ms_uv > 0, "--uv_refine": opt.uv_refine > 0,
-             "--netG local": opt.netG != "global",
-             "flip augmentation (pass --no_flip)": not opt.no_flip,
-             "crop modes (--resize_or_crop *crop)":
-                 "crop" in opt.resize_or_crop}
-    asked = [k for k, v in later.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"the PyTorch port's pretraining does not support "
-            f"{', '.join(asked)} yet")
 
 
 @dataclasses.dataclass
@@ -109,17 +81,35 @@ class ScheduledAdam(torch.optim.Adam):
     """torch.optim.Adam (eps 1e-8 added to the bias-corrected sqrt(v), as
     optax.adam) whose learning rate follows ``schedule`` of its own update
     count, the schedule living in the optimizer as it does in an optax
-    transformation."""
+    transformation.
 
-    def __init__(self, params, lr: float, betas, schedule: Callable):
+    ``frozen`` parameters get zero gradients for the first
+    ``frozen_steps`` updates (the JAX package's freeze_scope_until ahead
+    of Adam): zero, not None, so their Adam step counts advance with the
+    others as optax's one shared count does, their moments stay 0 and
+    they do not move; the bias correction after the unfreeze is optax's.
+    The gate reads the update count, which a resume restores (or
+    fast-forwards to the saved step: utils/checkpoint), so it is the
+    train state's step."""
+
+    def __init__(self, params, lr: float, betas, schedule: Callable,
+                 frozen=(), frozen_steps: int = 0):
         super().__init__(params, lr=lr, betas=betas, eps=1e-8)
         self.base_lr = lr
         self.schedule = schedule
         self.count = 0
+        self.frozen = list(frozen)
+        self.frozen_steps = frozen_steps
 
     def step(self, closure=None):
         for group in self.param_groups:
             group["lr"] = self.base_lr * self.schedule(self.count)
+        if self.count < self.frozen_steps:
+            for p in self.frozen:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                else:
+                    p.grad.zero_()
         loss = super().step(closure)
         self.count += 1
         return loss
@@ -137,10 +127,26 @@ class ScheduledAdam(torch.optim.Adam):
         self.count = count
 
 
+FREEZE_SCOPE = "global_trunk"
+
+
 def make_optimizer(opt, params, steps_per_epoch: int = 0) -> ScheduledAdam:
-    """Adam(lr, beta1, beta2) with pix2pixHD's LR schedule."""
+    """Adam(lr, beta1, beta2) with pix2pixHD's LR schedule. ``params``:
+    parameters, or (name, parameter) pairs (``named_parameters()``); with
+    names, --netG local, --niter_fix_global > 0 and a known epoch length,
+    every parameter with a name component equal to ``global_trunk`` (an
+    exact component, not a substring) is frozen for niter_fix_global
+    epochs (pix2pixHD trains only the enhancer branches first)."""
+    params = list(params)
+    frozen, steps = [], 0
+    if params and isinstance(params[0], tuple):
+        if (opt.niter_fix_global > 0 and opt.netG == "local"
+                and steps_per_epoch > 0):
+            frozen = [p for n, p in params if FREEZE_SCOPE in n.split(".")]
+            steps = opt.niter_fix_global * steps_per_epoch
+        params = [p for _, p in params]
     return ScheduledAdam(params, opt.lr, (opt.beta1, opt.beta2),
-                         lr_schedule(opt, steps_per_epoch))
+                         lr_schedule(opt, steps_per_epoch), frozen, steps)
 
 
 def to_nchw(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
@@ -160,9 +166,9 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
     encoder E is part of G: of its parameters, its EMA and its Adam
     state, as in the JAX package), and the assets: static_tex
     (P, T, T, 3) and bg (S, S, 3) in [-1, 1], tex_mask (P, T, T, 1), as the
-    JAX package's create_train_state takes them. ``device`` defaults to
-    --gpu_ids."""
-    check_train_options(opt)
+    JAX package's create_train_state takes them. With --pool_size the
+    empty image pool and its generator (seeded from --seed) on the
+    device. ``device`` defaults to --gpu_ids."""
     dev = device if device is not None else resolve_device(opt.gpu_ids)
     renderer = init_params(renderer_from_options(opt), opt.seed).to(dev)
     disc = init_params(discriminator_from_options(opt), opt.seed + 1).to(dev)
@@ -175,10 +181,19 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
     if opt.ema_decay > 0:
         g_ema = {k: v.detach().clone()
                  for k, v in renderer.named_parameters()}
+    pool = {}
+    if opt.pool_size > 0:
+        S = opt.train_size
+        pool = dict(
+            pool_buf=torch.zeros((opt.pool_size + 1, opt.pose_nc + 3, S, S),
+                                 dtype=torch.float32, device=dev),
+            pool_n=torch.zeros((), dtype=torch.int64, device=dev),
+            pool_gen=torch.Generator(device=dev).manual_seed(opt.seed + 3))
     return TrainState(
         step=0, renderer=renderer.train(), disc=disc.train(), vgg=vgg,
-        g_opt=make_optimizer(opt, renderer.parameters(), steps_per_epoch),
-        d_opt=make_optimizer(opt, disc.parameters(), steps_per_epoch),
+        g_opt=make_optimizer(opt, renderer.named_parameters(),
+                             steps_per_epoch),
+        d_opt=make_optimizer(opt, disc.named_parameters(), steps_per_epoch),
         static_tex=to_nchw(static_tex, dev), bg=to_nchw(bg, dev),
         tex_mask=to_nchw(tex_mask, dev),
-        g_ema=g_ema)
+        g_ema=g_ema, **pool)

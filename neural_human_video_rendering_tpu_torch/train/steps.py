@@ -17,6 +17,7 @@ import torch
 from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
 from ..data.wire import unpack_batch
+from .image_pool import pool_draws, pool_update
 
 
 def build_pose_input(opt, joints: torch.Tensor,
@@ -125,6 +126,16 @@ def ema_blend(g_ema: Dict[str, torch.Tensor], renderer: torch.nn.Module,
     torch._foreach_add_(e, p, alpha=float(np.float32(1.0) - np.float32(d)))
 
 
+def _slice_outs(outs, n: int):
+    """The first n samples of every tensor of a renderer output dict (the
+    ms_aux pairs included)."""
+    if isinstance(outs, dict):
+        return {k: _slice_outs(v, n) for k, v in outs.items()}
+    if isinstance(outs, (tuple, list)):
+        return type(outs)(_slice_outs(v, n) for v in outs)
+    return outs[:n]
+
+
 def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
     """The stage-2 end-to-end G + D train step.
 
@@ -138,20 +149,31 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
       * D's loss sees the fake detached and the OLD D parameters;
       * both optimizers step after both backwards, then the EMA blends
         with the step count before the increment.
+    Temporal modes: --temporal_prev real flow-warps the real t-1 frame;
     --temporal_prev fake renders frame t-1 a second time under no_grad
-    (temporal_detach_prev); --temporal_prev real flow-warps the real t-1
-    frame. ``mark(name)``, when given, is called at the end of each phase
-    (inputs: the upload and the pose input; prev_render; g_forward;
-    d_for_g; vgg; g_losses; g_backward; d_step; update) so a caller can
-    time the phases. Under --instance_feat the renderer encodes the real
-    frame t (and, for the t-1 render, the real frame t-1: image_prev).
+    (temporal_detach_prev), or, with --no_temporal_detach_prev, renders t
+    and t-1 in ONE forward of the 2B batch [t ; t-1], so the temporal
+    loss pulls both frames (D sees frame t only). A crop-mode batch brings
+    each sample's background window (``bg``; tiled to 2B in the symmetric
+    mode), a flip batch its mirror flags (``bg_flip``), which the renderer
+    applies to the refined background. --lambda_UVgrad adds G_UVgrad,
+    --ms_uv G_MSUV (the aux heads against the subsampled pseudo-GT,
+    without the mask, weighted lambda_MS against the UV and CE weights).
+    --pool_size > 0 passes D's fake input through the image pool of the
+    state (``train/image_pool.py``). ``mark(name)``, when given, is
+    called at the end of each phase (inputs: the upload and the pose
+    input; prev_render; g_forward; d_for_g; vgg; g_losses; g_backward;
+    d_step; update) so a caller can time the phases. Under
+    --instance_feat the renderer encodes the real frame t (and, for the
+    t-1 render, the real frame t-1: image_prev).
     """
     use_temporal = opt.lambda_Temp > 0
     use_vgg = (not opt.no_vgg_loss) and vgg is not None
     use_fm = not opt.no_ganFeat_loss
     use_lsgan = not opt.no_lsgan
     real_prev = use_temporal and opt.temporal_prev == "real"
-    detach_prev = use_temporal and not real_prev
+    detach_prev = use_temporal and opt.temporal_detach_prev and not real_prev
+    symmetric = use_temporal and not detach_prev and not real_prev
     use_feat = opt.instance_feat or opt.label_feat
 
     def no_mark(name):
@@ -161,9 +183,17 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
         mark = mark or no_mark
         batch = unpack_batch(batch, state.static_tex.device)
         pose = pose_from_batch(opt, batch)
+        B = pose.shape[0]
         real = batch["image"]
         tex, bg, tex_mask = state.static_tex[None], state.bg[None], \
             state.tex_mask
+        if "bg" in batch:
+            bg = batch["bg"]
+        flip_kw = ({"bg_flip": batch["bg_flip"]} if "bg_flip" in batch
+                   else {})
+        pose_prev = None
+        if use_temporal and not real_prev:
+            pose_prev = pose_from_batch(opt, batch, prev=True)
         mark("inputs")
         g_opt.zero_grad(set_to_none=True)
         d_opt.zero_grad(set_to_none=True)
@@ -172,16 +202,29 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
             with torch.no_grad():
                 prev_kw = ({"feat_image": batch.get("image_prev", real)}
                            if use_feat else {})
-                prev_fake = renderer(pose_from_batch(opt, batch, prev=True),
-                                     bg, tex, tex_mask, **prev_kw)["fake"]
+                prev_fake = renderer(pose_prev, bg, tex, tex_mask,
+                                     **prev_kw, **flip_kw)["fake"]
             mark("prev_render")
         elif real_prev:
             prev_fake = batch["image_prev"]
 
         # ---- G: D frozen, its real features detached
         disc.requires_grad_(False)
-        cur = renderer(pose, bg, tex, tex_mask,
-                       **({"feat_image": real} if use_feat else {}))
+        if symmetric:
+            kw2 = {}
+            if use_feat:
+                kw2["feat_image"] = torch.cat(
+                    [real, batch.get("image_prev", real)], dim=0)
+            if flip_kw:
+                kw2["bg_flip"] = torch.cat([batch["bg_flip"]] * 2, dim=0)
+            bg2 = torch.cat([bg, bg], dim=0) if bg.shape[0] == B else bg
+            outs = renderer(torch.cat([pose, pose_prev], dim=0), bg2, tex,
+                            tex_mask, **kw2)
+            cur = _slice_outs(outs, B)
+            prev_fake = outs["fake"][B:]
+        else:
+            kw1 = {"feat_image": real} if use_feat else {}
+            cur = renderer(pose, bg, tex, tex_mask, **kw1, **flip_kw)
         fake = cur["fake"]
         mark("g_forward")
         d_fake = disc(torch.cat([pose, fake], dim=1))
@@ -202,6 +245,14 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
                 cur["uv"], batch["dp_uv"], batch["dp_parts"])
             losses["G_Prob"] = opt.lambda_Prob * L.part_ce_loss(
                 cur["logits"], batch["dp_parts"])
+            if opt.lambda_UVgrad > 0:
+                losses["G_UVgrad"] = opt.lambda_UVgrad * L.uv_grad_loss(
+                    cur["uv"], batch["dp_uv"], batch["dp_parts"])
+            if opt.ms_uv > 0:
+                ms_uv_l, ms_ce_l = L.ms_iuv_loss(
+                    cur["ms_aux"], batch["dp_uv"], batch["dp_parts"])
+                losses["G_MSUV"] = opt.lambda_MS * (
+                    opt.lambda_UV * ms_uv_l + opt.lambda_Prob * ms_ce_l)
         if opt.lambda_Mask > 0 and "mask" in batch:
             losses["G_Mask"] = opt.lambda_Mask * L.mask_loss(cur["mask"],
                                                              batch["mask"])
@@ -213,11 +264,15 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
         g_total.backward()
         mark("g_backward")
 
-        # ---- D: the fake detached, the old parameters
+        # ---- D: the fake detached (through the pool), the old parameters
         disc.requires_grad_(True)
-        fake_det = fake.detach()
+        d_in_fake = torch.cat([pose, fake.detach()], dim=1)
+        if opt.pool_size > 0:
+            draws = pool_draws(state.pool_gen, B, opt.pool_size)
+            d_in_fake, state.pool_n = pool_update(
+                state.pool_buf, state.pool_n, d_in_fake, draws)
         d_real = disc(torch.cat([pose, real], dim=1))
-        d_fake = disc(torch.cat([pose, fake_det], dim=1))
+        d_fake = disc(d_in_fake)
         d_total = L.lsgan_loss_d(d_real, d_fake, use_lsgan)
         d_total.backward()
         mark("d_step")
@@ -240,10 +295,13 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
 def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
     """Stage 1: supervised IUV regression of TransG, the UV L1 at the GT
     part plus the part cross-entropy inside the mask, weighted by
-    --lambda_UV (1000 when unset) and --lambda_Prob (10 when unset).
+    --lambda_UV (1000 when unset) and --lambda_Prob (10 when unset); with
+    --lambda_UVgrad the UV-gradient L1 (UVgrad), with --ms_uv the aux
+    heads' UV L1 and masked cross-entropy (MSUV, weighted lambda_MS
+    against the same weights).
 
-    step(state, batch) -> metrics (UV, Prob, total), updating transg and
-    state.step in place (state: a PretrainState)."""
+    step(state, batch) -> metrics (UV, Prob[, UVgrad][, MSUV], total),
+    updating transg and state.step in place (state: a PretrainState)."""
     w_uv = opt.lambda_UV if opt.lambda_UV > 0 else 1000.0
     w_prob = opt.lambda_Prob if opt.lambda_Prob > 0 else 10.0
 
@@ -251,11 +309,20 @@ def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
         b = unpack_batch(batch, state.device)
         pose = pose_from_batch(opt, b)
         optimizer.zero_grad(set_to_none=True)
-        logits, uv = transg(pose)
+        tout = transg(pose)
+        logits, uv = tout[0], tout[1]
         losses = {"UV": w_uv * L.uv_loss(uv, b["dp_uv"], b["dp_parts"]),
                   "Prob": w_prob * L.part_ce_loss(logits, b["dp_parts"],
                                                   b.get("mask"))}
-        total = losses["UV"] + losses["Prob"]
+        if opt.lambda_UVgrad > 0:
+            losses["UVgrad"] = opt.lambda_UVgrad * L.uv_grad_loss(
+                uv, b["dp_uv"], b["dp_parts"])
+        if opt.ms_uv > 0:
+            ms_uv_l, ms_ce_l = L.ms_iuv_loss(tout[2], b["dp_uv"],
+                                             b["dp_parts"], b.get("mask"))
+            losses["MSUV"] = opt.lambda_MS * (w_uv * ms_uv_l
+                                              + w_prob * ms_ce_l)
+        total = functools.reduce(torch.add, losses.values())
         total.backward()
         optimizer.step()
         state.step += 1

@@ -6,7 +6,13 @@ The pix2pixHD artifact contract in PyTorch's own format: per-subnet files
 ``torch.save`` (tensors on the CPU), read back with ``weights_only=True``.
 ``latest_state.pth`` holds what resumes a run beyond the weights: both
 optimizers' state_dicts (``ScheduledAdam`` adds its update count), the
-step and the last completed epoch.
+step and the last completed epoch. The update count drives the LR
+schedule and --niter_fix_global's freeze of the LocalEnhancer trunk; a
+resume restores it, or fast-forwards a fresh one to the saved step, so a
+run resumed inside the freeze stays frozen until the step it would have
+unfrozen at (the JAX package fast-forwards its freeze counter the same
+way). The image pool of --pool_size is not saved, as in the JAX package:
+a resumed run starts with an empty pool.
 
 A run directory written by the JAX package holds ``.msgpack`` files
 instead; ``load_net`` reads those too (``utils/flax_msgpack`` and the

@@ -1,8 +1,8 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
 PyTorch version at small shapes, the launch counters, the wrappers'
 refusals, a backward through a tiny renderer on the card against the CPU,
-a checkpoint saved on the card read on the CPU, and a stage-2 resume on
-the card. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
+a checkpoint saved on the card read on the CPU, a stage-2 resume on the
+card, and the image pool's colliding writes on the card against the CPU. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
 torch.cuda.is_available() is False. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -653,3 +653,29 @@ def test_evaluate_dirs_on_the_card_matches_cpu(cuda, tmp_path):
     for k in ("vgg_dist", "lpips"):
         assert card[k] == pytest.approx(cpu[k], rel=3e-2), k
         assert card[k] > 0, k
+
+
+def test_pool_update_on_the_card_matches_cpu(cuda):
+    """The image pool's writes on the card: swap lanes that draw the same
+    slot (B > K) keep the later lane's image, as on the CPU (an index copy
+    on the card would race on duplicate indices)."""
+    from neural_human_video_rendering_tpu_torch.train.image_pool import \
+        pool_update
+    B, K, C, S = 6, 2, 26, 64
+    results = {}
+    for dev in (torch.device("cpu"), cuda):
+        pool = torch.zeros((K + 1, C, S, S), device=dev)
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        outs = []
+        gg = torch.Generator().manual_seed(4)
+        for _ in range(3):
+            imgs = torch.rand((B, C, S, S), generator=gg).to(dev)
+            draws = (torch.rand(B, generator=gg).to(dev), None,
+                     torch.zeros(B).to(dev))       # every full lane swaps
+            ret, count = pool_update(pool, count, imgs, draws)
+            outs.append(ret.cpu())
+        results[dev.type] = (outs, pool[:K].cpu(), int(count))
+    for a, b in zip(results["cpu"][0], results["cuda"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(results["cpu"][1], results["cuda"][1])
+    assert results["cpu"][2] == results["cuda"][2] == K

@@ -213,7 +213,8 @@ def test_renderer_feature_modes_match_jax(mode, pair):
 
 def test_forward_fn_modes_and_renderer_options(pair):
     """make_forward_fn hands the renderer the codes of --load_features or a
-    real frame (the held-out eval); options still unported refuse."""
+    real frame (the held-out eval); with --netG local, --uv_refine or
+    --ms_uv (the options the port once refused) it renders too."""
     _, _, _, model, tpose, feat_img, topt, tbg, ttex = pair
     syn = SyntheticDataset(topt, length=2)
     joints = torch.from_numpy(syn.joints)
@@ -231,8 +232,11 @@ def test_forward_fn_modes_and_renderer_options(pair):
         assets, joints, lap, feat_image=_nchw(feat_img))["fake"]
     assert torch.equal(got_c, want_c) and torch.equal(got_e, want_e)
     for over in ({"netG": "local"}, {"uv_refine": 1}, {"ms_uv": 1}):
-        with pytest.raises(NotImplementedError):
-            renderer_from_options(dataclasses.replace(topt, **over))
+        o = dataclasses.replace(topt, **over)
+        m = init_params(renderer_from_options(o), 2).eval()
+        out = make_forward_fn(o, m, codes)(assets, joints, lap)
+        assert out["fake"].shape == got_c.shape
+        assert bool(torch.isfinite(out["fake"]).all())
 
 
 STEP_FLAGS = dict(

@@ -250,7 +250,19 @@ def test_init_params_is_seeded_and_flax_scaled():
 
 
 def test_unported_options_raise():
+    """The model options the port once refused build and render: a random
+    init forward of each (test_torch_port_options_models holds them
+    against JAX)."""
     for over in ({"netG": "local"}, {"uv_refine": 1}, {"ms_uv": 1}):
-        with pytest.raises(NotImplementedError):
-            renderer_from_options(dataclasses.replace(TOptions(**_flags()),
-                                                      **over))
+        topt = dataclasses.replace(TOptions(**_flags()), **over)
+        model = init_params(renderer_from_options(topt), 1)
+        syn = SyntheticDataset(topt, length=2)
+        with torch.no_grad():
+            out = model(build_pose_input(topt, torch.from_numpy(syn.joints)),
+                        torch.from_numpy(syn.background().transpose(
+                            2, 0, 1))[None],
+                        torch.from_numpy(syn.texture_atlas().transpose(
+                            0, 3, 1, 2))[None])
+        assert tuple(out["fake"].shape) == (2, 3, 32, 32), over
+        assert all(bool(torch.isfinite(out[k]).all()) for k in ("fake", "uv"))
+        assert ("ms_aux" in out) == bool(topt.ms_uv), over

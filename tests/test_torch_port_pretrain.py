@@ -298,10 +298,17 @@ def test_pipeline_on_the_cpu(tmp_path, capsys):
 
 
 def test_pretrain_refuses_what_it_does_not_carry(tmp_path):
+    """The options the pretrain stages once refused run: stage 1 with
+    --ms_uv, --uv_refine and --lambda_UVgrad, the texture pretrain with
+    --netG local and flip on, one step each."""
     opt = TrainOptions().parse(TINY + ["--checkpoints_dir", str(tmp_path),
-                                       "--ms_uv", "1"], save=False)
-    with pytest.raises(NotImplementedError):
-        drivers.run_pretrain_uv(opt, max_steps=1)
-    opt = dataclasses.replace(opt, ms_uv=0, no_flip=False)
-    with pytest.raises(NotImplementedError):
-        drivers.run_pretrain_tex(opt, max_steps=1)
+                                       "--ms_uv", "1", "--uv_refine", "1",
+                                       "--lambda_UVgrad", "10"], save=False)
+    st = drivers.run_pretrain_uv(opt, max_steps=1)
+    assert st.step == 1 and {"MSUV", "UVgrad"} <= set(st.metrics)
+    assert all(np.isfinite(float(v)) for v in st.metrics.values())
+    opt = dataclasses.replace(opt, ms_uv=0, uv_refine=0, lambda_UVgrad=0.0,
+                              no_flip=False, netG="local")
+    st = drivers.run_pretrain_tex(opt, max_steps=1)
+    assert st.step == 1 and hasattr(st.net, "LocalEnhancer_0")
+    assert np.isfinite(float(st.metrics["Tex_L1"]))

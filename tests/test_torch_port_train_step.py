@@ -1,8 +1,8 @@
 """PyTorch port, the stage-2 train step: one step of the port's
 make_train_step against the JAX package's on the same batch with the same
 weights, Adam with the pix2pixHD schedule against optax, the EMA, the
-trainer on the CPU, the options the port refuses, and the checkpoint and
-real-data options it now runs.
+trainer on the CPU, one step of each training option the port once
+refused, and the checkpoint and real-data options.
 
 The step comparison runs a tiny float32 config with every part blended
 (--warp_topk 24 --warp_eps 0: JAX on the CPU takes the XLA all-parts warp)
@@ -236,19 +236,71 @@ def test_run_train_on_the_cpu(temporal_prev, tmp_path, capsys):
                    zip(a.state_dict().values(), b.state_dict().values()))
 
 
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """A real-format corpus (FrameDataset: flip and crop act on it)."""
+    from test_torch_port_pretrain import write_port_corpus
+    root = tmp_path_factory.mktemp("corpus")
+    d = write_port_corpus(str(root), TrainOptions().parse(TINY, save=False),
+                          n=6)
+    return ["--pose_path", d["kp"], "--img_path", d["frames"], "--mask_path",
+            d["mask"], "--densepose_path", d["dp"], "--flow_path", d["flow"],
+            "--flow_inv_path", d["flow_inv"], "--bg_path",
+            str(root / "bg.png"), "--texture_path", str(root / "texture.png")]
+
+
 @pytest.mark.parametrize("flags", [
     ["--no_temporal_detach_prev"], ["--pool_size", "4"], ["--no_flip"],
     ["--resize_or_crop", "resize_and_crop"], ["--lambda_UVgrad", "1"],
     ["--netG", "local"], ["--uv_refine", "1"], ["--ms_uv", "1"]])
-def test_unported_training_options_raise(flags, tmp_path):
+def test_unported_training_options_raise(flags, tmp_path, corpus,
+                                         monkeypatch):
+    """The options the port once refused now train: one run_train step on
+    the CPU on a real-format corpus for each (["--no_flip"] stands for
+    flip on: it is the one case without --no_flip; the crop case crops
+    the 32 px frames to --fineSize 24): finite losses, and each option's
+    mark on the batch, the losses or the state."""
+    from neural_human_video_rendering_tpu_torch.train import drivers
     base = [f for f in TINY if f != "--no_flip"]
     if flags != ["--no_flip"]:
         base.append("--no_flip")
         base += flags
-    opt = TrainOptions().parse(base + ["--checkpoints_dir", str(tmp_path)],
-                               save=False)
-    with pytest.raises(NotImplementedError):
-        run_train(opt, max_steps=1)
+    if "resize_and_crop" in flags:
+        base += ["--fineSize", "24"]
+    seen = set()
+    make = drivers.make_train_step
+
+    def spy(*args):
+        step = make(*args)
+
+        def wrapped(st, batch, mark=None):
+            seen.update(batch)
+            return step(st, batch, mark)
+        return wrapped
+
+    monkeypatch.setattr(drivers, "make_train_step", spy)
+    opt = TrainOptions().parse(base + corpus + [
+        "--checkpoints_dir", str(tmp_path), "--no_vgg_loss",
+        "--print_freq", "100"], save=False)
+    st = run_train(opt, max_steps=1)
+    assert st.step == 1
+    assert all(np.isfinite(float(v)) for v in st.metrics.values())
+    if flags == ["--no_flip"]:
+        assert "bg_flip" in seen
+    elif "resize_and_crop" in flags:
+        assert "bg" in seen and tuple(st.bg.shape) == (3, 24, 24)
+    elif "--pool_size" in flags:
+        assert int(st.pool_n) == 2 and st.pool_buf.shape[0] == 5
+    elif "--lambda_UVgrad" in flags:
+        assert "G_UVgrad" in st.metrics
+    elif "--ms_uv" in flags:
+        assert "G_MSUV" in st.metrics
+    elif "--netG" in flags:
+        assert hasattr(st.renderer.TransG, "LocalEnhancer_0")
+    elif "--uv_refine" in flags:
+        assert hasattr(st.renderer.TransG, "refine_stem")
+    else:
+        assert not opt.temporal_detach_prev and "G_Temp" in st.metrics
 
 
 @pytest.mark.parametrize("flag", ["--img_path", "--continue_train",
