@@ -113,6 +113,31 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      step on one packed batch), peak memory and launches; serving ms a
      batch of 8 at 1024^2; the symmetric step's flow-warp backward (the
      plain version's VJP, the only PyTorch backward on the path).
+ 11. serving: (a) the flagship (512 px, bf16, random init from --seed 0)
+     exported by export_serving at batch 8 with uint8 frames and the
+     weights sidecar: the graph holds one nhvr_torch.texture_warp_topk_fwd
+     node and no plain warp, the program is smaller than its sidecar; the
+     program served by serve.serve in process (a thread): /healthz, a
+     request of 8 and one of 1 each launching the fused forward once and
+     nothing else, the PNGs within 1 uint8 level of the live
+     make_forward_fn forward; then by `python -m ...serve --port 0` as a
+     fresh process, whose frames equal the in-process ones bit for bit;
+     the --warp_block_parts 8 program with its weights baked in launches
+     top-k and the forward with w given once each. Numbers: export, load
+     and warm-up seconds, program and sidecar bytes, the median of 10
+     requests at N=8 and N=1, frames/s through HTTP against the live
+     forward, a request's split (device forward, host copy, PNG encode,
+     JSON). (b) the committed JAX run dir (testdata/jax_resume_tiny: a
+     tiny model's weights and latest_state.msgpack) resumed on the card
+     and on the CPU: epoch and step, the optimizer states equal; one step
+     each: losses and gradients card vs CPU (the tiny steps' tolerances),
+     and the parameter changes against the CPU's resumed Adam fed the
+     card's gradients, every parameter within 1e-6 (Adam scales the
+     gradients' rounding by lr (1 - beta1) / sqrt(v): the changes' own
+     difference card vs CPU is printed).
+     (c) a random pix2pixHD GlobalGenerator at the flagship TransG's
+     width (64/4/9) through import_torch_checkpoint, run on the card in
+     float32 against the torch original within 1e-4 of max|original|.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -514,6 +539,15 @@ def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
 
     out = {}
     todo = {}
+    # each operator's CUDA kernel called directly, without the dispatcher:
+    # the wrappers' launch path before the kernels became torch operators
+    direct = {
+        "topk_select": lambda: tk._topk_select_cuda(fg, K, 0, EPS),
+        "texture_warp_fwd": lambda: tk._texture_warp_fwd_cuda(tex, u, v, w),
+        "texture_warp_topk_fwd": lambda: tk._texture_warp_topk_fwd_cuda(
+            tex, fg, u, v, K, EPS, keep_w),
+        "texture_warp_bwd": lambda: tk._texture_warp_bwd_cuda(tex, u, v, w, g),
+        "flow_warp_fwd": lambda: fk._flow_warp_fwd_cuda(*flow)}
     if "topk_select" in names:
         todo["topk_select"] = (
             lambda: tk.topk_select(fg, K, 0, EPS),
@@ -565,6 +599,7 @@ def kernel_numbers(torch, tk, fk, tex, uv, probs, w, K, EPS, names,
     for name, (kern, plain, lib, (b_ms, b_by)) in todo.items():
         out[name] = {"ms": graph_ms(torch, kern),
                      "host_us": host_us(torch, kern),
+                     "host_us_direct": host_us(torch, direct[name]),
                      "plain_ms": cuda_ms(torch, plain, iters=5, warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": graph_ms(torch, lib)}
@@ -2289,6 +2324,463 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
     return {"runs": runs, "kernels": numbers, "errs": errs}
 
 
+# phase 11: the serving artifact and the HTTP server, a JAX run's resume,
+# pix2pixHD weight import
+SERVE_BATCH = 8
+SERVE_REQUESTS = 10
+SERVER_START_S = 300      # a fresh server process: imports, load, warm-up
+IMPORT_TOL = 1e-4         # of max|original|: 9 residual blocks in float32
+ADAM_TOL = 1e-6           # the same Adam arithmetic on two devices
+FIXTURE = os.path.join("neural_human_video_rendering_tpu_torch", "testdata",
+                       "jax_resume_tiny")
+
+
+def http_json(url, body=None, timeout=300):
+    """GET (body None) or POST a JSON body; the decoded answer."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def decode_frames(answer):
+    """A /render answer's base64 PNGs -> (N, S, S, 3) uint8 RGB (OpenCV's
+    decoder where cv2 imports, else the port's)."""
+    import base64
+
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.utils.image import (_cv2,
+                                                                     decode_png)
+    cv2 = _cv2()
+    out = []
+    for f in answer["frames"]:
+        data = base64.b64decode(f)
+        if cv2 is None:
+            out.append(decode_png(data))
+        else:
+            bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            out.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    return np.stack(out)
+
+
+def start_server(repo, model, gpu, timeout):
+    """python -m ...serve --port 0 in a fresh process -> (process, port,
+    its start-up lines); killed if it has not bound a port in `timeout`
+    seconds."""
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "neural_human_video_rendering_tpu_torch.serve",
+         "--model", model, "--port", "0", "--gpu_ids", gpu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=repo)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines, port = [], None
+    for line in proc.stdout:
+        lines.append(line.rstrip())
+        if " on http://" in line:
+            port = int(line.rsplit(":", 1)[1])
+            break
+    timer.cancel()
+    return proc, port, lines
+
+
+def stop_server(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def export_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 11(a): the flagship exported at batch 8 (uint8, sidecar),
+    served in process and by a fresh server process; the --warp_block_parts
+    program with its weights baked in, called once."""
+    import threading
+
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import export_serving as es
+    from neural_human_video_rendering_tpu_torch import serve as srv
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_forward_fn
+    gpu = "0" if dev.type == "cuda" else "-1"
+    work = os.path.join(repo, "build", "chip_smoke", "serve")
+    os.makedirs(work, exist_ok=True)
+    flags = FLAGSHIP + ["--gpu_ids", gpu, "--checkpoints_dir",
+                        os.path.join(work, "ckpt"), "--name", "none"]
+    opt = TestOptions().parse(flags, save=False)
+    S, B = opt.train_size, SERVE_BATCH
+    numbers = {}
+
+    def reset():
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+
+    # ---- export and save, then load
+    model = os.path.join(work, "flagship.pt2")
+    t0 = time.perf_counter()
+    es.save_artifact(opt, B, model, bake_weights=False, out_uint8=True,
+                     device=dev)
+    torch.cuda.synchronize()
+    numbers["export_s"] = time.perf_counter() - t0
+    numbers["program_bytes"] = os.path.getsize(model)
+    numbers["sidecar_bytes"] = os.path.getsize(model + es.SIDECAR)
+    t0 = time.perf_counter()
+    loaded = torch.export.load(model)
+    numbers["load_program_s"] = time.perf_counter() - t0
+    warp = sorted(str(n.target) for n in loaded.graph.nodes
+                  if "nhvr_torch" in str(n.target))
+    smoke.require("exported graph: one nhvr_torch.texture_warp_topk_fwd "
+                  "node, no other warp", warp == [
+                      "nhvr_torch.texture_warp_topk_fwd.default"], str(warp))
+    gathers = sum("gather" in str(n.target) for n in loaded.graph.nodes)
+    smoke.require("exported graph: no plain warp (no gather)", gathers == 0,
+                  f"({gathers} gathers)")
+    del loaded
+    smoke.require("program smaller than its sidecar",
+                  numbers["program_bytes"] < numbers["sidecar_bytes"],
+                  f"({numbers['program_bytes']} vs {numbers['sidecar_bytes']})")
+
+    # ---- the live forward of the same weights and assets
+    ds = dsm.SyntheticDataset(opt, length=B)
+    joints = np.stack([ds[i]["joints"] for i in range(B)]).astype(np.float32)
+    renderer = es.load_weights(opt, init_params(renderer_from_options(opt),
+                                                opt.seed)).to(dev).eval()
+    fwd = make_forward_fn(opt, renderer)
+    assets = td.assets_to_device(opt, ds.texture_atlas(), ds.background(),
+                                 dev)
+    jb = torch.from_numpy(joints).to(dev)
+    live = es.quantize(fwd(assets, jb)["fake"]).permute(0, 2, 3, 1).cpu()
+    for _ in range(3):
+        fwd(assets, jb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_REQUESTS):
+        fwd(assets, jb)
+    torch.cuda.synchronize()
+    numbers["live_forward_ms"] = (time.perf_counter() - t0) * 1e3 \
+        / SERVE_REQUESTS
+    numbers["live_device_ms"] = trace_forward(
+        torch, lambda: fwd(assets, jb))["device_busy_ms_per_call"]
+    del renderer, fwd, assets
+
+    # ---- served in process, on a thread
+    reset()
+    t0 = time.perf_counter()
+    httpd = srv.serve(model, port=0, device=dev)
+    numbers["server_start_s"] = time.perf_counter() - t0
+    numbers["warmup_s"] = httpd.model.warmup_s
+    numbers["load_s"] = httpd.model.load_s
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        health = http_json(url + "/healthz")
+        smoke.require("healthz", health == {
+            "status": "ok", "batch": B, "joints": [B, 18, 3],
+            "frame": [B, S, S, 3]}, json.dumps(health))
+        answers, launches = {}, {}
+        for n in (B, 1):
+            reset()
+            answers[n] = http_json(url + "/render",
+                                   {"joints": joints[:n].tolist()})
+            torch.cuda.synchronize()
+            launches[n] = launch_counts()
+            smoke.require(f"a request of {n}: texture_warp_topk_fwd once, no "
+                          "other kernel", launches[n] == {
+                              **{k: 0 for k in REPLACES},
+                              "texture_warp_topk_fwd": 1}, str(launches[n]))
+        served = decode_frames(answers[B])
+        smoke.require("served frames: 8 of SxSx3",
+                      served.shape == (B, S, S, 3), str(served.shape))
+        diff = np.abs(served.astype(np.int16) - live.numpy().astype(np.int16))
+        numbers["served_vs_live_max_levels"] = int(diff.max())
+        numbers["served_vs_live_pixels_off"] = int((diff > 0).sum())
+        smoke.check("served frames vs the live forward (uint8 levels)",
+                    float(diff.max()), 1.0)
+        smoke.require("the request of 1 is the first frame of 8", np.array_equal(
+            decode_frames(answers[1])[0], served[0]))
+        lat = {}
+        split = {k: [] for k in ("forward_s", "transfer_s", "png_s",
+                                 "json_s")}
+        for n in (B, 1):
+            times = []
+            for _ in range(SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                http_json(url + "/render", {"joints": joints[:n].tolist()})
+                times.append(time.perf_counter() - t0)
+                if n == B:
+                    for k in split:
+                        split[k].append(httpd.model.timing[k])
+            lat[n] = sorted(times)[len(times) // 2] * 1e3
+        numbers["request_ms_median"] = {str(n): v for n, v in lat.items()}
+        numbers["http_frames_per_s"] = B * 1e3 / lat[B]
+        numbers["live_frames_per_s"] = B * 1e3 / numbers["live_forward_ms"]
+        numbers["request_split_ms_median_n8"] = {
+            k: sorted(v)[len(v) // 2] * 1e3 for k, v in split.items()}
+        # the loaded program called directly (no HTTP, no thread): wall
+        # time a batch and its device time (profiler)
+        prog, params = httpd.model.module, httpd.model.params
+
+        def call():
+            with torch.no_grad():
+                return prog(params, jb)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_REQUESTS):
+            call()
+        torch.cuda.synchronize()
+        numbers["program_forward_ms"] = (time.perf_counter() - t0) * 1e3 \
+            / SERVE_REQUESTS
+        trace = trace_forward(torch, call)
+        numbers["program_device_ms"] = trace["device_busy_ms_per_call"]
+        numbers["program_top_kernels_ms"] = trace["top_kernels_ms_per_call"][:5]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    del httpd
+    torch.cuda.empty_cache()
+
+    # ---- the same program from a fresh server process
+    t0 = time.perf_counter()
+    proc, port, lines = start_server(repo, model, gpu, SERVER_START_S)
+    try:
+        numbers["fresh_server_start_s"] = time.perf_counter() - t0
+        print("[serve] fresh process: " + " | ".join(lines[-4:]), flush=True)
+        smoke.require("a fresh server process binds a port", port is not None,
+                      " | ".join(lines[-6:]))
+        if port is not None:
+            fresh = decode_frames(http_json(f"http://127.0.0.1:{port}/render",
+                                            {"joints": joints.tolist()}))
+            smoke.require("the fresh process's frames equal the in-process "
+                          "ones bit for bit", np.array_equal(fresh, served))
+    finally:
+        stop_server(proc)
+
+    # ---- --warp_block_parts 8, the weights baked in: top-k with the cap,
+    # then the forward with w given
+    opt_bp = TestOptions().parse(flags + ["--warp_block_parts", "8"],
+                                 save=False)
+    exported, ej, _ = es.build_exported(opt_bp, B, bake_weights=True,
+                                        out_uint8=True, device=dev)
+    warp = sorted(str(n.target) for n in exported.graph.nodes
+                  if "nhvr_torch" in str(n.target))
+    smoke.require("block_parts program: topk_select and texture_warp_fwd "
+                  "nodes", warp == ["nhvr_torch.texture_warp_fwd.default",
+                                    "nhvr_torch.topk_select.default"],
+                  str(warp))
+    module = exported.module()
+    reset()
+    with torch.no_grad():
+        frames_bp = module(ej)
+    torch.cuda.synchronize()
+    bp_launches = launch_counts()
+    smoke.require("block_parts program: topk_select and texture_warp_fwd "
+                  "once, no other kernel", bp_launches == {
+                      **{k: 0 for k in REPLACES}, "topk_select": 1,
+                      "texture_warp_fwd": 1}, str(bp_launches))
+    smoke.require("block_parts frames uint8 and not flat",
+                  frames_bp.dtype == torch.uint8
+                  and float(frames_bp.float().std()) > 1.0)
+    del exported, module, frames_bp
+    for f in (model, model + es.SIDECAR):
+        os.remove(f)
+    torch.cuda.empty_cache()
+    numbers["launches"] = {"request_8": launches[B], "request_1": launches[1],
+                           "block_parts_batch": bp_launches}
+    return numbers
+
+
+def jax_resume_path(torch, smoke, repo, dev):
+    """Phase 11(b): the committed JAX run dir (testdata/jax_resume_tiny:
+    weights and latest_state.msgpack) resumed on the card and on the CPU;
+    the optimizer states equal; one step each on the same batch."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.train import drivers
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_train_step
+    work = os.path.join(repo, "build", "chip_smoke", "jax_resume")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(os.path.join(repo, FIXTURE), os.path.join(work, "run"))
+    with open(os.path.join(work, "run", "flags.json")) as f:
+        fx = json.load(f)
+    spe = fx["steps_per_epoch"]
+    states, metrics = {}, {}
+    cpu = torch.device("cpu")
+    for name, d in (("cpu", cpu), ("card", dev), ("cpu_same_grads", cpu)):
+        opt = TrainOptions().parse(fx["argv"] + [
+            "--gpu_ids", "0" if d.type == "cuda" else "-1",
+            "--checkpoints_dir", work, "--name", "run", "--continue_train"],
+            save=False)
+        syn = dsm.SyntheticDataset(opt, length=4, seed=opt.seed)
+        st = create_train_state(opt, linear_atlas(np, opt.n_parts,
+                                                  opt.tex_tile),
+                                syn.background(), steps_per_epoch=spe,
+                                device=d)
+        start = drivers.resume_train(opt, st, spe)
+        smoke.require(f"JAX run resumed on the {name}: epoch "
+                      f"{fx['epoch'] + 1}, step {fx['step']}",
+                      start == fx["epoch"] + 1 and st.step == fx["step"],
+                      f"(epoch {start}, step {st.step})")
+        states[name] = st
+    batch = dsm.collate([syn[i] for i in (1, 2)])
+    cpu_st, card = states["cpu"], states["card"]
+
+    def opt_tensors(st):
+        out = {}
+        for tag, o in (("g_opt", st.g_opt), ("d_opt", st.d_opt)):
+            sd = o.state_dict()
+            out[f"{tag}.count"] = torch.tensor([sd["count"],
+                                                sd["freeze_count"]])
+            for i, s in sd["state"].items():
+                for k, v in s.items():
+                    out[f"{tag}.{i}.{k}"] = v.detach().cpu()
+        return out
+
+    a, b = opt_tensors(cpu_st), opt_tensors(card)
+    smoke.require("resumed optimizer state: the card's equals the CPU's",
+                  a.keys() == b.keys() and len(a) > 2
+                  and all(torch.equal(a[k], b[k]) for k in a),
+                  f"({len(a)} tensors)")
+    before = {tag: {k: v.detach().clone() for k, v in
+                    getattr(cpu_st, m).state_dict().items()}
+              for tag, m in (("G", "renderer"), ("D", "disc"))}
+    for name in ("cpu", "card"):
+        st = states[name]
+        step = make_train_step(opt, st.renderer, st.disc, None, st.g_opt,
+                               st.d_opt)
+        metrics[name] = {k: float(v) for k, v in step(st, batch).items()}
+    worst = max(abs(metrics["card"][k] - v) / max(abs(v), 1e-12)
+                for k, v in metrics["cpu"].items())
+    smoke.check("resumed step losses card vs cpu (relative)", worst,
+                STEP_LOSS_RTOL)
+    errs = {"losses_rel": worst}
+    for tag, m in (("G", "renderer"), ("D", "disc")):
+        mod_cpu, mod_card = getattr(cpu_st, m), getattr(card, m)
+        # the gradients card vs CPU: the tiny steps' check (SGD(1) deltas
+        # are the gradients). The parameter changes are Adam's of them,
+        # held below on the same gradients: Adam scales a gradient's
+        # rounding by lr (1 - beta1) / sqrt(v), so the changes' own
+        # difference (printed) outgrows tolerances made for gradients.
+        grads = {k: p.grad for k, p in mod_cpu.named_parameters()}
+        scale = max(float(g.abs().max()) for g in grads.values())
+        ratio, worst_k = 0.0, None
+        for (k, g), (_, q) in zip(grads.items(), mod_card.named_parameters()):
+            err = float((q.grad.cpu() - g).abs().max())
+            tol = STEP_SCALE_TOL * scale + STEP_TENSOR_TOL * float(
+                g.abs().max())
+            if err / tol >= ratio:
+                ratio, worst_k = err / tol, k
+        diff, change = 0.0, 0.0
+        for (k, p), q in zip(mod_cpu.named_parameters(),
+                             mod_card.parameters()):
+            diff = max(diff, float((q.detach().cpu() - p.detach()).abs().max()))
+            change = max(change, float((p.detach() - before[tag][k])
+                                       .abs().max()))
+        print(f"[jax_resume] {tag} gradients card vs cpu: worst err/tol "
+              f"{ratio:.3e} ({worst_k}); parameter changes card vs cpu: "
+              f"max abs {diff:.3e} of max|change| {change:.3e}", flush=True)
+        errs[f"{tag}_grads_err_over_tol"] = ratio
+        errs[f"{tag}_changes_max_abs_diff"] = diff
+        smoke.check(f"resumed step {tag} gradients card vs cpu (err/tol)",
+                    ratio, 1.0)
+        # every parameter: the CPU's resumed Adam on the card's gradients
+        same = getattr(states["cpu_same_grads"], m)
+        for p, q in zip(same.parameters(), mod_card.parameters()):
+            p.grad = q.grad.detach().cpu().clone()
+    states["cpu_same_grads"].g_opt.step()
+    states["cpu_same_grads"].d_opt.step()
+    worst_same = 0.0
+    for m in ("renderer", "disc"):
+        for (_, p), (_, q) in zip(
+                getattr(states["cpu_same_grads"], m).named_parameters(),
+                getattr(card, m).named_parameters()):
+            worst_same = max(worst_same,
+                             float((p.detach() - q.detach().cpu()).abs().max()))
+    errs["adam_same_grads_max_abs"] = worst_same
+    smoke.check("resumed Adam, the card's gradients: the card's step vs "
+                "the CPU's, every parameter (max abs)", worst_same, ADAM_TOL)
+    print(f"[jax_resume] losses {json.dumps(metrics)}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return errs
+
+
+def import_path(torch, smoke, repo, dev):
+    """Phase 11(c): a random pix2pixHD GlobalGenerator at the flagship
+    TransG's width (64/4/9, parity topology) imported through the CLI and
+    run on the card against the torch original, float32."""
+    from neural_human_video_rendering_tpu_torch import \
+        import_torch_checkpoint as itc
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.utils import checkpoint as ckpt
+    from neural_human_video_rendering_tpu_torch.utils.torch_import import \
+        pix2pixhd_global_generator
+    work = os.path.join(repo, "build", "chip_smoke", "import")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    flags = FLAGSHIP + ["--gpu_ids", "0" if dev.type == "cuda" else "-1"]
+    opt = TrainOptions().parse(flags, save=False)
+    torch.manual_seed(0)
+    ref = pix2pixhd_global_generator(opt.pose_nc, opt.transg_out_nc, opt.ngf,
+                                     opt.n_downsample_translate,
+                                     opt.n_blocks_translate, final_tanh=False)
+    src = os.path.join(work, "30_net_TransG.pth")
+    torch.save(ref.state_dict(), src)
+    t0 = time.perf_counter()
+    rc = itc.main([src, "--label", "TransG", "--epoch", "30", "--out_dir",
+                   os.path.join(work, "out")] + flags)
+    import_s = time.perf_counter() - t0
+    smoke.require("import_torch_checkpoint wrote the TransG", rc == 0 and
+                  ckpt.find_net(os.path.join(work, "out"), "TransG", 30)
+                  is not None)
+    popt = itc.parity_options(TrainOptions().parse(flags + [
+        "--dtype", "float32"], save=False))
+    transg = init_params(renderer_from_options(popt).TransG, 1)
+    ckpt.load_net_into(transg, os.path.join(work, "out"), "TransG", 30)
+    transg, ref = transg.to(dev).eval(), ref.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, opt.pose_nc, opt.train_size, opt.train_size),
+                    generator=g, device=dev)
+    with torch.no_grad():
+        want = ref(x)
+        got = transg.backbone(x)
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+    smoke.check("imported TransG 64/4/9 vs the pix2pixHD original on the "
+                "card (relative to max|original|)", err, IMPORT_TOL)
+    del transg, ref, x, want, got
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"import_s": import_s, "max_err_rel": err}
+
+
+def serving_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 11: (a) export_path, (b) jax_resume_path, (c) import_path."""
+    t_phase = time.perf_counter()
+    numbers = export_path(torch, smoke, tk, fk, repo, dev, smi)
+    numbers["jax_resume"] = jax_resume_path(torch, smoke, repo, dev)
+    numbers["import"] = import_path(torch, smoke, repo, dev)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serving": numbers, "card": smi}), flush=True)
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2583,6 +3075,8 @@ def main() -> int:
     launch_bench = measure_path(torch, smoke, tk, fk, repo, dev, smi)
     # ---------------------------------------------------------- 10. options
     options = options_path(torch, smoke, tk, fk, repo, dev, smi)
+    # ------------------------------- 11. export, serve, JAX resume, import
+    serving11 = serving_path(torch, smoke, tk, fk, repo, dev, smi)
 
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
@@ -2617,6 +3111,8 @@ def main() -> int:
             entry.update(rend_fwd)
         if name == "texture_warp_bwd":
             entry.update(rend_bwd)
+        entry["launches_export_serving"] = {
+            k: v[name] for k, v in serving11["launches"].items()}
         entry["options_shapes"] = {k: v[name] for k, v in
                                    options["kernels"].items() if name in v}
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "

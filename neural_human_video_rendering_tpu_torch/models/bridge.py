@@ -22,7 +22,7 @@ module of its label: ``G`` / ``G_ema`` (the renderer tree,
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -41,26 +41,50 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, np.asarray(v)
 
 
+def _is_conv(kind: str) -> bool:
+    return (kind.startswith("Conv_")
+            or re.fullmatch(r"conv\d+", kind) is not None)
+
+
+def leaf_from_jax(path: str, arr: np.ndarray):
+    """One flax leaf by its dotted path -> (state_dict key, tensor): the
+    layout change of its kind, a permutation of the values (bit-exact)."""
+    parent, leaf = path.rsplit(".", 1)
+    kind = parent.rsplit(".", 1)[-1]
+    if leaf == "bias":
+        t = arr
+    elif leaf == "kernel" and kind.startswith("ConvTranspose_"):
+        t = np.flip(arr, (0, 1)).transpose(2, 3, 0, 1)
+    elif leaf == "kernel" and _is_conv(kind):
+        t = arr.transpose(3, 2, 0, 1)
+    else:
+        raise KeyError(f"no torch counterpart for flax parameter {path}")
+    return (f"{parent}.{'weight' if leaf == 'kernel' else 'bias'}",
+            torch.from_numpy(np.array(t, dtype=np.float32, order="C")))
+
+
+def flax_layout(key: str, shape) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """The inverse of leaf_from_jax's naming and shapes: a state_dict key
+    and its tensor's shape -> (the flax path, the flax leaf's shape)."""
+    parent, leaf = key.rsplit(".", 1)
+    kind = parent.rsplit(".", 1)[-1]
+    path = tuple(parent.split(".")) + ("kernel" if leaf == "weight"
+                                       else "bias",)
+    shape = tuple(shape)
+    if leaf == "bias":
+        return path, shape
+    if leaf == "weight" and kind.startswith("ConvTranspose_"):
+        return path, (shape[2], shape[3], shape[0], shape[1])
+    if leaf == "weight" and _is_conv(kind):
+        return path, (shape[2], shape[3], shape[1], shape[0])
+    raise KeyError(f"no flax counterpart for parameter {key}")
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (a flax ``params`` tree of the renderer,
     of one subnet, of the discriminator or of the VGG) -> a state_dict for
     the matching port module."""
-    out = {}
-    for path, arr in _flatten(tree):
-        parent, leaf = path.rsplit(".", 1)
-        kind = parent.rsplit(".", 1)[-1]
-        if leaf == "bias":
-            t = arr
-        elif leaf == "kernel" and kind.startswith("ConvTranspose_"):
-            t = np.flip(arr, (0, 1)).transpose(2, 3, 0, 1)
-        elif leaf == "kernel" and (kind.startswith("Conv_")
-                                   or re.fullmatch(r"conv\d+", kind)):
-            t = arr.transpose(3, 2, 0, 1)
-        else:
-            raise KeyError(f"no torch counterpart for flax parameter {path}")
-        out[f"{parent}.{'weight' if leaf == 'kernel' else 'bias'}"] = \
-            torch.from_numpy(np.array(t, dtype=np.float32, order="C"))
-    return out
+    return dict(leaf_from_jax(path, arr) for path, arr in _flatten(tree))
 
 
 def state_dict_from_flax_file(path: str) -> Dict[str, torch.Tensor]:

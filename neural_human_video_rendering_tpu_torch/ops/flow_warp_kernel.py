@@ -3,16 +3,20 @@
 Port of the JAX package's ``ops/pallas_flow_warp.py``. The CUDA source is
 ``csrc/flow_warp.cu`` (its header note gives the TPU kernel it replaces,
 the memory bound on the H100 and what the design does about it); it is
-built by ``ops/build.py`` and called through ctypes.
+built by ``ops/build.py`` and called through ctypes from the CUDA kernel
+of a torch operator.
 
 As for every kernel of the port, this module holds:
   * the plain PyTorch version, ``flow_warp_fwd_plain`` (``grid_sample.
     flow_warp``): the CPU tests use it, and the chip smoke test holds the
     kernel against it on the card;
-  * the wrapper ``flow_warp_fwd``, which takes the plain version only for
-    tensors on the CPU and for CUDA tensors launches the kernel or raises;
-  * the launch counter ``flow_warp_fwd.launches``, bumped where the
-    wrapper launches the kernel and nowhere else.
+  * the operator ``torch.ops.nhvr_torch.flow_warp_fwd``: its CPU kernel is
+    the plain version, its CUDA kernel launches the kernel or raises, and
+    a fake kernel gives its shape to tracers;
+  * the wrapper ``flow_warp_fwd``, which checks its arguments and calls
+    the operator;
+  * the launch counter ``flow_warp_fwd.launches``, bumped where the CUDA
+    kernel launches and nowhere else.
 
 ``FlowWarp`` is the differentiable op: its forward is the wrapper, its
 backward the VJP of the plain version, recomputed (the JAX package has no
@@ -28,6 +32,7 @@ import torch
 
 from . import build
 from .grid_sample import flow_warp as flow_warp_fwd_plain
+from .texture_warp_kernel import NAMESPACE
 
 
 MAX_CHANNELS = 8     # the kernel is instantiated for C = 1..8
@@ -44,20 +49,17 @@ def _kernel():
     return fn
 
 
-def flow_warp_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """out(p) = bilinear img(p + flow(p)), zero outside the image (see
-    grid_sample.flow_warp). img (B, C, H, W) and flow (B, 2, H, W) float32,
-    each image row contiguous (any batch / channel / row strides)
-    -> (B, C, H, W) contiguous."""
-    if img.dim() != 4 or flow.dim() != 4 \
-            or flow.shape != (img.shape[0], 2, *img.shape[2:]):
-        raise ValueError(f"flow_warp_fwd: img (B, C, H, W) and flow "
-                         f"(B, 2, H, W), got {tuple(img.shape)} "
-                         f"{tuple(flow.shape)}")
+@torch.library.custom_op(
+    f"{NAMESPACE}::flow_warp_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor img, Tensor flow) -> Tensor")
+def _flow_warp_fwd_op(img, flow):
+    return flow_warp_fwd_plain(img, flow).contiguous()
+
+
+@_flow_warp_fwd_op.register_kernel("cuda")
+def _flow_warp_fwd_cuda(img, flow):
     B, C, H, W = img.shape
-    if img.device.type == "cpu":
-        return flow_warp_fwd_plain(img.float(), flow.float())
-    if img.device.type != "cuda" or flow.device != img.device:
+    if flow.device != img.device:
         raise ValueError(f"flow_warp_fwd: img on {img.device}, flow on "
                          f"{flow.device}")
     if img.dtype != torch.float32 or flow.dtype != torch.float32:
@@ -80,6 +82,29 @@ def flow_warp_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flow_warp_fwd launch failed: CUDA error {err}")
     return out
+
+
+@_flow_warp_fwd_op.register_fake
+def _(img, flow):
+    return img.new_empty(img.shape, dtype=torch.float32)
+
+
+def flow_warp_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """out(p) = bilinear img(p + flow(p)), zero outside the image (see
+    grid_sample.flow_warp), the operator ``nhvr_torch::flow_warp_fwd``.
+    img (B, C, H, W) and flow (B, 2, H, W) float32, each image row
+    contiguous (any batch / channel / row strides) -> (B, C, H, W)
+    contiguous."""
+    if img.dim() != 4 or flow.dim() != 4 \
+            or flow.shape != (img.shape[0], 2, *img.shape[2:]):
+        raise ValueError(f"flow_warp_fwd: img (B, C, H, W) and flow "
+                         f"(B, 2, H, W), got {tuple(img.shape)} "
+                         f"{tuple(flow.shape)}")
+    if img.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flow_warp_fwd: unsupported device {img.device}")
+    if img.device.type == "cpu":
+        img, flow = img.float(), flow.float()
+    return _flow_warp_fwd_op(img, flow)
 
 
 flow_warp_fwd.launches = 0

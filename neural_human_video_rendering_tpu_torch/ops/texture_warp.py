@@ -9,8 +9,9 @@ pad of sub-128 tiles up to 128 was a Mosaic constraint; the CUDA kernels
 sample a T x T tile directly.
 
 Two routes, one launch each (the lossy block_parts cap excepted):
-  * no gradient needed (serving, the --temporal_prev fake t-1 render):
-    ``texture_warp_topk_fwd`` selects in registers and writes no w;
+  * no gradient needed (serving, the --temporal_prev fake t-1 render, an
+    exported forward): ``texture_warp_topk_fwd`` selects in registers and
+    writes no w;
   * otherwise ``TextureWarp``, an autograd Function whose forward is the
     same kernel keeping w for the backward kernel.
 
@@ -98,21 +99,26 @@ def texture_warp_planes(tex: torch.Tensor, uv: torch.Tensor,
     k = 0 or k >= P samples all parts. eps drops blend weights below it;
     block_parts in (0, P) is the lossy per-1024-pixel-block part cap.
 
-    Where no gradient is needed (grad mode off, or none of the three
-    requires grad) and the cap is off, one texture_warp_topk_fwd launch
-    renders without writing w. Otherwise TextureWarp: one launch that also
-    keeps w for the backward, or, with the cap, topk_select and then
-    texture_warp_fwd.
+    Where a gradient is needed, TextureWarp: one launch that also keeps w
+    for the backward, or, with the cap, topk_select and then
+    texture_warp_fwd. Where none is (grad mode off, or none of the three
+    requires grad), the operators alone, so a traced or exported forward
+    holds them as its nodes: one texture_warp_topk_fwd launch that writes
+    no w, or, with the cap, topk_select and then texture_warp_fwd.
     """
     B, P, _, H, W = uv.shape
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (tex, uv, probs))
-    if needs_grad or 0 < block_parts < P:
+    if needs_grad:
         return TextureWarp.apply(tex, uv, probs, k, block_parts, eps,
                                  compute_dtype)
     tex32, fg, u, v = _operands(tex, uv, probs, compute_dtype)
-    return texture_warp_topk_fwd(tex32, fg, u, v, _k(k, P), eps).view(
-        B, -1, H, W)
+    if 0 < block_parts < P:
+        out = texture_warp_fwd(tex32, u, v,
+                               topk_select(fg, _k(k, P), block_parts, eps))
+    else:
+        out = texture_warp_topk_fwd(tex32, fg, u, v, _k(k, P), eps)
+    return out.view(B, -1, H, W)
 
 
 def texture_warp(tex: torch.Tensor, uv: torch.Tensor, probs: torch.Tensor,

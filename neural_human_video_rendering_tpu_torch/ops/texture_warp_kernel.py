@@ -4,19 +4,23 @@ given, or with the selection fused in) and the backward.
 Port of the JAX package's ``ops/pallas_warp2.py``. The CUDA sources are
 ``csrc/texture_warp.cu`` (its header note gives the TPU kernel each one
 replaces, the memory bound on the H100 and what the design does about
-it); they are built by ``ops/build.py`` and called through ctypes.
+it); they are built by ``ops/build.py`` and called through ctypes from
+the CUDA kernels of torch operators.
 
 Each kernel has, in this module:
   * a plain PyTorch version (``topk_select_plain``, ``texture_warp_fwd_plain``,
     ``texture_warp_bwd_plain``; the fused forward is the first two in a
     row) computing the same function. The CPU tests use it, and the chip
     smoke test holds the kernel against it on the card;
-  * a wrapper (``topk_select``, ``texture_warp_fwd``,
-    ``texture_warp_topk_fwd``, ``texture_warp_bwd``) that takes the plain
-    version only for tensors on the CPU, and for CUDA tensors launches the
-    kernel or raises: there is no fallback;
-  * a launch counter, ``<wrapper>.launches``, which the wrapper bumps
-    where it launches the kernel and nowhere else.
+  * an operator of the ``nhvr_torch`` namespace (``torch.ops.nhvr_torch.
+    topk_select``, ``texture_warp_fwd``, ``texture_warp_topk_fwd``,
+    ``texture_warp_bwd``) whose CPU kernel is the plain version and whose
+    CUDA kernel launches the kernel or raises: there is no fallback. The
+    operators trace (torch.export, fake tensors) to one node each;
+  * a wrapper of the operator's name that checks its arguments and calls
+    it;
+  * a launch counter, ``<wrapper>.launches``, which the CUDA kernel bumps
+    where it launches and nowhere else (never while tracing).
 
 Layout is planes: fg / u / v / w (B, P, N) with N = H*W, texture
 (B, P, C, T, T), output (B, C, N). fg, u and v may be strided views (a
@@ -212,8 +216,27 @@ def texture_warp_bwd_plain(tex: torch.Tensor, u: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
-# CUDA wrappers
+# the kernels as torch operators
 # ----------------------------------------------------------------------
+#
+# Each kernel is an operator of the ``nhvr_torch`` namespace
+# (torch.library.custom_op): its CPU kernel is the plain version, its CUDA
+# kernel the launch below, and a fake kernel gives the output shapes to
+# torch.export and the other tracers (a traced or exported program holds
+# the operator, and a program loaded from disk needs this module imported
+# before it runs). No other device has a kernel. Outputs are fresh
+# tensors, never views of the inputs.
+
+NAMESPACE = "nhvr_torch"
+
+
+def _fresh(t: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """t, copied where it shares storage with an input."""
+    ptr = t.untyped_storage().data_ptr()
+    if any(ptr == i.untyped_storage().data_ptr() for i in inputs):
+        return t.clone()
+    return t
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -252,36 +275,9 @@ def _check_planes(name: str, t: torch.Tensor, B: int, P: int, N: int) -> None:
                          f"got strides {t.stride()}")
 
 
-def topk_select(fg: torch.Tensor, k: int, block_parts: int = 0,
-                eps: float = 0.0) -> torch.Tensor:
-    """Top-k part selection (see topk_select_plain). fg (B, P, N) float32
-    with a contiguous pixel axis; 1 <= k <= P."""
-    B, P, N = fg.shape
-    if not 1 <= k <= P:
-        raise ValueError(f"k={k} outside [1, P={P}]")
-    if 0 < block_parts < P and N % CAP_BLOCK:
-        raise ValueError(f"block_parts needs N % {CAP_BLOCK} == 0, N={N}")
-    if fg.device.type == "cpu":
-        return topk_select_plain(fg.float(), k, block_parts, eps)
-    if fg.device.type != "cuda":
-        raise ValueError(f"topk_select: unsupported device {fg.device}")
-    _check_planes("fg", fg, B, P, N)
-    if fg.stride(1) != N:
-        raise ValueError(f"fg: parts must be N apart, strides {fg.stride()}")
-    if P > MAX_PARTS:
-        raise ValueError(f"topk_select kernel takes P <= {MAX_PARTS}, P={P}")
-    w = torch.empty((B, P, N), dtype=torch.float32, device=fg.device)
-    if w.numel() == 0:
-        return w
-    stream = torch.cuda.current_stream(fg.device).cuda_stream
-    err = _lib().nhvr_topk_select(fg.data_ptr(), fg.stride(0), w.data_ptr(),
-                                  B, P, N, k, float(eps), block_parts, stream)
-    topk_select.launches += 1
-    _check(err, "topk_select")
-    return w
-
-
-topk_select.launches = 0
+def _check_device(name: str, t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def _check_tex(tex: torch.Tensor, B: int, P: int):
@@ -297,8 +293,6 @@ def _check_cuda_warp(name: str, tex, u, v, w, sel: str = "w") -> None:
     """What the forward and backward kernels take on the card. w is the
     selection (contiguous) or, for sel="fg", the fg view (parts N apart)."""
     B, P, N = w.shape
-    if w.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {w.device}")
     for tname, t in (("u", u), ("v", v), (sel, w)):
         _check_planes(tname, t, B, P, N)
         if t.device != w.device:
@@ -329,18 +323,71 @@ def _fwd_texture(tex: torch.Tensor, B: int):
     return tex_bstride, tex4
 
 
-def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     w: torch.Tensor) -> torch.Tensor:
-    """Blended bilinear texture warp (see texture_warp_fwd_plain).
-    tex (B or 1, P, C, T, T) float32, each sample contiguous; u, v (B, P, N)
-    float32 with one stride layout; w (B, P, N) contiguous. -> (B, C, N).
-    The kernel takes P <= 32, C <= 4. It is the block_parts route's
-    forward: the others select inside texture_warp_topk_fwd."""
+# ---- topk_select
+
+@torch.library.custom_op(
+    f"{NAMESPACE}::topk_select", mutates_args=(), device_types="cpu",
+    schema="(Tensor fg, int k, int block_parts, float eps) -> Tensor")
+def _topk_select_op(fg, k, block_parts, eps):
+    return _fresh(topk_select_plain(fg, k, block_parts, eps), fg)
+
+
+@_topk_select_op.register_kernel("cuda")
+def _topk_select_cuda(fg, k, block_parts, eps):
+    B, P, N = fg.shape
+    _check_planes("fg", fg, B, P, N)
+    if fg.stride(1) != N:
+        raise ValueError(f"fg: parts must be N apart, strides {fg.stride()}")
+    if P > MAX_PARTS:
+        raise ValueError(f"topk_select kernel takes P <= {MAX_PARTS}, P={P}")
+    w = torch.empty((B, P, N), dtype=torch.float32, device=fg.device)
+    if w.numel() == 0:
+        return w
+    stream = torch.cuda.current_stream(fg.device).cuda_stream
+    err = _lib().nhvr_topk_select(fg.data_ptr(), fg.stride(0), w.data_ptr(),
+                                  B, P, N, k, float(eps), block_parts, stream)
+    topk_select.launches += 1
+    _check(err, "topk_select")
+    return w
+
+
+@_topk_select_op.register_fake
+def _(fg, k, block_parts, eps):
+    return fg.new_empty(fg.shape, dtype=torch.float32)
+
+
+def topk_select(fg: torch.Tensor, k: int, block_parts: int = 0,
+                eps: float = 0.0) -> torch.Tensor:
+    """Top-k part selection (see topk_select_plain), the operator
+    ``nhvr_torch::topk_select``. fg (B, P, N) float32 with a contiguous
+    pixel axis (on the card: parts N apart, P <= 32); 1 <= k <= P."""
+    B, P, N = fg.shape
+    if not 1 <= k <= P:
+        raise ValueError(f"k={k} outside [1, P={P}]")
+    if 0 < block_parts < P and N % CAP_BLOCK:
+        raise ValueError(f"block_parts needs N % {CAP_BLOCK} == 0, N={N}")
+    _check_device("topk_select", fg)
+    if fg.device.type == "cpu":
+        fg = fg.float()
+    return _topk_select_op(fg, k, block_parts, float(eps))
+
+
+topk_select.launches = 0
+
+
+# ---- texture_warp_fwd (w given)
+
+@torch.library.custom_op(
+    f"{NAMESPACE}::texture_warp_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor tex, Tensor u, Tensor v, Tensor w) -> Tensor")
+def _texture_warp_fwd_op(tex, u, v, w):
+    return texture_warp_fwd_plain(tex, u, v, w)
+
+
+@_texture_warp_fwd_op.register_kernel("cuda")
+def _texture_warp_fwd_cuda(tex, u, v, w):
     B, P, N = w.shape
-    C, T = _check_tex(tex, B, P)
-    if w.device.type == "cpu":
-        return texture_warp_fwd_plain(tex.float(), u.float(), v.float(),
-                                      w.float())
+    C, T = tex.shape[2], tex.shape[3]
     _check_cuda_warp("texture_warp_fwd", tex, u, v, w)
     if P > MAX_PARTS:
         raise ValueError(f"texture_warp_fwd kernel takes P <= {MAX_PARTS}")
@@ -358,36 +405,55 @@ def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@_texture_warp_fwd_op.register_fake
+def _(tex, u, v, w):
+    return w.new_empty((w.shape[0], tex.shape[2], w.shape[2]),
+                       dtype=torch.float32)
+
+
+def texture_warp_fwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """Blended bilinear texture warp (see texture_warp_fwd_plain), the
+    operator ``nhvr_torch::texture_warp_fwd``. tex (B or 1, P, C, T, T)
+    float32, each sample contiguous; u, v (B, P, N) float32 with one stride
+    layout; w (B, P, N) contiguous. -> (B, C, N). The kernel takes P <= 32,
+    C <= 4. It is the block_parts route's forward: the others select
+    inside texture_warp_topk_fwd."""
+    B, P, N = w.shape
+    _check_tex(tex, B, P)
+    _check_device("texture_warp_fwd", w)
+    if w.device.type == "cpu":
+        tex, u, v, w = tex.float(), u.float(), v.float(), w.float()
+    return _texture_warp_fwd_op(tex, u, v, w)
+
+
 texture_warp_fwd.launches = 0
 
 
-def texture_warp_topk_fwd(tex: torch.Tensor, fg: torch.Tensor,
-                          u: torch.Tensor, v: torch.Tensor, k: int,
-                          eps: float = 0.0, return_w: bool = False):
-    """The selection fused into the forward: texture_warp_fwd(tex, u, v,
-    topk_select(fg, k, 0, eps)) in one launch that keeps w in registers.
-    fg (B, P, N) float32 with parts N apart and a contiguous pixel axis
-    (the view probs[:, 1:]); the rest as texture_warp_fwd's.
-    -> out (B, C, N); with return_w, (out, w), w written by the same launch
-    and bit-identical to topk_select's. 1 <= k <= P <= 32 and C <= 4 on
-    every device (the kernel's limits)."""
+# ---- texture_warp_topk_fwd (the selection fused in)
+
+@torch.library.custom_op(
+    f"{NAMESPACE}::texture_warp_topk_fwd", mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor tex, Tensor fg, Tensor u, Tensor v, int k, float eps, "
+           "bool return_w) -> (Tensor, Tensor)")
+def _texture_warp_topk_fwd_op(tex, fg, u, v, k, eps, return_w):
+    w = topk_select_plain(fg, k, 0, eps)
+    out = texture_warp_fwd_plain(tex, u, v, w)
+    w = _fresh(w, fg) if return_w else fg.new_empty((0,))
+    return out, w
+
+
+@_texture_warp_topk_fwd_op.register_kernel("cuda")
+def _texture_warp_topk_fwd_cuda(tex, fg, u, v, k, eps, return_w):
     B, P, N = fg.shape
-    C, T = _check_tex(tex, B, P)
-    if not 1 <= k <= P:
-        raise ValueError(f"k={k} outside [1, P={P}]")
-    if P > MAX_PARTS or C > MAX_CHANNELS:
-        raise ValueError(f"texture_warp_topk_fwd takes P <= {MAX_PARTS} and "
-                         f"C <= {MAX_CHANNELS}, got P={P}, C={C}")
-    if fg.device.type == "cpu":
-        w = topk_select_plain(fg.float(), k, 0, eps)
-        out = texture_warp_fwd_plain(tex.float(), u.float(), v.float(), w)
-        return (out, w) if return_w else out
+    C, T = tex.shape[2], tex.shape[3]
     _check_cuda_warp("texture_warp_topk_fwd", tex, u, v, fg, sel="fg")
     out = torch.empty((B, C, N), dtype=torch.float32, device=fg.device)
-    w = (torch.empty((B, P, N), dtype=torch.float32, device=fg.device)
-         if return_w else None)
+    w = torch.empty((B, P, N) if return_w else (0,), dtype=torch.float32,
+                    device=fg.device)
     if out.numel() == 0:
-        return (out, w) if return_w else out
+        return out, w
     tex_bstride, tex4 = _fwd_texture(tex, B)
     stream = torch.cuda.current_stream(fg.device).cuda_stream
     err = _lib().nhvr_texture_warp_topk_fwd(
@@ -397,27 +463,60 @@ def texture_warp_topk_fwd(tex: torch.Tensor, fg: torch.Tensor,
         B, P, C, T, N, k, float(eps), stream)
     texture_warp_topk_fwd.launches += 1
     _check(err, "texture_warp_topk_fwd")
+    return out, w
+
+
+@_texture_warp_topk_fwd_op.register_fake
+def _(tex, fg, u, v, k, eps, return_w):
+    B, P, N = fg.shape
+    return (fg.new_empty((B, tex.shape[2], N), dtype=torch.float32),
+            fg.new_empty((B, P, N) if return_w else (0,),
+                         dtype=torch.float32))
+
+
+def texture_warp_topk_fwd(tex: torch.Tensor, fg: torch.Tensor,
+                          u: torch.Tensor, v: torch.Tensor, k: int,
+                          eps: float = 0.0, return_w: bool = False):
+    """The selection fused into the forward: texture_warp_fwd(tex, u, v,
+    topk_select(fg, k, 0, eps)) in one launch that keeps w in registers;
+    the operator ``nhvr_torch::texture_warp_topk_fwd``, which returns
+    (out, w) with an empty w unless return_w. fg (B, P, N) float32 with
+    parts N apart and a contiguous pixel axis (the view probs[:, 1:]); the
+    rest as texture_warp_fwd's. -> out (B, C, N); with return_w, (out, w),
+    w written by the same launch and bit-identical to topk_select's.
+    1 <= k <= P <= 32 and C <= 4 on every device (the kernel's limits)."""
+    B, P, N = fg.shape
+    C, T = _check_tex(tex, B, P)
+    if not 1 <= k <= P:
+        raise ValueError(f"k={k} outside [1, P={P}]")
+    if P > MAX_PARTS or C > MAX_CHANNELS:
+        raise ValueError(f"texture_warp_topk_fwd takes P <= {MAX_PARTS} and "
+                         f"C <= {MAX_CHANNELS}, got P={P}, C={C}")
+    _check_device("texture_warp_topk_fwd", fg)
+    if fg.device.type == "cpu":
+        tex, fg, u, v = tex.float(), fg.float(), u.float(), v.float()
+    out, w = _texture_warp_topk_fwd_op(tex, fg, u, v, k, float(eps),
+                                       bool(return_w))
     return (out, w) if return_w else out
 
 
 texture_warp_topk_fwd.launches = 0
 
 
-def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     w: torch.Tensor, g: torch.Tensor):
-    """Backward of the blended warp (see texture_warp_bwd_plain). Inputs as
-    texture_warp_fwd's, g (B, C, N) float32 contiguous -> duv (B, P, 2, N),
-    dprobs (B, P+1, N) and dtex shaped like tex, all fresh and contiguous.
-    On the card the kernel writes every element of the three (no memset),
-    in one launch planned by bwd_launch_plan; dtex is summed with shared
-    float atomics, so its last bits vary from run to run."""
+# ---- texture_warp_bwd
+
+@torch.library.custom_op(
+    f"{NAMESPACE}::texture_warp_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor tex, Tensor u, Tensor v, Tensor w, Tensor g) "
+           "-> (Tensor, Tensor, Tensor)")
+def _texture_warp_bwd_op(tex, u, v, w, g):
+    return texture_warp_bwd_plain(tex, u, v, w, g)
+
+
+@_texture_warp_bwd_op.register_kernel("cuda")
+def _texture_warp_bwd_cuda(tex, u, v, w, g):
     B, P, N = w.shape
-    C, T = _check_tex(tex, B, P)
-    if tuple(g.shape) != (B, C, N):
-        raise ValueError(f"g: expected {(B, C, N)}, got {tuple(g.shape)}")
-    if w.device.type == "cpu":
-        return texture_warp_bwd_plain(tex.float(), u.float(), v.float(),
-                                      w.float(), g.float())
+    C, T = tex.shape[2], tex.shape[3]
     _check_cuda_warp("texture_warp_bwd", tex, u, v, w)
     if g.dtype != torch.float32 or g.device != w.device \
             or not g.is_contiguous():
@@ -446,6 +545,34 @@ def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     texture_warp_bwd.launches += 1
     _check(err, "texture_warp_bwd")
     return duv, dprobs, dtex
+
+
+@_texture_warp_bwd_op.register_fake
+def _(tex, u, v, w, g):
+    B, P, N = w.shape
+    return (w.new_empty((B, P, 2, N), dtype=torch.float32),
+            w.new_empty((B, P + 1, N), dtype=torch.float32),
+            tex.new_empty(tex.shape, dtype=torch.float32))
+
+
+def texture_warp_bwd(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, g: torch.Tensor):
+    """Backward of the blended warp (see texture_warp_bwd_plain), the
+    operator ``nhvr_torch::texture_warp_bwd``. Inputs as
+    texture_warp_fwd's, g (B, C, N) float32 contiguous -> duv (B, P, 2, N),
+    dprobs (B, P+1, N) and dtex shaped like tex, all fresh and contiguous.
+    On the card the kernel writes every element of the three (no memset),
+    in one launch planned by bwd_launch_plan; dtex is summed with shared
+    float atomics, so its last bits vary from run to run."""
+    B, P, N = w.shape
+    C, T = _check_tex(tex, B, P)
+    if tuple(g.shape) != (B, C, N):
+        raise ValueError(f"g: expected {(B, C, N)}, got {tuple(g.shape)}")
+    _check_device("texture_warp_bwd", w)
+    if w.device.type == "cpu":
+        tex, u, v, w, g = tex.float(), u.float(), v.float(), w.float(), \
+            g.float()
+    return _texture_warp_bwd_op(tex, u, v, w, g)
 
 
 texture_warp_bwd.launches = 0

@@ -11,10 +11,11 @@ epoch loop, which saves checkpoints under {checkpoints_dir}/{name}/.
     python -m neural_human_video_rendering_tpu_torch.train.drivers \\
         <train.py flags> [--gpu_ids -1 for the CPU]
 
-A --load_pretrain* or --which_epoch run dir may hold the port's .pth
-files or the JAX package's .msgpack files (.pth first). Resuming a JAX
-run's optimizer state is not supported: --continue_train on a dir that
-holds only JAX files is refused.
+A --load_pretrain*, --which_epoch or --continue_train run dir may hold
+the port's .pth files or the JAX package's .msgpack files (.pth first);
+--continue_train on a JAX run also restores its optimizer state
+(latest_state.msgpack: both Adam states, the step, the schedule and the
+freeze position; utils/checkpoint.load_train_state).
 """
 
 from __future__ import annotations
@@ -94,15 +95,6 @@ def _tex_mask(opt, tex: np.ndarray) -> Optional[np.ndarray]:
     return (np.abs(tex + 1.0).sum(-1, keepdims=True) > 0.05).astype(np.float32)
 
 
-def _refuse_jax_resume(run_dir: str, label: str) -> None:
-    if (ckpt.latest_epoch(run_dir, label, exts=(ckpt.JAX_EXT,)) is not None
-            or ckpt.has_latest(run_dir, label, ckpt.JAX_EXT)):
-        raise NotImplementedError(
-            f"--continue_train: {run_dir} holds only the JAX package's "
-            f".msgpack checkpoints; resuming a JAX run's optimizer state is "
-            f"not supported (start a new run with --load_pretrain {run_dir})")
-
-
 def _epochs(opt, epochs: Optional[int]) -> int:
     if epochs is not None:
         return epochs
@@ -129,16 +121,17 @@ def save_checkpoint(run_dir: str, st, epoch, completed=None) -> None:
 
 
 def resume_train(opt, st, steps_per_epoch: int) -> Optional[int]:
-    """The --continue_train ladder on --name's run dir: G; D (a missing
-    latest D, from a save killed midway, keeps the fresh D); the EMA track
-    (restarted from the resumed raw weights if this run saved none); the
-    optimizers and the step; then the epoch to start at: the state's
-    epoch, else the numeric epoch files', else step // steps-per-epoch.
-    Returns that epoch, or None when there is nothing to resume."""
+    """The --continue_train ladder on --name's run dir, the port's files
+    or the JAX package's: G; D (a missing latest D, from a save killed
+    midway, keeps the fresh D); the EMA track (restarted from the resumed
+    raw weights if this run saved none); the optimizers and the step
+    (fresh where the run dir holds no state file, as the JAX package
+    resumes); then the epoch to start at: the state's epoch, else the
+    numeric epoch files', else step // steps-per-epoch. Returns that
+    epoch, or None when there is nothing to resume."""
     run_dir = opt.run_dir
-    ep = ckpt.latest_epoch(run_dir, "G", exts=(ckpt.EXT,))
+    ep = ckpt.latest_epoch(run_dir, "G")
     if ep is None and not ckpt.has_latest(run_dir, "G"):
-        _refuse_jax_resume(run_dir, "G")
         return None
     ckpt.load_net_into(st.renderer, run_dir, "G")
     if ckpt.has_latest(run_dir, "D"):
@@ -157,7 +150,8 @@ def resume_train(opt, st, steps_per_epoch: int) -> Optional[int]:
         with torch.no_grad():
             for k, v in src.items():
                 st.g_ema[k].copy_(v)
-    step, saved_ep = ckpt.load_train_state(run_dir, st.g_opt, st.d_opt)
+    step, saved_ep = ckpt.load_train_state(run_dir, st.g_opt, st.d_opt,
+                                           (st.renderer, st.disc))
     if step is not None:
         st.step = step
     if saved_ep is not None and saved_ep > 0:
@@ -300,15 +294,17 @@ def kernel_launches() -> dict:
 def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
                     epochs: Optional[int], max_steps: Optional[int]):
     """The pretrain stages' driver: resume the net from --name's run dir
-    (latest file; the epoch from the numeric files or the anchor), fresh
-    Adam, then the loop saving {epoch}_net_{label} and the epoch anchor."""
+    (the latest file, .pth or the JAX package's .msgpack; the epoch from
+    the numeric files or the anchor), fresh Adam (neither package saves a
+    pretrain stage's optimizer), then the loop saving {epoch}_net_{label}
+    and the epoch anchor."""
     device = resolve_device(opt.gpu_ids)
     net = init_params(net, opt.seed).to(device).train()
     loader = _loader(opt, ds)
     run_dir = opt.run_dir
     start = 1
     if opt.continue_train:
-        ep = ckpt.latest_epoch(run_dir, label, exts=(ckpt.EXT,))
+        ep = ckpt.latest_epoch(run_dir, label)
         if ep is not None or ckpt.has_latest(run_dir, label):
             ckpt.load_net_into(net, run_dir, label)
             if ep is None:
@@ -322,8 +318,6 @@ def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
             loader.epoch = start - 1
             prune_metrics_after(run_dir, start - 1)
             print(f"[ckpt] resumed at epoch {start}", flush=True)
-        else:
-            _refuse_jax_resume(run_dir, label)
     state = PretrainState(step=0, net=net, device=device,
                           optimizer=make_optimizer(opt, net.named_parameters(),
                                                    len(loader)))

@@ -88,23 +88,28 @@ class ScheduledAdam(torch.optim.Adam):
     of Adam): zero, not None, so their Adam step counts advance with the
     others as optax's one shared count does, their moments stay 0 and
     they do not move; the bias correction after the unfreeze is optax's.
-    The gate reads the update count, which a resume restores (or
-    fast-forwards to the saved step: utils/checkpoint), so it is the
-    train state's step."""
+    The gate reads its own update count, ``freeze_count`` (optax keeps
+    the freeze's count apart from the schedule's), which a resume restores
+    (or fast-forwards to the saved step: utils/checkpoint), so it is the
+    train state's step. ``scheduled`` says whether the JAX package's
+    optimizer of the same flags holds a schedule state (the LR decays);
+    a resume from a JAX run reads optax's layout by it."""
 
     def __init__(self, params, lr: float, betas, schedule: Callable,
-                 frozen=(), frozen_steps: int = 0):
+                 frozen=(), frozen_steps: int = 0, scheduled: bool = False):
         super().__init__(params, lr=lr, betas=betas, eps=1e-8)
         self.base_lr = lr
         self.schedule = schedule
+        self.scheduled = scheduled
         self.count = 0
+        self.freeze_count = 0
         self.frozen = list(frozen)
         self.frozen_steps = frozen_steps
 
     def step(self, closure=None):
         for group in self.param_groups:
             group["lr"] = self.base_lr * self.schedule(self.count)
-        if self.count < self.frozen_steps:
+        if self.freeze_count < self.frozen_steps:
             for p in self.frozen:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -112,19 +117,24 @@ class ScheduledAdam(torch.optim.Adam):
                     p.grad.zero_()
         loss = super().step(closure)
         self.count += 1
+        self.freeze_count += 1
         return loss
 
     def state_dict(self):
-        """torch's Adam state plus the update count the schedule reads."""
+        """torch's Adam state plus the update counts the schedule and the
+        freeze read."""
         sd = super().state_dict()
         sd["count"] = self.count
+        sd["freeze_count"] = self.freeze_count
         return sd
 
     def load_state_dict(self, state_dict) -> None:
         state_dict = dict(state_dict)
         count = int(state_dict.pop("count", 0))
+        freeze_count = int(state_dict.pop("freeze_count", count))
         super().load_state_dict(state_dict)
         self.count = count
+        self.freeze_count = freeze_count
 
 
 FREEZE_SCOPE = "global_trunk"
@@ -146,7 +156,8 @@ def make_optimizer(opt, params, steps_per_epoch: int = 0) -> ScheduledAdam:
             steps = opt.niter_fix_global * steps_per_epoch
         params = [p for _, p in params]
     return ScheduledAdam(params, opt.lr, (opt.beta1, opt.beta2),
-                         lr_schedule(opt, steps_per_epoch), frozen, steps)
+                         lr_schedule(opt, steps_per_epoch), frozen, steps,
+                         scheduled=not opt.no_decay and steps_per_epoch > 0)
 
 
 def to_nchw(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:

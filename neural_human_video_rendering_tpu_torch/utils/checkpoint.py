@@ -16,7 +16,13 @@ a resumed run starts with an empty pool.
 
 A run directory written by the JAX package holds ``.msgpack`` files
 instead; ``load_net`` reads those too (``utils/flax_msgpack`` and the
-bridge), preferring ``.pth`` where both exist.
+bridge), preferring ``.pth`` where both exist, and ``load_train_state``
+reads its ``latest_state.msgpack`` (optax's Adam moments and counts, the
+schedule's count and the --niter_fix_global freeze's) into the two
+ScheduledAdams, with the JAX package's two tolerances: leaves whose path
+and shape match are restored, the rest keep their fresh init (one message
+counts them), and a schedule or freeze count still at 0 after a resume at
+step > 0 is fast-forwarded to the step.
 """
 
 from __future__ import annotations
@@ -27,13 +33,17 @@ import os
 import re
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from ..models.bridge import state_dict_from_flax_file
+from ..models.bridge import (flax_layout, leaf_from_jax,
+                             state_dict_from_flax_file)
+from . import flax_msgpack
 
 EXT = ".pth"
 JAX_EXT = ".msgpack"
 STATE_FILE = "latest_state" + EXT
+JAX_STATE_FILE = "latest_state" + JAX_EXT
 ANCHOR_FILE = "latest_anchor.json"
 # a residual block's prefix in a state_dict key
 _RESBLOCK = re.compile(r"^(.*\.)?ResnetBlock_\d+(?=\.)")
@@ -105,10 +115,12 @@ def load_net_into(module: torch.nn.Module, run_dir: str, label: str,
     return find_net(run_dir, label, epoch)
 
 
-def has_latest(run_dir: str, label: str, ext: str = EXT) -> bool:
-    """True when latest_net_{label} exists: the only artifact a run saved
-    purely by --save_latest_freq iteration saves leaves behind."""
-    return os.path.isfile(_path(run_dir, "latest", label, ext))
+def has_latest(run_dir: str, label: str, exts=(EXT, JAX_EXT)) -> bool:
+    """True when latest_net_{label} exists (.pth or .msgpack): the only
+    artifact a run saved purely by --save_latest_freq iteration saves
+    leaves behind."""
+    return any(os.path.isfile(_path(run_dir, "latest", label, ext))
+               for ext in exts)
 
 
 def latest_epoch(run_dir: str, label: str,
@@ -158,31 +170,147 @@ def save_train_state(run_dir: str, g_opt, d_opt, step: int, epoch) -> str:
     return path
 
 
+def _stamp(count: int, step: int) -> int:
+    """A count still at 0 after a resume at step > 0 is fast-forwarded to
+    the step, so an LR schedule (or the freeze) added on resume starts at
+    the checkpoint's position instead of from scratch."""
+    return step if step > 0 and count == 0 else count
+
+
 def _tolerant_load(optimizer, saved, label: str, step: int) -> None:
     """optimizer.load_state_dict that survives a changed parameter
-    structure (keeps the fresh state, says so), then fast-forwards an
-    update count still at 0 to the step, so an LR schedule resumes at the
-    checkpoint's position."""
+    structure (keeps the fresh state, says so), then fast-forwards the
+    update counts (_stamp)."""
     try:
         optimizer.load_state_dict(saved)
     except (ValueError, KeyError) as e:
         print(f"[ckpt] {label}: optimizer structure changed ({e}); kept "
               "fresh init", flush=True)
-    if step > 0 and getattr(optimizer, "count", None) == 0:
-        optimizer.count = step
+    if hasattr(optimizer, "count"):
+        optimizer.count = _stamp(optimizer.count, step)
+        optimizer.freeze_count = _stamp(optimizer.freeze_count, step)
 
 
-def load_train_state(run_dir: str, g_opt, d_opt):
-    """Restore both optimizers from latest_state.pth; returns (step,
-    saved epoch) or (None, None) when the file does not exist."""
+# ---- a JAX run's optimizer state (optax's layout, flax's to_state_dict)
+
+def _optax_target(optimizer, module) -> dict:
+    """The state tree the JAX package's make_optimizer would hold for this
+    ScheduledAdam over `module`, leaves as their shapes:
+    ``{'0': {count, mu, nu}, '1': {count} or {}}`` (Adam, then the
+    schedule's count, {} without decay), under --niter_fix_global's freeze
+    ``{'0': {count}, '1': <that>}``. mu and nu are flax parameter trees."""
+    params: dict = {}
+    for name, p in module.named_parameters():
+        path, shape = flax_layout(name, p.shape)
+        node = params
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = shape
+    inner = {"0": {"count": (), "mu": params, "nu": params},
+             "1": {"count": ()} if optimizer.scheduled else {}}
+    if optimizer.frozen_steps > 0:
+        return {"0": {"count": ()}, "1": inner}
+    return inner
+
+
+def _merge(target, raw, path: str, dropped: list):
+    """The JAX package's _tolerant_from_state_dict merge: every leaf of
+    `target` whose path exists in `raw` with the same shape is taken from
+    it; any other (a missing key, a subtree where a leaf is expected or
+    the reverse, another shape) is None (fresh) and its path is recorded.
+    Keys of `raw` that the target lacks are ignored."""
+    if isinstance(target, dict) and isinstance(raw, dict):
+        return {k: _merge(v, raw.get(k), f"{path}/{k}", dropped)
+                for k, v in target.items()}
+    if isinstance(target, dict) or isinstance(raw, dict) or raw is None \
+            or tuple(np.shape(raw)) != tuple(target):
+        dropped.append(path or "/")
+        return None
+    return raw
+
+
+def _leaf(tree, path):
+    for part in path:
+        if not isinstance(tree, dict):
+            return None
+        tree = tree.get(part)
+    return tree
+
+
+def _count(node) -> Optional[int]:
+    c = _leaf(node, ("count",))
+    return None if c is None else int(np.asarray(c))
+
+
+def load_jax_optimizer(optimizer, module, raw, label: str, step: int) -> None:
+    """One optimizer's state of a JAX run (``g_opt`` / ``d_opt`` of
+    latest_state.msgpack) into the ScheduledAdam over `module`. Adam's
+    mu / nu leaves become exp_avg / exp_avg_sq through the bridge's
+    layout change of their parameter (a permutation: bit-equal), optax's
+    Adam count each parameter's step; the schedule's count the optimizer's
+    count, the freeze's its freeze_count (either fast-forwarded from 0 to
+    the step: _stamp). What the merge drops keeps its fresh init: zero
+    moments, or no state at all where nothing of Adam was restored."""
+    dropped: list = []
+    merged = _merge(_optax_target(optimizer, module), raw, "", dropped)
+    if dropped:
+        print(f"[ckpt] {label}: optimizer structure changed; kept fresh init "
+              f"for {len(dropped)} subtree(s) (schedule change?)", flush=True)
+    freeze, inner = ((_leaf(merged, ("0",)), _leaf(merged, ("1",)))
+                     if optimizer.frozen_steps > 0 else (None, merged))
+    adam = _leaf(inner, ("0",))
+    adam_count = _count(adam)
+    names = {id(p): n for n, p in module.named_parameters()}
+    state = {}
+    for i, p in enumerate(optimizer.param_groups[0]["params"]):
+        path = flax_layout(names[id(p)], p.shape)[0]
+        moments = []
+        for kind in ("mu", "nu"):
+            arr = _leaf(adam, (kind, *path))
+            moments.append(None if arr is None else
+                           leaf_from_jax(".".join(path), np.asarray(arr))[1])
+        if adam_count is None and moments == [None, None]:
+            continue
+        state[i] = {"step": torch.tensor(float(adam_count or 0)),
+                    "exp_avg": (moments[0] if moments[0] is not None
+                                else torch.zeros_like(p, device="cpu")),
+                    "exp_avg_sq": (moments[1] if moments[1] is not None
+                                   else torch.zeros_like(p, device="cpu"))}
+    sched = _count(_leaf(inner, ("1",))) if optimizer.scheduled else None
+    count = _stamp(sched or 0, step)
+    freeze_count = (_stamp(_count(freeze) or 0, step)
+                    if optimizer.frozen_steps > 0 else count)
+    optimizer.load_state_dict({
+        "state": state,
+        "param_groups": optimizer.state_dict()["param_groups"],
+        "count": count, "freeze_count": freeze_count})
+
+
+def load_train_state(run_dir: str, g_opt, d_opt, modules=None):
+    """Restore both optimizers from latest_state.pth or, where the run dir
+    holds the JAX package's latest_state.msgpack instead, from that (then
+    ``modules`` = (G, D), the modules the two optimizers update, is
+    required); returns (step, saved epoch) or (None, None) when neither
+    file exists."""
     path = os.path.join(run_dir, STATE_FILE)
-    if not os.path.exists(path):
+    jax_path = os.path.join(run_dir, JAX_STATE_FILE)
+    if os.path.exists(path):
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        step = int(raw["step"])
+        _tolerant_load(g_opt, raw["g_opt"], "g_opt", step)
+        _tolerant_load(d_opt, raw["d_opt"], "d_opt", step)
+        return step, int(raw["epoch"])
+    if not os.path.exists(jax_path):
         return None, None
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    step = int(raw["step"])
-    _tolerant_load(g_opt, raw["g_opt"], "g_opt", step)
-    _tolerant_load(d_opt, raw["d_opt"], "d_opt", step)
-    return step, int(raw["epoch"])
+    if modules is None:
+        raise ValueError(f"{jax_path}: a JAX run's optimizer state needs the "
+                         "modules the optimizers update")
+    raw = flax_msgpack.restore(jax_path)
+    step = int(np.asarray(raw["step"]))
+    for label, optimizer, module in (("g_opt", g_opt, modules[0]),
+                                     ("d_opt", d_opt, modules[1])):
+        load_jax_optimizer(optimizer, module, raw[label], label, step)
+    return step, int(np.asarray(raw["epoch"]))
 
 
 def load_transg_into(renderer: torch.nn.Module, pretrain_dir: str,

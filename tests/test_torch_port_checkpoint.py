@@ -30,6 +30,7 @@ from neural_human_video_rendering_tpu_torch.config import TestOptions
 from neural_human_video_rendering_tpu_torch.config import TrainOptions
 from neural_human_video_rendering_tpu_torch.data.dataset import SyntheticDataset
 from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+from neural_human_video_rendering_tpu_torch.models.bridge import params_from_jax
 from neural_human_video_rendering_tpu_torch.models.discriminator import \
     discriminator_from_options
 from neural_human_video_rendering_tpu_torch.models.renderer import (
@@ -262,11 +263,41 @@ def test_latest_only_save_resumes_at_its_anchor(tmp_path, capsys):
 
 
 def test_continue_train_refuses_a_jax_run(jax_run):
+    """--continue_train on the JAX run dir with other model flags (ngf 8,
+    the run's is 4): the strict load refuses its G, before anything is
+    written (a JAX run of this model resumes: the next test)."""
     opt = TrainOptions().parse(TINY + [
         "--checkpoints_dir", jax_run["root"], "--name", "run",
-        "--continue_train", "--no_vgg_loss"], save=False)
-    with pytest.raises(NotImplementedError, match="JAX"):
+        "--continue_train", "--no_vgg_loss", "--ngf", "8"], save=False)
+    before = sorted(os.listdir(jax_run["run"]))
+    with pytest.raises(RuntimeError, match="size mismatch"):
         drivers.run_train(opt, max_steps=0)
+    assert sorted(os.listdir(jax_run["run"])) == before
+
+
+def test_continue_train_resumes_a_jax_run(jax_run, tmp_path, capsys):
+    """--continue_train on the JAX run dir (a copy: weights at epoch 3, no
+    latest_state blob): G, D and G_ema from its .msgpack files, fresh
+    optimizers and step 0, epoch 4 next, as the JAX package resumes such a
+    dir (its load_train_state returns None)."""
+    import shutil
+    shutil.copytree(jax_run["run"], str(tmp_path / "run"))
+    opt = TrainOptions().parse(TINY + [
+        "--checkpoints_dir", str(tmp_path), "--name", "run",
+        "--continue_train", "--no_vgg_loss"], save=False)
+    st = drivers.run_train(opt, max_steps=0)
+    assert "resumed at epoch 4 (step 0, optimizer state fresh)" in \
+        capsys.readouterr().out
+    assert st.start_epoch == 4 and st.step == 0
+    for o in (st.g_opt, st.d_opt):
+        assert o.count == 0 and o.freeze_count == 0 and not o.state
+    for got, want in ((st.renderer.state_dict(), params_from_jax(jax_run["g"])),
+                      (st.disc.state_dict(), params_from_jax(jax_run["d"])),
+                      (st.g_ema, ckpt.load_net(jax_run["run"], "G_ema"))):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert not any(f.endswith(ckpt.EXT) for f in os.listdir(tmp_path / "run"))
 
 
 def _state_tensors(st):

@@ -679,3 +679,149 @@ def test_pool_update_on_the_card_matches_cpu(cuda):
         assert torch.equal(a, b)
     assert torch.equal(results["cpu"][1], results["cuda"][1])
     assert results["cpu"][2] == results["cuda"][2] == K
+
+
+def _op_inputs(dev):
+    """Inputs of each nhvr_torch operator (the CPU's own tensors moved to
+    `dev`): name -> (op, args, tolerance kind)."""
+    g = torch.Generator().manual_seed(5)
+    probs = torch.softmax(torch.randn((2, 8, 32, 32), generator=g) * 2, 1)
+    uv = torch.rand((2, 7, 2, 32, 32), generator=g)
+    tex = torch.rand((2, 7, 3, 16, 16), generator=g) * 2 - 1
+    img = torch.randn((2, 5, 24, 40), generator=g)
+    flow = 6 * torch.randn((2, 2, 24, 40), generator=g)
+    fg_cap = torch.softmax(torch.randn((1, 6, 32, 64), generator=g) * 2,
+                           1)[:, 1:].flatten(2)
+    probs, uv, tex, img, flow, fg_cap = (t.to(dev) for t in (
+        probs, uv, tex, img, flow, fg_cap))
+    fg = probs[:, 1:].flatten(2)
+    u, v = uv[:, :, 0].flatten(2), uv[:, :, 1].flatten(2)
+    w = tk.topk_select_plain(fg, 3, 0, 1e-3)
+    gr = torch.randn((2, 3, 1024), generator=torch.Generator().manual_seed(6)
+                     ).to(dev)
+    ops = torch.ops.nhvr_torch
+    return {
+        "topk_select": (ops.topk_select.default, (fg, 3, 0, 1e-3), "exact"),
+        "topk_select block_parts": (ops.topk_select.default,
+                                    (fg_cap, 2, 2, 0.0), "exact"),
+        "texture_warp_fwd": (ops.texture_warp_fwd.default, (tex, u, v, w),
+                             "fwd"),
+        "texture_warp_topk_fwd": (ops.texture_warp_topk_fwd.default,
+                                  (tex, fg, u, v, 3, 1e-3, False), "fwd"),
+        "texture_warp_topk_fwd keep w": (
+            ops.texture_warp_topk_fwd.default,
+            (tex[:1], fg, u, v, 3, 1e-3, True), "fwd"),
+        "texture_warp_bwd": (ops.texture_warp_bwd.default,
+                             (tex, u, v, w, gr), "bwd"),
+        "flow_warp_fwd": (ops.flow_warp_fwd.default, (img, flow), "fwd"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_op_inputs(torch.device("cpu"))))
+def test_operator_on_cuda_matches_its_cpu_kernel(cuda, case):
+    """Each nhvr_torch operator: its CUDA kernel (opcheck on the card:
+    the fake kernel's shapes, dtypes and strides against the real one) and
+    the same operator on the CPU (the plain version)."""
+    op, args, kind = _op_inputs(cuda)[case]
+    _, cpu_args, _ = _op_inputs(torch.device("cpu"))[case]
+    torch.library.opcheck(op, args)
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert sum(getattr(tk, n).launches for n in (
+        "topk_select", "texture_warp_fwd", "texture_warp_topk_fwd",
+        "texture_warp_bwd")) + fk.flow_warp_fwd.launches == 1
+    want = op(*cpu_args)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for a, b in zip(got, want):
+        a = a.cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if kind == "exact" or a.numel() == 0:
+            assert torch.equal(a, b)
+        elif kind == "bwd":
+            assert float((a - b).abs().max()) <= \
+                BWD_ATOL + BWD_RTOL * float(b.abs().max())
+        else:
+            assert float((a - b).abs().max()) <= FWD_TOL * max(
+                1.0, float(b.abs().max()))
+
+
+def test_export_serving_on_cuda(cuda, tmp_path):
+    """A tiny serving program traced on the card: the fused operator is its
+    one warp node, a call launches it once (the trace launched nothing),
+    and its frames equal the live forward's."""
+    from neural_human_video_rendering_tpu_torch import export_serving as es
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_forward_fn
+    opt = TestOptions().parse((
+        "--loadSize 64 --tex_tile 16 --ngf 8 --ngf_global 8 "
+        "--n_blocks_translate 1 --n_downsample_translate 2 "
+        "--n_blocks_global 1 --n_downsample_global 1 --n_blocks_bg 1 "
+        "--n_downsample_bg 1 --pose_heatmaps --coord_conv --dtype float32 "
+        f"--gpu_ids 0 --checkpoints_dir {tmp_path}").split(), save=False)
+    tk.reset_launch_counts()
+    path = str(tmp_path / "m.pt2")
+    es.save_artifact(opt, 2, path)
+    assert tk.texture_warp_topk_fwd.launches == 0
+    loaded = torch.export.load(path)
+    assert [str(n.target) for n in loaded.graph.nodes
+            if "nhvr_torch" in str(n.target)] == [
+                "nhvr_torch.texture_warp_topk_fwd.default"]
+    side = torch.load(path + es.SIDECAR, map_location=cuda, weights_only=True)
+    ds = dsm.SyntheticDataset(opt, length=2)
+    joints = torch.from_numpy(np.stack([ds[i]["joints"] for i in range(2)])
+                              .astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        got = loaded.module()(side, joints)
+    torch.cuda.synchronize()
+    assert tk.texture_warp_topk_fwd.launches == 1
+    renderer = es.load_weights(opt, es.init_params(
+        es.renderer_from_options(opt), opt.seed)).to(cuda).eval()
+    live = make_forward_fn(opt, renderer)(td.assets_to_device(
+        opt, ds.texture_atlas(), ds.background(), cuda), joints)["fake"]
+    want = es.quantize(live).permute(0, 2, 3, 1)
+    assert int((got.int() - want.int()).abs().max()) <= 1
+
+
+def test_jax_run_resumes_on_cuda_as_on_the_cpu(cuda, tmp_path):
+    """The committed JAX run dir (testdata/jax_resume_tiny) resumed on the
+    card and on the CPU: the same step, epoch, counts and Adam moments."""
+    import json
+    import os
+    import shutil
+
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.train import drivers
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    fixture = os.path.join(os.path.dirname(tk.__file__), "..", "testdata",
+                           "jax_resume_tiny")
+    shutil.copytree(fixture, str(tmp_path / "run"))
+    with open(tmp_path / "run" / "flags.json") as f:
+        fx = json.load(f)
+    out = {}
+    for name, gpu in (("cpu", "-1"), ("cuda", "0")):
+        opt = TrainOptions().parse(fx["argv"] + [
+            "--gpu_ids", gpu, "--checkpoints_dir", str(tmp_path), "--name",
+            "run", "--continue_train"], save=False)
+        P, T, S = opt.n_parts, opt.tex_tile, opt.train_size
+        st = create_train_state(opt, np.zeros((P, T, T, 3), np.float32),
+                                np.zeros((S, S, 3), np.float32),
+                                steps_per_epoch=fx["steps_per_epoch"])
+        start = drivers.resume_train(opt, st, fx["steps_per_epoch"])
+        assert (start, st.step) == (fx["epoch"] + 1, fx["step"])
+        out[name] = st
+    for o in ("g_opt", "d_opt"):
+        a = getattr(out["cpu"], o).state_dict()
+        b = getattr(out["cuda"], o).state_dict()
+        assert (a["count"], a["freeze_count"]) == (b["count"],
+                                                   b["freeze_count"])
+        assert a["state"].keys() == b["state"].keys() and a["state"]
+        for i, s in a["state"].items():
+            for k, v in s.items():
+                assert torch.equal(v, b["state"][i][k].cpu()), (o, i, k)
