@@ -138,6 +138,19 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      (c) a random pix2pixHD GlobalGenerator at the flagship TransG's
      width (64/4/9) through import_torch_checkpoint, run on the card in
      float32 against the torch original within 1e-4 of max|original|.
+ 12. parallel: data parallel over ranks (parallel/mesh.py, runtime.py),
+     two ranks time-sharing cuda:0 through --gpu_ids 0,0 over gloo (NCCL
+     refuses two ranks on one card): (a) the flagship widths in float32,
+     SGD(1), one global batch of 2 on two ranks against one rank (losses
+     1e-4 relative, the changes of G, D and the EMA within the parity
+     tests' form), the ranks' parameters, Adam moments and EMA bit-equal
+     after 5 Adam steps; (b) run_train with the flagship recipe, 5 steps
+     on two ranks (loss keys, one metrics.jsonl writer, the checkpoints,
+     each rank's launches), resumed on one rank; (c) the same under
+     torchrun at world 1 over NCCL; (d) run_inference of 16 frames at
+     batch 8 on two ranks against one (1 uint8 level, each rank's fused
+     forwards, one HTML); (e) profile_step at the flagship. parallel_path
+     has the details; its times are no scaling number.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -145,6 +158,7 @@ package beside this script, it exits non-zero and prints no result.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2781,6 +2795,323 @@ def serving_path(torch, smoke, tk, fk, repo, dev, smi):
     return numbers
 
 
+# phase 12: data parallel over ranks (two ranks share the one card)
+PAR_ADAM = 5              # (a): Adam steps before the ranks' checksums
+PAR_FRAMES = 10           # (b): 5 steps an epoch at global batch 2
+PAR_NCCL_FRAMES = 6       # (c): 3 steps
+PAR_INFER = 16            # (d): two batches of 8
+PAR_ONE, PAR_TWO = "--gpu_ids=0", "--gpu_ids=0,0"     # one rank, two ranks
+# (a): float32, all parts blended, no VGG (bf16 in both), a linear atlas
+# with TexG's head at 0 (parallel/selfcheck.py)
+PAR_EXACT = ("--dtype float32 --warp_topk 24 --warp_eps 0 "
+             "--no_vgg_loss").split()
+PAR_LOSS_RTOL = 1e-4
+# the parity tests' form (_assert_deltas), its first term loosened from
+# 1e-5: at 2 x 512^2 pixels a float32 rounding of another batch split
+# flips the sign of an L1 term (UV, mask, temporal, feature matching)
+# where |x| is within ~1e-6 of 0, and each flip moves the gradient by
+# 2 lambda / count through the whole generator: measured up to 5.7e-3 of
+# the largest change (no flip: 4.6e-5) on the H100
+PAR_SCALE_TOL, PAR_TENSOR_TOL = 1e-2, 1e-4
+STAGE2_KEYS = ["D_total", "G_FM", "G_GAN", "G_L2", "G_Mask", "G_Prob",
+               "G_Temp", "G_UV", "G_VGG", "G_total"]
+LOSS_LINE = re.compile(r"^\(epoch: (\d+), iters: (-?\d+), time: ([0-9.]+)\) "
+                       r"(.*)$")
+
+
+def fd_captured(fn, *args, **kw):
+    """fn(*args, **kw) with file descriptor 1 sent to a file, so the ranks
+    it spawns (which inherit it) are captured too; returns (its result,
+    the text), the text echoed."""
+    import tempfile
+    sys.stdout.flush()
+    with tempfile.TemporaryFile(mode="w+") as f:
+        saved = os.dup(1)
+        os.dup2(f.fileno(), 1)
+        try:
+            res = fn(*args, **kw)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        text = f.read()
+    print(text, end="", flush=True)
+    return res, text
+
+
+def loss_lines(text):
+    """The loss lines of a run's log: [(epoch, it, seconds, {key: value})]."""
+    out = []
+    for ln in text.splitlines():
+        m = LOSS_LINE.match(ln.strip())
+        if m:
+            vals = {k: float(v) for k, v in
+                    re.findall(r"(\w+): (\S+)", m.group(4))}
+            out.append((int(m.group(1)), int(m.group(2)),
+                        float(m.group(3)), vals))
+    return out
+
+
+def rank_launches(text):
+    """{rank: launches} from the ranks' '[kernels] rank r of w ...' prints
+    (two processes' prints may share a line of the log)."""
+    return {int(m.group(1)): json.loads(m.group(2)) for m in re.finditer(
+        r"\[kernels\] rank (\d+) of \d+ [^\[]*?launches since the "
+        r"counters' reset: (\{[^}]*\})", text)}
+
+
+def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 12: data parallel (parallel/mesh.py, runtime.py). Two ranks
+    share cuda:0 through --gpu_ids 0,0 over gloo (NCCL refuses two ranks
+    on one card); a world of 1 under torchrun runs NCCL. Their times are
+    two processes time-sharing one card: no scaling number.
+      (a) the flagship widths in float32, SGD(1), one global batch of 2:
+          two ranks of 1 sample against one rank of 2 (the step's losses
+          and the changes of G, D and the EMA), then the ranks' parameters,
+          Adam moments and EMA bit-equal after 5 Adam steps
+          (parallel/selfcheck.py);
+      (b) the flagship recipe (bf16) through run_train on a corpus of 10
+          frames, 5 steps on two ranks: the loss keys, finite losses, one
+          metrics.jsonl writer, the epoch's checkpoints, each rank's
+          launches (one fused forward keeping w, one backward, one flow
+          warp a step); then --continue_train on one rank from the
+          two-rank save (epoch 2 at step 5), its launches and step ms;
+      (c) the same run under torchrun at world 1 (NCCL), 3 steps;
+      (d) run_inference of 16 frames at batch 8 on two ranks against one
+          rank, in float32 with all parts blended (a top-k choice among
+          near-equal random-init probabilities flips on the rounding of
+          another batch split: ROADMAP hazard 3): the frames within 1
+          uint8 level, each rank's fused forwards equal to one rank's (one
+          a batch), one HTML;
+      (e) profile_step at the flagship (tile 64): the top rows and the
+          step's device busy share."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import profile_step
+    from neural_human_video_rendering_tpu_torch.config import (TestOptions,
+                                                               TrainOptions)
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
+    from neural_human_video_rendering_tpu_torch.parallel.mesh import \
+        DataParallel
+    from neural_human_video_rendering_tpu_torch.runtime import launch
+    from neural_human_video_rendering_tpu_torch.train import drivers
+    from neural_human_video_rendering_tpu_torch.utils.image import read_png
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    numbers = {}
+    per_step = {k: TRAIN_LAUNCHES_PER_STEP.get(k, 0) for k in REPLACES}
+
+    # ---- (a) parity at the flagship widths
+    t0 = time.perf_counter()
+    o1 = TrainOptions().parse(TRAIN + PAR_EXACT + [PAR_ONE], save=False)
+    o2 = TrainOptions().parse(TRAIN + PAR_EXACT + [PAR_TWO], save=False)
+    syn = dsm.SyntheticDataset(o1, length=12, seed=o1.seed)
+    batch = dsm.collate([syn[i] for i in (1, 11)])
+    atlas = sc.linear_atlas(o1.n_parts, o1.tex_tile)
+    one_dir, two_dir = os.path.join(work, "a_one"), os.path.join(work, "a_two")
+    sc.rank_step(o1, batch, atlas, syn.background(), one_dir, PAR_ADAM,
+                 dp=DataParallel.solo(dev))
+    torch.cuda.empty_cache()
+    _, out_a = fd_captured(launch, sc.rank_step, o2, batch, atlas,
+                           syn.background(), two_dir, PAR_ADAM, where=work,
+                           batch=o2.batchSize)
+    got = sc.compare(one_dir, two_dir, PAR_SCALE_TOL, PAR_TENSOR_TOL)
+    print(f"[parallel] (a) {json.dumps(got)}", flush=True)
+    smoke.require("(a) two ranks on cuda:0 over gloo",
+                  "rank 1 of 2 on cuda:0 (gloo)" in out_a
+                  and "NCCL refuses" in out_a)
+    smoke.require("(a) two rank files, the same loss keys",
+                  got["n_rank_files"] == 2 and got["same_loss_keys"])
+    smoke.check("(a) step-1 losses 2 ranks vs 1 (relative)",
+                got["loss_max_rel"], PAR_LOSS_RTOL)
+    for m, r in got["delta_ratio"].items():
+        smoke.check(f"(a) {m} changes 2 ranks vs 1 (err/tol, worst at "
+                    f"{r['tensor']})", r["ratio"], 1.0)
+    smoke.require(f"(a) ranks bit-equal after {PAR_ADAM} Adam steps "
+                  "(parameters, moments, EMA)", got["ranks_bit_equal"],
+                  json.dumps(got["checksums"]))
+    numbers["a"] = {**got, "s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+
+    # ---- (b) the flagship recipe through run_train on two ranks
+    t0 = time.perf_counter()
+    ob = TrainOptions().parse(TRAIN + [PAR_ONE], save=False)
+    root = os.path.join(work, "corpus")
+    d = write_corpus(ob, root, PAR_FRAMES)
+    ck = os.path.join(work, "ckpt")
+    data = ["--pose_path", d["openpose_json"], "--img_path", d["frames"],
+            "--mask_path", d["mask"], "--densepose_path", d["densepose"],
+            "--flow_path", d["flow"], "--flow_inv_path", d["flow_inv"],
+            "--bg_path", os.path.join(root, "bg.png"), "--texture_path",
+            os.path.join(root, "texture.png"), "--checkpoints_dir", ck,
+            "--no_decay", "--save_latest_freq", "0"]
+    b_argv = TRAIN + data + ["--name", "dp2"]
+    _, out_b = fd_captured(drivers.run_train, TrainOptions().parse(
+        b_argv + ["--niter", "1", PAR_TWO]))
+    lines = loss_lines(out_b)
+    launches_b = rank_launches(out_b)
+    run_dir = os.path.join(ck, "dp2")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    steps_b = PAR_FRAMES // 2
+    smoke.require("(b) two ranks on cuda:0 over gloo",
+                  "rank 1 of 2 on cuda:0 (gloo)" in out_b)
+    smoke.require(f"(b) {steps_b} loss lines with the stage-2 keys, finite",
+                  len(lines) == steps_b and all(
+                      sorted(v) == STAGE2_KEYS and np.isfinite(
+                          list(v.values())).all() for *_, v in lines),
+                  str([sorted(v) for *_, v in lines][:1]))
+    smoke.require("(b) one metrics.jsonl writer",
+                  [r["it"] for r in recs] == list(range(steps_b)),
+                  str([r["it"] for r in recs]))
+    smoke.require("(b) the epoch's checkpoints", all(os.path.isfile(
+        os.path.join(run_dir, f)) for f in ("1_net_G.pth", "1_net_D.pth",
+                                            "1_net_G_ema.pth",
+                                            "latest_state.pth")))
+    want = {k: v * steps_b for k, v in per_step.items()}
+    smoke.require("(b) each rank launched the fused forward, the backward "
+                  "and the flow warp once a step",
+                  sorted(launches_b) == [0, 1] and all(
+                      launches_b[r] == want for r in launches_b),
+                  f"({launches_b}, want {want} each)")
+    two_ms = [t * 1e3 for _, _, t, _ in lines]
+    # --continue_train on one rank from the two-rank save
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    st1, out_r = fd_captured(drivers.run_train, TrainOptions().parse(
+        b_argv + ["--niter", "2", PAR_ONE, "--continue_train"]))
+    torch.cuda.synchronize()
+    one_launch = launch_counts()
+    smoke.require("(b) one rank resumes the two-rank save at epoch 2, "
+                  "step 5", st1 is not None and st1.start_epoch == 2
+                  and st1.step == 2 * steps_b
+                  and f"resumed at epoch 2 (step {steps_b}" in out_r)
+    smoke.require("(b) one rank's launches a step equal each rank's",
+                  one_launch == want, f"({one_launch}, want {want})")
+    one_ms = [t * 1e3 for t in st1.step_seconds]
+    numbers["b"] = {
+        "steps": steps_b, "launches_ranks": launches_b,
+        "launches_one_rank": one_launch,
+        "two_ranks_ms_between_loss_lines": two_ms,
+        "one_rank_step_ms": one_ms,
+        "two_ranks_median_ms": float(np.median(two_ms[1:])),
+        "one_rank_median_ms": float(np.median(one_ms[1:])),
+        "s": time.perf_counter() - t0}
+    print(f"[parallel] (b) flagship step, 2 ranks time-sharing one card: "
+          f"median {numbers['b']['two_ranks_median_ms']:.2f} ms (loss-line "
+          f"interval, global batch 2) against 1 rank "
+          f"{numbers['b']['one_rank_median_ms']:.2f} ms ({smi}); no scaling "
+          "number", flush=True)
+    del st1
+    torch.cuda.empty_cache()
+
+    # ---- (c) torchrun, world 1, NCCL
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "neural_human_video_rendering_tpu_torch.train", *b_argv,
+           "--name", "nccl1", "--niter", "1", PAR_ONE,
+           "--max_dataset_size", str(PAR_NCCL_FRAMES)]
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", flush=True)
+    lines_c = loss_lines(proc.stdout)
+    smoke.require("(c) torchrun world 1: exit 0, backend nccl, 3 finite "
+                  "loss lines", proc.returncode == 0
+                  and "rank 0 of 1 on cuda:0 (nccl)" in proc.stdout
+                  and len(lines_c) == PAR_NCCL_FRAMES // 2 and all(
+                      np.isfinite(list(v.values())).all()
+                      for *_, v in lines_c),
+                  f"(rc {proc.returncode}, {len(lines_c)} lines)")
+    numbers["c"] = {"rc": proc.returncode,
+                    "ms_between_loss_lines": [t * 1e3 for _, _, t, _ in
+                                              lines_c],
+                    "s": time.perf_counter() - t0}
+
+    # ---- (d) sharded inference
+    t0 = time.perf_counter()
+    kp_dir = os.path.join(work, "keypoints")
+
+    def infer_opt(res, gpu):
+        return TestOptions().parse(FLAGSHIP + PAR_EXACT + [
+            "--pose_path", kp_dir, "--results_dir", os.path.join(work, res),
+            "--checkpoints_dir", os.path.join(work, "none"), "--name", "x",
+            gpu], save=False)
+    io1 = infer_opt("res_one", PAR_ONE)
+    syn = write_driving_sequence(io1, kp_dir, PAR_INFER)
+    assets = (syn.texture_atlas(), syn.background())
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    n1, out_1 = fd_captured(td.run_inference, io1, assets=assets)
+    torch.cuda.synchronize()
+    launch_1 = launch_counts()
+    _, out_2 = fd_captured(td.run_inference, infer_opt("res_two", PAR_TWO),
+                           assets=assets)
+    launch_2 = rank_launches(out_2)
+
+    def secs(text):
+        m = re.search(r"\[infer\] wrote (\d+) frames -> .* \(([0-9.]+) s,",
+                      text)
+        return (int(m.group(1)), float(m.group(2))) if m else (0, None)
+    frames = {}
+    for tag in ("res_one", "res_two"):
+        img_dir = os.path.join(work, tag, "images")
+        frames[tag] = {f: read_png(os.path.join(img_dir, f)).astype(int)
+                       for f in sorted(os.listdir(img_dir))}
+    diff = max((int(np.abs(frames["res_one"][f] - frames["res_two"][f]).max())
+                for f in frames["res_one"] if f in frames["res_two"]),
+               default=999)
+    smoke.require(f"(d) {PAR_INFER} frames on one rank and on two",
+                  n1 == PAR_INFER and secs(out_2)[0] == PAR_INFER
+                  and sorted(frames["res_one"]) == sorted(frames["res_two"])
+                  and len(frames["res_one"]) == PAR_INFER)
+    smoke.check("(d) two ranks' frames vs one rank's (uint8 levels)", diff,
+                1)
+    smoke.require("(d) each rank's fused forwards equal one rank's (one a "
+                  "batch of 8)", sorted(launch_2) == [0, 1] and all(
+                      launch_2[r] == launch_1 for r in launch_2)
+                  and launch_1["texture_warp_topk_fwd"] == PAR_INFER // 8,
+                  f"({launch_2}, one rank {launch_1})")
+    smoke.require("(d) one HTML gallery", os.path.isfile(
+        os.path.join(work, "res_two", "index.html")))
+    numbers["d"] = {"one_rank_s": secs(out_1)[1], "two_ranks_s": secs(out_2)[1],
+                    "launches_ranks": launch_2, "launches_one_rank": launch_1,
+                    "max_level_diff": diff, "s": time.perf_counter() - t0}
+    print(f"[parallel] (d) run_inference of {PAR_INFER} frames at batch 8: "
+          f"2 ranks time-sharing one card {numbers['d']['two_ranks_s']} s "
+          f"against 1 rank {numbers['d']['one_rank_s']} s ({smi}); no "
+          "scaling number", flush=True)
+
+    # ---- (e) profile_step
+    t0 = time.perf_counter()
+    _, out_e = fd_captured(profile_step.main, [
+        "--steps", "2", "--tex_tile", "64", "--top", "12", PAR_ONE, "--out",
+        os.path.join(work, "profile")])
+    prof = json.loads([ln for ln in out_e.splitlines()
+                       if ln.startswith("{")][-1])
+    smoke.require("(e) profile_step: CUDA kernels attributed to the port's "
+                  "lines, rows summing to the kernels' time",
+                  prof["events"] == "cuda kernels" and 0 < prof["busy_share"]
+                  <= 1 and abs(prof["rows_ms_total"] - prof.get(
+                      "device_ms_per_step", -1) * prof["steps"]) < 1e-6 * max(
+                      1.0, prof["rows_ms_total"]) and all(
+                      r["frame"].startswith(profile_step.PACKAGE)
+                      or r["frame"] == profile_step.NO_FRAME
+                      for r in prof["rows"]))
+    numbers["e"] = {k: v for k, v in prof.items() if k != "rows"}
+    numbers["e"]["top"] = prof["rows"][:8]
+    numbers["e"]["s"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(work, "profile"), ignore_errors=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"parallel": numbers, "card": smi}), flush=True)
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3077,6 +3408,8 @@ def main() -> int:
     options = options_path(torch, smoke, tk, fk, repo, dev, smi)
     # ------------------------------- 11. export, serve, JAX resume, import
     serving11 = serving_path(torch, smoke, tk, fk, repo, dev, smi)
+    # ------------------------------------------------------- 12. parallel
+    parallel = parallel_path(torch, smoke, tk, fk, repo, dev, smi)
 
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
@@ -3113,6 +3446,13 @@ def main() -> int:
             entry.update(rend_bwd)
         entry["launches_export_serving"] = {
             k: v[name] for k, v in serving11["launches"].items()}
+        entry["launches_parallel"] = {
+            f"run_train, 2 ranks on cuda:0, {parallel['b']['steps']} steps":
+                {f"rank{r}": v[name]
+                 for r, v in parallel["b"]["launches_ranks"].items()},
+            f"run_inference, 2 ranks on cuda:0, {PAR_INFER} frames at "
+            "batch 8": {f"rank{r}": v[name]
+                        for r, v in parallel["d"]["launches_ranks"].items()}}
         entry["options_shapes"] = {k: v[name] for k, v in
                                    options["kernels"].items() if name in v}
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "

@@ -17,10 +17,13 @@ Layer map:
   train/     pose-input assembly, the steps, the state, the loop, the drivers
   infer/     the test.py driver: batched forward, PNG frames, gallery, video
   utils/     images, checkpoints, metrics, visualizer, HTML gallery, video
+  parallel/  data parallel over ranks: the mesh's batch split, gradient
+             average, replication and checksums; a self-check
+  runtime    ranks, devices and the backend (--gpu_ids, torchrun)
 Entry points (python -m neural_human_video_rendering_tpu_torch.<name>):
   pre_train, pre_train_tex, train, infer.test_driver, unfold_texture,
-  graph_posenorm, encode_features, and launch (a reference launcher
-  script's own argv through these).
+  graph_posenorm, encode_features, profile_step, and launch (a reference
+  launcher script's own argv through these).
 """
 
 __version__ = "0.1.0"

@@ -10,9 +10,12 @@ with path edits only, so every flag name below (including the upstream typo
 
 Internally everything lands in one dataclass ``Options``. ``--gpu_ids``
 picks the device (``resolve_device``): the first id names the CUDA card,
-``-1`` the CPU. The two flags that only steered the TPU build
-(``mesh_shape``, ``use_pallas_warp``) are accepted and ignored, so launch
-scripts run unchanged. ``--wire_pack`` picks the loader's batch format
+``-1`` the CPU; several ids (``0,1``; ``0,0`` two ranks on one card;
+``=-1,-1`` two CPU ranks) run data parallel, one rank per id, and
+``--mesh_shape N`` caps the ranks at N, as it caps the JAX package's data
+mesh (``runtime.py``; under torchrun, one rank per process). The flag
+that only steered the TPU build (``use_pallas_warp``) is accepted and
+ignored, so launch scripts run unchanged. ``--wire_pack`` picks the loader's batch format
 (``data/wire.py``); ``--debug_nans`` checks every step's losses and
 ``--profile_dir`` / ``--profile_start`` / ``--profile_steps`` write a
 torch.profiler trace of a window of steps (``train/loop.py``).
@@ -31,7 +34,7 @@ from typing import Optional, Tuple
 class Options:
     # ---- experiment bookkeeping (pix2pixHD BaseOptions vocabulary) ----
     name: str = "experiment"
-    gpu_ids: str = "0"              # first id = CUDA device index; -1 = CPU (resolve_device)
+    gpu_ids: str = "0"              # CUDA device index, -1 = CPU (resolve_device); several ids = one data-parallel rank each (runtime.py)
     checkpoints_dir: str = "./checkpoints"
     model: str = "nhvr"
     norm: str = "instance"
@@ -206,7 +209,7 @@ class Options:
 
     # ---- TPU-native knobs (new; no reference analog) ----
     dtype: str = "bfloat16"          # compute dtype; params/opt state stay fp32
-    mesh_shape: str = ""             # e.g. "8" or "4,2"; empty = all devices, 1 axis
+    mesh_shape: str = ""             # data-parallel ranks: caps the ranks of --gpu_ids ("4,2": its first extent); empty = one rank per id (runtime.py)
     use_pallas_warp: bool = True     # fused Pallas texture-warp kernel
     wire_pack: bool = True           # uint8/f16 host->device batch format (bit-exact on the 1/255 grid; <=1/255 rounding after interpolated resizes — data/wire.py)
     warp_topk: int = 4               # top-k part sampling in the texture warp (0/24 = all parts)
@@ -339,6 +342,17 @@ class Options:
         os.replace(path + ".tmp", path)
 
 
+# --help text of the flags whose meaning the port changed
+HELP = {
+    "gpu_ids": "CUDA device index, -1 for the CPU; several ids (0,1; 0,0 "
+               "for two ranks on one card; =-1,-1 for two CPU ranks) run "
+               "data parallel, one rank per id",
+    "mesh_shape": "the data-parallel ranks: caps the ranks that --gpu_ids "
+                  "gives (the first extent of e.g. 4,2); under torchrun a "
+                  "cap below the world is refused; empty: one rank per id",
+}
+
+
 def _add_flags(p: argparse.ArgumentParser) -> None:
     d = Options()
     for field in dataclasses.fields(Options):
@@ -355,7 +369,8 @@ def _add_flags(p: argparse.ArgumentParser) -> None:
                 g.add_argument("--no_" + field.name, dest=field.name,
                                action="store_false")
         else:
-            p.add_argument(name, type=type(default), default=default)
+            p.add_argument(name, type=type(default), default=default,
+                           help=HELP.get(field.name))
 
 
 class BaseOptions:
@@ -384,8 +399,8 @@ class BaseOptions:
             opt.niter = 1
             opt.niter_decay = 0
             opt.max_dataset_size = min(opt.max_dataset_size, 10)
-        if opt.isTrain and save:
-            opt.save()
+        if opt.isTrain and save and os.environ.get("RANK", "0") == "0":
+            opt.save()          # under torchrun, rank 0 alone
         if opt.verbose:
             for k, v in sorted(dataclasses.asdict(opt).items()):
                 print(f"{k}: {v}")

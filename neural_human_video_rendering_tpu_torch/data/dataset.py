@@ -504,11 +504,20 @@ class BatchLoader:
     unless drop_last=False. Before each epoch the dataset's ``epoch`` (if
     it has one) is set, so FrameDataset's per-(seed, epoch, index)
     augmentation advances. ``transform`` runs on each collated batch in the
-    thread (wire.pack_batch)."""
+    thread (wire.pack_batch).
+
+    ``shard=(index, count)``: rank ``index`` of ``count`` reads a disjoint
+    1/count of every epoch: the epoch order (the same shuffle on every
+    rank) strided from ``index`` and cut to floor(N / count) samples, so
+    every rank reports the same length and the same steps an epoch (the
+    JAX package's multi-host shards). Its batch_size is the rank's share
+    of the global batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, threads: int = 1,
-                 transform=None):
+                 transform=None, shard: Tuple[int, int] = (0, 1)):
+        if not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"bad shard {shard}")
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -516,17 +525,19 @@ class BatchLoader:
         self.drop_last = drop_last
         self.threads = max(1, threads)
         self.transform = transform
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n = len(self.ds) // self.shard[1]
         return n // self.bs if self.drop_last else -(-n // self.bs)
 
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.ds))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return idx
+        i, n = self.shard
+        return idx[i::n][:len(self.ds) // n]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if hasattr(self.ds, "epoch"):

@@ -19,6 +19,12 @@ pinned host memory and a thread pool encodes batch k-1's PNGs.
 The weights come from --checkpoints_dir/--name at --which_epoch (the
 port's .pth files or the JAX package's .msgpack files, G_ema preferred;
 see ``build_renderer``), else a seeded random init.
+
+Several ranks (``runtime.launch``: several --gpu_ids, or torchrun) shard
+every batch, as the JAX driver shards it over its mesh: the batch is
+rounded up to a multiple of the world, each rank renders its rows and
+writes their frames under their global names, and after a barrier rank 0
+writes the HTML gallery and the video.
 """
 
 from __future__ import annotations
@@ -35,12 +41,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import TestOptions, resolve_device
+from ..config import TestOptions
 from ..data import dataset as dsm
 from ..data import keypoints as kp
 from ..data import laplace as lp
 from ..data import pose_align
 from ..models.renderer import init_params, renderer_from_options
+from ..parallel.mesh import DataParallel
+from ..runtime import launch
 from ..train.steps import make_forward_fn
 from ..utils import checkpoint as ckpt
 from ..utils.html import HTMLGallery
@@ -224,13 +232,19 @@ def build_renderer(opt, device: torch.device):
 
 def run_inference(opt, batch_size: Optional[int] = None,
                   max_frames: Optional[int] = None,
-                  assets: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> int:
-    """Render the driving sequence; returns the number of frames written.
+                  assets: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                  dp: Optional[DataParallel] = None) -> Optional[int]:
+    """Render the driving sequence; returns the number of frames written
+    (by all ranks; None in a process that spawned its ranks).
 
     assets: optional (texture atlas (P, T, T, 3), background (S, S, 3)) in
     [-1, 1] to use instead of --texture_path / --bg_path (e.g. the
-    synthetic ones of data.dataset.SyntheticDataset).
+    synthetic ones of data.dataset.SyntheticDataset). ``dp``: this rank,
+    when the caller has started it (``runtime.launch``).
     """
+    if dp is None:
+        return launch(run_inference, opt, batch_size, max_frames, assets,
+                      where=opt.results_dir)
     if opt.save_video:
         try:
             import cv2  # noqa: F401
@@ -239,10 +253,17 @@ def run_inference(opt, batch_size: Optional[int] = None,
                 "--save_video writes the video with OpenCV, and cv2 does not "
                 "import here: drop --save_video (the frames are written as "
                 "PNG)") from e
-    device = resolve_device(opt.gpu_ids)
+    device = dp.device
     S = opt.train_size
     if batch_size is None:
         batch_size = max(1, opt.infer_batch)
+    if dp.parallel:
+        batch_size = dp.world * -(-batch_size // dp.world)
+        if dp.is_lead:
+            print(f"[mesh] inference sharded over {dp.world} ranks (batch "
+                  f"{batch_size}, {batch_size // dp.world} a rank)",
+                  flush=True)
+    mine = dp.rows(batch_size)
     names, joints, pose_ds = load_driving_poses(opt)
     n = len(names) if max_frames is None else min(len(names), max_frames)
     n = min(n, opt.how_many)
@@ -262,29 +283,35 @@ def run_inference(opt, batch_size: Optional[int] = None,
     written = 0
     t0 = time.perf_counter()
 
+    def frame_name(i):
+        return (f"{os.path.splitext(names[i])[0].replace('_keypoints', '')}"
+                "_synthesized.png")
+
     def drain_one(pool):
         nonlocal written
-        sel, host, ready = pending.popleft()
+        sel, rows, host, ready = pending.popleft()
         if ready is not None:
             ready.synchronize()
         fakes = host.permute(0, 2, 3, 1).numpy()
-        if not np.isfinite(fakes[:len(sel)]).all():
+        if not np.isfinite(fakes[:len(rows)]).all():
             raise FloatingPointError(
                 f"non-finite values in rendered frames {sel[0]}..{sel[-1]}")
-        for j, i in enumerate(sel):
-            fname = (f"{os.path.splitext(names[i])[0].replace('_keypoints', '')}"
-                     "_synthesized.png")
+        for j, i in enumerate(rows):
             writes.append(pool.submit(
-                save_image, os.path.join(opt.results_dir, "images", fname),
+                save_image,
+                os.path.join(opt.results_dir, "images", frame_name(i)),
                 fakes[j]))
-            gallery.add_images(names[i], [("synthesized", fname)])
             written += 1
+        for i in sel:
+            gallery.add_images(names[i], [("synthesized", frame_name(i))])
 
     with ThreadPoolExecutor(max_workers=4) as pool:
         for start in range(0, n, batch_size):
             sel = list(range(start, min(start + batch_size, n)))
-            # pad the tail so every forward sees one batch shape
-            padded = sel + [sel[-1]] * (batch_size - len(sel))
+            # pad the tail so every forward sees one batch shape; this
+            # rank renders its rows of it and writes the real frames there
+            padded = (sel + [sel[-1]] * (batch_size - len(sel)))[mine]
+            rows = sel[mine]
             jb = torch.from_numpy(joints[padded].astype(np.float32)).to(device)
             lap = pimg = None
             if lap_files:
@@ -302,15 +329,23 @@ def run_inference(opt, batch_size: Optional[int] = None,
                 ready.record()
             else:
                 host, ready = fake, None
-            pending.append((sel, host, ready))
+            pending.append((sel, rows, host, ready))
             if len(pending) > 1:
                 drain_one(pool)
         while pending:
             drain_one(pool)
         for w in writes:
             w.result()                  # surface any encode errors
-    gallery.save()
+    written = int(dp.global_count(torch.tensor(written, device=device)))
+    dp.barrier()                        # every rank's frames are on disk
     secs = time.perf_counter() - t0
+    if dp.parallel:
+        from ..train.drivers import kernel_launches
+        print(f"[kernels] {dp} launches since the counters' reset: "
+              f"{json.dumps(kernel_launches())}", flush=True)
+    if not dp.is_lead:
+        return written
+    gallery.save()
     if opt.save_video and written:
         from ..utils.video import write_video
         nv, vpath = write_video(os.path.join(opt.results_dir, "images"),
@@ -318,7 +353,7 @@ def run_inference(opt, batch_size: Optional[int] = None,
                                 fps=opt.video_fps)
         print(f"[infer] wrote {nv}-frame video -> {vpath}", flush=True)
     print(f"[infer] wrote {written} frames -> {opt.results_dir} "
-          f"({secs:.2f} s, device {device})", flush=True)
+          f"({secs:.2f} s, {dp})", flush=True)
     return written
 
 

@@ -17,6 +17,12 @@ epoch cap appended after ``--`` overrides the script's):
     test.py           -> infer.test_driver  (inference)
     graph_posenorm.py -> graph_posenorm     (pose retargeting)
     unfold_texture.py -> unfold_texture     (the texture atlas)
+
+Under torchrun each process runs the script as one data-parallel rank
+(``runtime.py``), the script unchanged:
+
+    torchrun --nproc_per_node 4 -m neural_human_video_rendering_tpu_torch.launch \
+        launchers/train_e2e.sh mydance
 """
 
 from __future__ import annotations

@@ -16,6 +16,15 @@ the port's .pth files or the JAX package's .msgpack files (.pth first);
 --continue_train on a JAX run also restores its optimizer state
 (latest_state.msgpack: both Adam states, the step, the schedule and the
 freeze position; utils/checkpoint.load_train_state).
+
+Data parallel (``runtime.launch``: several --gpu_ids, or torchrun): each
+driver runs on every rank. --batchSize is the global batch; each rank's
+loader reads its shard at batchSize / world. Rank 0's initial weights
+are broadcast; a resume or warm start loads on every rank, and the ranks'
+state is checked bit-equal after it and at the end of the run. Rank 0
+alone prunes and writes metrics.jsonl, the gallery and the checkpoints
+(the loop). The held-out eval spreads the split over the ranks and sums
+their PSNR / SSIM, so val_PSNR is a one-rank run's.
 """
 
 from __future__ import annotations
@@ -28,13 +37,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import TrainOptions, resolve_device
+from ..config import TrainOptions
 from ..data import dataset as dsm
 from ..data.wire import pack_batch, unpack_batch
 from ..models.generators import TexG
 from ..models.renderer import init_params, renderer_from_options
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
+from ..parallel.mesh import (DataParallel, module_tensors,
+                             optimizer_tensors)
+from ..runtime import launch
 from ..utils import checkpoint as ckpt
 from ..utils.metrics import psnr, ssim
 from ..utils.visualizer import prune_metrics_after
@@ -56,16 +68,20 @@ def _dataset(opt, phase: str = "train"):
                                 seed=opt.seed)
 
 
-def _loader(opt, ds, shuffle: bool = True) -> dsm.BatchLoader:
-    """--nThreads decode files in parallel (OpenCV and zlib release the
+def _loader(opt, ds, dp: DataParallel,
+            shuffle: bool = True) -> dsm.BatchLoader:
+    """This rank's shard of the epochs, at its share of --batchSize.
+    --nThreads decode files in parallel (OpenCV and zlib release the
     GIL). The synthetic dataset computes its samples in numpy instead, and
     a pool of those takes the host's cores from the eager step: on the
     H100's host the synthetic stage-2 step ran ~30% slower with two
     threads, so it keeps the one loader thread."""
     synthetic = isinstance(getattr(ds, "base", ds), dsm.SyntheticDataset)
-    return dsm.BatchLoader(ds, opt.batchSize, shuffle=shuffle, seed=opt.seed,
+    return dsm.BatchLoader(ds, opt.batchSize // dp.world, shuffle=shuffle,
+                           seed=opt.seed,
                            threads=1 if synthetic else opt.nThreads,
-                           transform=pack_batch if opt.wire_pack else None)
+                           transform=pack_batch if opt.wire_pack else None,
+                           shard=(dp.rank, dp.world))
 
 
 def _assets(opt, ds):
@@ -181,26 +197,54 @@ def _render(opt, st, b):
     return st.renderer(*args, **kw)
 
 
-def _eval_fn(opt, device):
+class _RankRows:
+    """Samples r, r + world, r + 2 world, ... of a dataset (rank r's share
+    of the held-out split: every sample on exactly one rank, none cut);
+    ``epoch`` passes through to the dataset, as BatchLoader sets it."""
+
+    def __init__(self, ds, dp: DataParallel):
+        self.ds = ds
+        self.idx = range(dp.rank, len(ds), dp.world)
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, k):
+        return self.ds[self.idx[k]]
+
+    @property
+    def epoch(self):
+        return self.ds.epoch
+
+    @epoch.setter
+    def epoch(self, value):
+        self.ds.epoch = value
+
+
+def _eval_fn(opt, dp: DataParallel):
     """Held-out PSNR / SSIM on the --data_ratio split, on the EMA track;
-    None without a held-out split of real frames."""
+    None without a held-out split of real frames. Each rank renders its
+    share of the split (``_RankRows``) and the sums are added over the
+    ranks, so every rank returns the whole split's means."""
     if not 0 < opt.data_ratio < 1:
         return None
     eval_ds = _dataset(opt, "test")
     if isinstance(eval_ds, dsm.SyntheticDataset) or not eval_ds.img_names:
         return None
-    loader = dsm.BatchLoader(eval_ds, opt.batchSize, shuffle=False,
+    loader = dsm.BatchLoader(_RankRows(eval_ds, dp) if dp.parallel
+                             else eval_ds, opt.batchSize, shuffle=False,
                              drop_last=False, threads=opt.nThreads)
 
     @torch.inference_mode()
     def eval_fn(st, epoch):
-        ps, ss, n = 0.0, 0.0, 0
+        sums = torch.zeros(3, dtype=torch.float64, device=dp.device)
         for eb in loader:
-            b = unpack_batch(eb, device)
+            b = unpack_batch(eb, dp.device)
             fake = _render(opt, st, b)["fake"]
-            ps += float(psnr(fake, b["image"]).sum())
-            ss += float(ssim(fake, b["image"]).sum())
-            n += fake.shape[0]
+            sums[0] += psnr(fake, b["image"]).double().sum()
+            sums[1] += ssim(fake, b["image"]).double().sum()
+            sums[2] += fake.shape[0]
+        ps, ss, n = dp.global_count(sums).tolist()
         return {"val_PSNR": ps / n, "val_SSIM": ss / n} if n else {}
 
     return eval_fn
@@ -225,26 +269,46 @@ def _visuals_fn(opt, device):
     return visuals_fn
 
 
+def train_state_tensors(st) -> list:
+    """Everything a stage-2 rank must hold bit-equal to the others: G, D,
+    both optimizers' states, the EMA and the pool."""
+    out = (module_tensors(st.renderer) + module_tensors(st.disc)
+           + optimizer_tensors(st.g_opt) + optimizer_tensors(st.d_opt))
+    if st.g_ema is not None:
+        out += list(st.g_ema.values())
+    if st.pool_buf is not None:
+        out += [st.pool_buf, st.pool_n]
+    return out
+
+
 def run_train(opt, epochs: Optional[int] = None,
-              max_steps: Optional[int] = None):
+              max_steps: Optional[int] = None,
+              dp: Optional[DataParallel] = None):
     """Stage-2 end-to-end training on --gpu_ids (the card unless -1) for
     niter (+ niter_decay) epochs, or ``epochs``, or ``max_steps`` steps.
     The epoch length reaches the optimizers (the LR schedule and
-    --niter_fix_global's freeze). Returns the TrainState."""
-    device = resolve_device(opt.gpu_ids)
+    --niter_fix_global's freeze). Returns the TrainState (None in a
+    process that spawned its ranks: ``runtime.launch``); ``dp``: this
+    rank, when the caller has started it."""
+    if dp is None:
+        return launch(run_train, opt, epochs, max_steps, where=opt.run_dir,
+                      batch=opt.batchSize)
+    device = dp.device
     torch.manual_seed(opt.seed)
     ds = _dataset(opt, "train")
-    loader = _loader(opt, ds, shuffle=not opt.serial_batches)
+    loader = _loader(opt, ds, dp, shuffle=not opt.serial_batches)
     tex, bg = _assets(opt, ds)
     state = create_train_state(opt, tex, bg, tex_mask=_tex_mask(opt, tex),
-                               steps_per_epoch=len(loader), device=device)
+                               steps_per_epoch=len(loader), device=device,
+                               dp=dp)
     run_dir = opt.run_dir
     start = resume_train(opt, state, len(loader)) if opt.continue_train else None
     if start is not None:
         state.start_epoch = start
         # the epoch order the straight run would have had
         loader.epoch = start - 1
-        prune_metrics_after(run_dir, start - 1)
+        if dp.is_lead:
+            prune_metrics_after(run_dir, start - 1)
     elif opt.continue_train:
         print(f"[ckpt] --continue_train: nothing to resume in {run_dir}; "
               "starting fresh", flush=True)
@@ -261,16 +325,19 @@ def run_train(opt, epochs: Optional[int] = None,
         path = ckpt.load_transg_into(state.renderer, opt.load_pretrain_TransG,
                                      opt.which_epoch_TransG)
         print(f"[ckpt] loaded pretrained TransG from {path}", flush=True)
+    dp.check("the stage-2 state at the start", train_state_tensors(state))
 
     step = make_train_step(opt, state.renderer, state.disc, state.vgg,
-                           state.g_opt, state.d_opt)
+                           state.g_opt, state.d_opt, dp)
     state = run_training(
         opt, loader, step, state, _epochs(opt, epochs),
         lambda st, epoch, completed=None: save_checkpoint(run_dir, st, epoch,
                                                           completed),
-        _visuals_fn(opt, device), _eval_fn(opt, device),
-        start_epoch=state.start_epoch, max_steps=max_steps)
-    print(f"[kernels] launches since the counters' reset: "
+        _visuals_fn(opt, device), _eval_fn(opt, dp),
+        start_epoch=state.start_epoch, max_steps=max_steps, dp=dp)
+    dp.check("the stage-2 state at the end", train_state_tensors(state))
+    who = f"{dp} " if dp.parallel else ""
+    print(f"[kernels] {who}launches since the counters' reset: "
           f"{json.dumps(kernel_launches())}", flush=True)
     return state
 
@@ -278,7 +345,8 @@ def run_train(opt, epochs: Optional[int] = None,
 def kernel_launches() -> dict:
     """Each CUDA kernel wrapper's launch count since its counter's reset
     (zero on the CPU, where the wrappers run their plain versions).
-    run_train prints it at its end, so a run in a subprocess can be
+    run_train prints it at its end (each rank of a data-parallel run, as
+    ``[kernels] rank r of w ...``), so a run in a subprocess can be
     checked from its log."""
     return {"topk_select": tk.topk_select.launches,
             "texture_warp_fwd": tk.texture_warp_fwd.launches,
@@ -292,15 +360,17 @@ def kernel_launches() -> dict:
 # ----------------------------------------------------------------------
 
 def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
-                    epochs: Optional[int], max_steps: Optional[int]):
+                    epochs: Optional[int], max_steps: Optional[int],
+                    dp: DataParallel):
     """The pretrain stages' driver: resume the net from --name's run dir
     (the latest file, .pth or the JAX package's .msgpack; the epoch from
     the numeric files or the anchor), fresh Adam (neither package saves a
     pretrain stage's optimizer), then the loop saving {epoch}_net_{label}
-    and the epoch anchor."""
-    device = resolve_device(opt.gpu_ids)
+    and the epoch anchor. Data parallel as run_train's."""
+    device = dp.device
     net = init_params(net, opt.seed).to(device).train()
-    loader = _loader(opt, ds)
+    dp.replicate(module_tensors(net))
+    loader = _loader(opt, ds, dp)
     run_dir = opt.run_dir
     start = 1
     if opt.continue_train:
@@ -316,8 +386,10 @@ def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
                           flush=True)
             start = int(ep) + 1
             loader.epoch = start - 1
-            prune_metrics_after(run_dir, start - 1)
+            if dp.is_lead:
+                prune_metrics_after(run_dir, start - 1)
             print(f"[ckpt] resumed at epoch {start}", flush=True)
+            dp.check(f"the resumed {label}", module_tensors(net))
     state = PretrainState(step=0, net=net, device=device,
                           optimizer=make_optimizer(opt, net.named_parameters(),
                                                    len(loader)))
@@ -330,20 +402,29 @@ def _run_single_net(opt, label: str, ds, net: torch.nn.Module, make_step,
         print(f"[ckpt] saved epoch {epoch} -> {run_dir}", flush=True)
 
     n_epochs = epochs if epochs is not None else opt.niter
-    return run_training(opt, loader, make_step(state), state, n_epochs,
-                        save_fn, start_epoch=start, max_steps=max_steps)
+    state = run_training(opt, loader, make_step(state, dp), state, n_epochs,
+                         save_fn, start_epoch=start, max_steps=max_steps,
+                         dp=dp)
+    dp.check(f"the {label} state at the end", module_tensors(state.net)
+             + optimizer_tensors(state.optimizer))
+    return state
 
 
 def run_pretrain_uv(opt, epochs: Optional[int] = None,
-                    max_steps: Optional[int] = None) -> PretrainState:
+                    max_steps: Optional[int] = None,
+                    dp: Optional[DataParallel] = None) -> PretrainState:
     """Stage 1: person-agnostic TransG pretrain on DensePose pseudo-GT
-    (pre_train.py) for --niter epochs; saves {epoch}_net_TransG."""
+    (pre_train.py) for --niter epochs; saves {epoch}_net_TransG. Returns
+    the PretrainState (None where this process spawned the ranks)."""
+    if dp is None:
+        return launch(run_pretrain_uv, opt, epochs, max_steps,
+                      where=opt.run_dir, batch=opt.batchSize)
     torch.manual_seed(opt.seed)
     return _run_single_net(
         opt, "TransG", _dataset(opt, "train"),
         renderer_from_options(opt).TransG,          # stage 2's TransG
-        lambda st: make_pretrain_uv_step(opt, st.net, st.optimizer),
-        epochs, max_steps)
+        lambda st, dp: make_pretrain_uv_step(opt, st.net, st.optimizer, dp),
+        epochs, max_steps, dp)
 
 
 class _TexDataset:
@@ -401,13 +482,18 @@ class _TexDataset:
 
 
 def run_pretrain_tex(opt, epochs: Optional[int] = None,
-                     max_steps: Optional[int] = None) -> PretrainState:
+                     max_steps: Optional[int] = None,
+                     dp: Optional[DataParallel] = None) -> PretrainState:
     """Texture pretrain: TexG against per-frame part textures
-    (pre_train_tex.py) for --niter epochs; saves {epoch}_net_TexG."""
+    (pre_train_tex.py) for --niter epochs; saves {epoch}_net_TexG. Returns
+    the PretrainState (None where this process spawned the ranks)."""
+    if dp is None:
+        return launch(run_pretrain_tex, opt, epochs, max_steps,
+                      where=opt.run_dir, batch=opt.batchSize)
     torch.manual_seed(opt.seed)
     base = _dataset(opt, "train")
     tex, _ = _assets(opt, base)
-    device = resolve_device(opt.gpu_ids)
+    device = dp.device
     static_tex = to_nchw(tex, device)
     tex_mask = to_nchw(_tex_mask(opt, tex), device)
     with torch.device("meta"):
@@ -421,9 +507,9 @@ def run_pretrain_tex(opt, epochs: Optional[int] = None,
                     else torch.float32)
     return _run_single_net(
         opt, "TexG", _TexDataset(opt, base), texg,
-        lambda st: make_pretrain_tex_step(opt, st.net, st.optimizer,
-                                          static_tex, tex_mask),
-        epochs, max_steps)
+        lambda st, dp: make_pretrain_tex_step(opt, st.net, st.optimizer,
+                                              static_tex, tex_mask, dp),
+        epochs, max_steps, dp)
 
 
 def main(argv=None) -> int:

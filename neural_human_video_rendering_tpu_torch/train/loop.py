@@ -14,6 +14,11 @@ Two debugging flags act here, for every stage:
   * --debug_nans: every step's losses are checked for NaN / inf (one
     device sync a step, so only with the flag); a non-finite loss raises
     FloatingPointError naming it.
+
+Under data parallel every rank steps and evaluates, and only the lead
+(rank 0) logs, displays and saves; every rank waits at a barrier after
+each save, so that none reads a half-written file (the JAX loop's rule
+for its processes).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..parallel.mesh import DataParallel
 from ..utils.visualizer import Visualizer
 
 
@@ -42,14 +48,17 @@ def check_finite(metrics: Dict[str, torch.Tensor], step: int) -> None:
 
 class ProfileWindow:
     """A torch.profiler trace of the steps [start, start + steps) of a run
-    (counted from 0), CPU and, on the card, CUDA activity, exported as
-    {profile_dir}/steps_{first}-{last}.trace.json."""
+    (counted from 0), CPU and, on the card, CUDA activity, with Python
+    stacks (``profile_step --analyze`` reads them), exported as
+    {profile_dir}/steps_{first}-{last}{tag}.trace.json (tag: _rank{r} on
+    each rank of a data-parallel run)."""
 
-    def __init__(self, opt, cuda: bool):
+    def __init__(self, opt, cuda: bool, tag: str = ""):
         self.dir = opt.profile_dir
         self.start = opt.profile_start
         self.stop_at = opt.profile_start + max(1, opt.profile_steps)
         self.cuda = cuda
+        self.tag = tag
         self.prof = None
 
     def before_step(self, total: int) -> None:
@@ -58,7 +67,7 @@ class ProfileWindow:
             acts = [ProfilerActivity.CPU]
             if self.cuda:
                 acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
+            self.prof = profile(activities=acts, with_stack=True)
             self.prof.start()
             self.first = total
 
@@ -73,8 +82,8 @@ class ProfileWindow:
             torch.cuda.synchronize()
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
-        path = os.path.join(self.dir,
-                            f"steps_{self.first}-{total - 1}.trace.json")
+        path = os.path.join(
+            self.dir, f"steps_{self.first}-{total - 1}{self.tag}.trace.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
         print(f"[profile] trace of steps {self.first}-{total - 1} written "
@@ -85,7 +94,8 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
                  save_fn: Optional[Callable] = None,
                  visuals_fn: Optional[Callable] = None,
                  eval_fn: Optional[Callable] = None,
-                 start_epoch: int = 1, max_steps: Optional[int] = None):
+                 start_epoch: int = 1, max_steps: Optional[int] = None,
+                 dp: Optional[DataParallel] = None):
     """step_fn(state, batch) -> metrics, updating state in place, for
     epochs start_epoch..epochs, or until ``max_steps`` steps of this run
     (an epoch cut short is neither evaluated nor saved).
@@ -96,11 +106,21 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
     Each step's wall time goes to state.step_seconds and its losses to
     state.metrics; on the card the loop synchronises once per step to
     take the time (the loader's thread prepares the next batch
-    meanwhile)."""
+    meanwhile). ``dp``: this rank of a data-parallel run (the module
+    docstring); None for a lone rank."""
+    dp = dp if dp is not None else DataParallel()
+    lead = dp.is_lead
     cuda = state.device.type == "cuda"
-    vis = Visualizer(opt)
-    window = ProfileWindow(opt, cuda)
+    vis = Visualizer(opt) if lead else None
+    window = ProfileWindow(opt, cuda, f"_rank{dp.rank}" if dp.parallel
+                           else "")
     total = 0
+
+    def save(*args):
+        if lead:
+            save_fn(state, *args)
+        dp.barrier()
+
     try:
         for epoch in range(start_epoch, epochs + 1):
             t_epoch = time.time()
@@ -122,33 +142,36 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
                     window.after_step(total)
                     if opt.debug_nans:
                         check_finite(metrics, state.step)
-                    if total % opt.print_freq == 0:
+                    if lead and total % opt.print_freq == 0:
                         vis.log_losses(epoch, it, metrics, state.step)
-                    if visuals_fn is not None and total % opt.display_freq == 0:
+                    if (lead and visuals_fn is not None
+                            and total % opt.display_freq == 0):
                         vis.display_results(visuals_fn(state, batch), epoch,
                                             state.step)
                     if (save_fn is not None and opt.save_latest_freq > 0
                             and total % opt.save_latest_freq == 0):
                         # the last COMPLETED epoch rides along, so a resume
                         # knows where the save sits in the schedule
-                        save_fn(state, "latest", epoch - 1)
+                        save("latest", epoch - 1)
             finally:
                 if hasattr(batches, "close"):      # BatchLoader's generator
                     batches.close()
             if cut:
                 break
-            print(f"End of epoch {epoch} / {epochs} "
-                  f"({time.time() - t_epoch:.1f}s)", flush=True)
+            if lead:
+                print(f"End of epoch {epoch} / {epochs} "
+                      f"({time.time() - t_epoch:.1f}s)", flush=True)
             if eval_fn is not None:
                 ev = eval_fn(state, epoch)
-                if ev:
+                if lead and ev:
                     vis.log_losses(epoch, -1, ev, state.step)
             if save_fn is not None and (epoch % opt.save_epoch_freq == 0
                                         or epoch == epochs):
-                save_fn(state, epoch)
+                save(epoch)
             if max_steps is not None and total >= max_steps:
                 break
     finally:
         window.close(total)
-        vis.close()
+        if vis is not None:
+            vis.close()
     return state

@@ -21,6 +21,7 @@ import torch
 from ..config import resolve_device
 from ..models.discriminator import discriminator_from_options
 from ..models.renderer import init_params, renderer_from_options
+from ..parallel.mesh import DataParallel, module_tensors
 
 
 @dataclasses.dataclass
@@ -170,7 +171,8 @@ def to_nchw(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
 def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
                        tex_mask: Optional[np.ndarray] = None,
                        steps_per_epoch: int = 0,
-                       device: Optional[torch.device] = None) -> TrainState:
+                       device: Optional[torch.device] = None,
+                       dp: Optional[DataParallel] = None) -> TrainState:
     """Random-init G and D (flax's default init, seeded from --seed), the
     VGG of the perceptual loss (bf16, unless --no_vgg_loss), two Adam
     optimizers with the schedule, the EMA copy (with --instance_feat the
@@ -179,7 +181,9 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
     (P, T, T, 3) and bg (S, S, 3) in [-1, 1], tex_mask (P, T, T, 1), as the
     JAX package's create_train_state takes them. With --pool_size the
     empty image pool and its generator (seeded from --seed) on the
-    device. ``device`` defaults to --gpu_ids."""
+    device. ``device`` defaults to --gpu_ids. Under data parallel (``dp``)
+    rank 0's initial G, D and VGG are broadcast to the other ranks (a
+    seed alone is not trusted to give the same weights on two devices)."""
     dev = device if device is not None else resolve_device(opt.gpu_ids)
     renderer = init_params(renderer_from_options(opt), opt.seed).to(dev)
     disc = init_params(discriminator_from_options(opt), opt.seed + 1).to(dev)
@@ -187,6 +191,9 @@ def create_train_state(opt, static_tex: np.ndarray, bg: np.ndarray,
     if not opt.no_vgg_loss:
         from ..models.vgg import build_vgg
         vgg = build_vgg(opt.seed + 2, dtype=torch.bfloat16).to(dev)
+    if dp is not None:
+        dp.replicate(module_tensors(renderer) + module_tensors(disc)
+                     + (module_tensors(vgg) if vgg is not None else []))
 
     g_ema = None
     if opt.ema_decay > 0:

@@ -17,6 +17,7 @@ import torch
 from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
 from ..data.wire import unpack_batch
+from ..parallel.mesh import DataParallel
 from .image_pool import pool_draws, pool_update
 
 
@@ -136,7 +137,19 @@ def _slice_outs(outs, n: int):
     return outs[:n]
 
 
-def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
+def optimizer_params(optimizer: torch.optim.Optimizer):
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def _parallel(dp: Optional[DataParallel]):
+    """(dp, the masked means' count reducer) of a step: a lone rank and no
+    reducer without data parallel."""
+    dp = dp if dp is not None else DataParallel()
+    return dp, (dp.count_share if dp.parallel else None)
+
+
+def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
+                    dp: Optional[DataParallel] = None) -> Callable:
     """The stage-2 end-to-end G + D train step.
 
     step(state, batch, mark=None) -> metrics (float32 scalars on the
@@ -163,10 +176,20 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
     state (``train/image_pool.py``). ``mark(name)``, when given, is
     called at the end of each phase (inputs: the upload and the pose
     input; prev_render; g_forward; d_for_g; vgg; g_losses; g_backward;
-    d_step; update) so a caller can time the phases. Under
-    --instance_feat the renderer encodes the real frame t (and, for the
-    t-1 render, the real frame t-1: image_prev).
+    d_step; grad_all_reduce; update) so a caller can time the phases.
+    Under --instance_feat the renderer encodes the real frame t (and, for
+    the t-1 render, the real frame t-1: image_prev).
+
+    Data parallel (``dp``, parallel/mesh.py): the batch is this rank's
+    share of the global batch. The masked means divide by the global
+    count, both optimizers' gradients are averaged over the ranks before
+    either steps, the pool sees the global batch (every rank draws the
+    same draws, gathers the global fakes and updates its identical pool,
+    then takes its own rows), and the returned metrics are the ranks'
+    mean: the global batch's losses, as the JAX step computes them on a
+    mesh.
     """
+    dp, count = _parallel(dp)
     use_temporal = opt.lambda_Temp > 0
     use_vgg = (not opt.no_vgg_loss) and vgg is not None
     use_fm = not opt.no_ganFeat_loss
@@ -242,15 +265,16 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
             losses["G_L2"] = opt.lambda_L2 * L.l2_loss(fake, real)
         if opt.use_densepose_loss and "dp_parts" in batch:
             losses["G_UV"] = opt.lambda_UV * L.uv_loss(
-                cur["uv"], batch["dp_uv"], batch["dp_parts"])
+                cur["uv"], batch["dp_uv"], batch["dp_parts"], count)
             losses["G_Prob"] = opt.lambda_Prob * L.part_ce_loss(
                 cur["logits"], batch["dp_parts"])
             if opt.lambda_UVgrad > 0:
                 losses["G_UVgrad"] = opt.lambda_UVgrad * L.uv_grad_loss(
-                    cur["uv"], batch["dp_uv"], batch["dp_parts"])
+                    cur["uv"], batch["dp_uv"], batch["dp_parts"], count)
             if opt.ms_uv > 0:
                 ms_uv_l, ms_ce_l = L.ms_iuv_loss(
-                    cur["ms_aux"], batch["dp_uv"], batch["dp_parts"])
+                    cur["ms_aux"], batch["dp_uv"], batch["dp_parts"],
+                    count=count)
                 losses["G_MSUV"] = opt.lambda_MS * (
                     opt.lambda_UV * ms_uv_l + opt.lambda_Prob * ms_ce_l)
         if opt.lambda_Mask > 0 and "mask" in batch:
@@ -258,7 +282,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
                                                              batch["mask"])
         if use_temporal and "flow" in batch:
             losses["G_Temp"] = opt.lambda_Temp * L.temporal_flow_loss(
-                fake, prev_fake, batch["flow"], batch["flow_inv"])
+                fake, prev_fake, batch["flow"], batch["flow_inv"], count)
         g_total = functools.reduce(torch.add, losses.values())
         mark("g_losses")
         g_total.backward()
@@ -268,14 +292,19 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
         disc.requires_grad_(True)
         d_in_fake = torch.cat([pose, fake.detach()], dim=1)
         if opt.pool_size > 0:
-            draws = pool_draws(state.pool_gen, B, opt.pool_size)
-            d_in_fake, state.pool_n = pool_update(
-                state.pool_buf, state.pool_n, d_in_fake, draws)
+            fresh = dp.gather_rows(d_in_fake)
+            draws = pool_draws(state.pool_gen, fresh.shape[0], opt.pool_size)
+            pooled, state.pool_n = pool_update(
+                state.pool_buf, state.pool_n, fresh, draws)
+            d_in_fake = pooled[dp.rows(pooled.shape[0])]
         d_real = disc(torch.cat([pose, real], dim=1))
         d_fake = disc(d_in_fake)
         d_total = L.lsgan_loss_d(d_real, d_fake, use_lsgan)
         d_total.backward()
         mark("d_step")
+        dp.all_reduce_grads(optimizer_params(g_opt))
+        dp.all_reduce_grads(optimizer_params(d_opt))
+        mark("grad_all_reduce")
 
         # ---- both updates, then the EMA
         g_opt.step()
@@ -287,12 +316,13 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt) -> Callable:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["G_total"] = g_total.detach()
         metrics["D_total"] = d_total.detach()
-        return metrics
+        return dp.all_reduce_metrics(metrics)
 
     return step
 
 
-def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
+def make_pretrain_uv_step(opt, transg, optimizer,
+                          dp: Optional[DataParallel] = None) -> Callable:
     """Stage 1: supervised IUV regression of TransG, the UV L1 at the GT
     part plus the part cross-entropy inside the mask, weighted by
     --lambda_UV (1000 when unset) and --lambda_Prob (10 when unset); with
@@ -301,7 +331,9 @@ def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
     against the same weights).
 
     step(state, batch) -> metrics (UV, Prob[, UVgrad][, MSUV], total),
-    updating transg and state.step in place (state: a PretrainState)."""
+    updating transg and state.step in place (state: a PretrainState).
+    Data parallel as make_train_step's."""
+    dp, count = _parallel(dp)
     w_uv = opt.lambda_UV if opt.lambda_UV > 0 else 1000.0
     w_prob = opt.lambda_Prob if opt.lambda_Prob > 0 else 10.0
 
@@ -311,30 +343,34 @@ def make_pretrain_uv_step(opt, transg, optimizer) -> Callable:
         optimizer.zero_grad(set_to_none=True)
         tout = transg(pose)
         logits, uv = tout[0], tout[1]
-        losses = {"UV": w_uv * L.uv_loss(uv, b["dp_uv"], b["dp_parts"]),
+        losses = {"UV": w_uv * L.uv_loss(uv, b["dp_uv"], b["dp_parts"],
+                                         count),
                   "Prob": w_prob * L.part_ce_loss(logits, b["dp_parts"],
-                                                  b.get("mask"))}
+                                                  b.get("mask"), count)}
         if opt.lambda_UVgrad > 0:
             losses["UVgrad"] = opt.lambda_UVgrad * L.uv_grad_loss(
-                uv, b["dp_uv"], b["dp_parts"])
+                uv, b["dp_uv"], b["dp_parts"], count)
         if opt.ms_uv > 0:
             ms_uv_l, ms_ce_l = L.ms_iuv_loss(tout[2], b["dp_uv"],
-                                             b["dp_parts"], b.get("mask"))
+                                             b["dp_parts"], b.get("mask"),
+                                             count)
             losses["MSUV"] = opt.lambda_MS * (w_uv * ms_uv_l
                                               + w_prob * ms_ce_l)
         total = functools.reduce(torch.add, losses.values())
         total.backward()
+        dp.all_reduce_grads(optimizer_params(optimizer))
         optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
-        return metrics
+        return dp.all_reduce_metrics(metrics)
 
     return step
 
 
 def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
-                           tex_mask: Optional[torch.Tensor] = None) -> Callable:
+                           tex_mask: Optional[torch.Tensor] = None,
+                           dp: Optional[DataParallel] = None) -> Callable:
     """Texture pretrain: TexG's dynamic texture clip(static + residual)
     against the per-frame part textures (L1; residual and error confined
     to the texel mask when given), plus the L1 against a pose-conditioned
@@ -342,7 +378,8 @@ def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
     (P, 1, T, T) on the device.
 
     step(state, batch) -> {"Tex_L1": loss}, updating texg and state.step
-    in place."""
+    in place. Data parallel as make_train_step's (its means are plain)."""
+    dp, _ = _parallel(dp)
 
     def step(state, batch):
         b = unpack_batch(batch, state.device)
@@ -361,8 +398,9 @@ def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
             loss = loss + torch.abs(
                 dyn - b["pose_texture"].permute(0, 1, 4, 2, 3)).mean()
         loss.backward()
+        dp.all_reduce_grads(optimizer_params(optimizer))
         optimizer.step()
         state.step += 1
-        return {"Tex_L1": loss.detach()}
+        return dp.all_reduce_metrics({"Tex_L1": loss.detach()})
 
     return step

@@ -825,3 +825,42 @@ def test_jax_run_resumes_on_cuda_as_on_the_cpu(cuda, tmp_path):
         for i, s in a["state"].items():
             for k, v in s.items():
                 assert torch.equal(v, b["state"][i][k].cpu()), (o, i, k)
+
+
+def test_two_ranks_on_one_card_match_one_rank(cuda, tmp_path):
+    """Data parallel on the card (parallel/selfcheck.py): two ranks on
+    cuda:0 (gloo: NCCL refuses two ranks on one card), each on 1 sample
+    of a fixed global batch of 2, against one rank of 2. One SGD(1) step:
+    the losses within 1e-4 relative and the changes of G, D and the EMA
+    within the parity tests' form (1e-5 of the largest change + 1e-4 of
+    each tensor's); then the ranks' parameters, Adam moments, EMA and pool
+    bit-equal after 5 steps of Adam."""
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
+    from neural_human_video_rendering_tpu_torch.parallel.mesh import \
+        DataParallel
+    from neural_human_video_rendering_tpu_torch.runtime import launch
+    flags = ("--loadSize 32 --tex_tile 16 --ngf 4 --ngf_global 4 --ndf 4 "
+             "--n_layers_D 2 --n_blocks_translate 1 --n_downsample_translate "
+             "2 --n_blocks_global 1 --n_downsample_global 1 --n_blocks_bg 1 "
+             "--n_downsample_bg 1 --dtype float32 --pose_heatmaps "
+             "--coord_conv --no_flip --no_vgg_loss --warp_topk 24 "
+             "--warp_eps 0 --batchSize 2 --lambda_L2 500 --lambda_UV 1000 "
+             "--lambda_Prob 10 --use_densepose_loss --lambda_Temp 500 "
+             "--temporal_prev real --ema_decay 0.999 --pool_size 4").split()
+    one = TrainOptions().parse(flags + ["--gpu_ids", "0"], save=False)
+    two = TrainOptions().parse(flags + ["--gpu_ids", "0,0"], save=False)
+    syn = dsm.SyntheticDataset(one, length=12, seed=0)
+    batch = dsm.collate([syn[i] for i in (1, 11)])
+    atlas = sc.linear_atlas(one.n_parts, one.tex_tile)
+    sc.rank_step(one, batch, atlas, syn.background(), str(tmp_path / "one"),
+                 5, dp=DataParallel.solo(cuda))
+    launch(sc.rank_step, two, batch, atlas, syn.background(),
+           str(tmp_path / "two"), 5, where=str(tmp_path), batch=2)
+    got = sc.compare(str(tmp_path / "one"), str(tmp_path / "two"))
+    assert got["world"] == 2 and got["n_rank_files"] == 2
+    assert got["same_loss_keys"] and got["loss_max_rel"] <= 1e-4
+    assert max(r["ratio"] for r in got["delta_ratio"].values()) <= 1.0, \
+        got["delta_ratio"]
+    assert got["ranks_bit_equal"], got["checksums"]
