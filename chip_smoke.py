@@ -69,8 +69,8 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      and the decoder, checkpoint bytes, save and load seconds.
   8. the reference launchers: every script under launchers/ run through
      the port's entry points with its own flags (paths and epoch caps
-     edited; --tf_log dropped where tensorboard does not import) on a
-     corpus of 20 frames at 512 px in their layout (LaplaceProj as PNG and
+     edited) on a
+     corpus of 12 frames at 512 px in their layout (LaplaceProj as PNG and
      as 78-channel .npy, pre-rendered pose images, part and pose textures,
      the unfolded texture.jpg): pose retargeting, stage 1, the texture
      pretrain, stage 2 with LaplaceProj and the encoder E, encode_features,
@@ -85,12 +85,17 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      backward, the flow warp) and per inference batch (the fused forward
      without w); the bilinear corpus oracle on the fused kernel (a 512 px
      frame of data/synthetic_video within 1e-5 of the warp of its own IUV);
-     make_demo_data at 512 px (24 frames bilinear, 8 with --corrupt 0.5)
+     make_demo_data at 512 px (20 frames bilinear, 8 with --corrupt 0.5)
      read back through FrameDataset; quality_run at FULL_FLAGS cut in depth
-     (24 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
+     (20 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
      parity JSON and stage 2's launches; evaluate on the card (identical
      dirs, and renders against the GT against the CPU: PSNR 1e-3 dB, SSIM
-     1e-5, flicker 1e-5 relative, VGG distance and LPIPS 3e-2 relative).
+     1e-5, flicker 1e-5 relative, VGG distance and LPIPS 3e-2 relative);
+     (g) quality_profile on the quality run's held-out frames at
+     FULL_FLAGS with the tile sweep 32/64/128: every variant and tile
+     finite, the model-free all_gt_exact and the sweep through the fused
+     kernel against the plain warp on the card (1e-3 dB, 1e-4 SSIM), and
+     quality_profile.launches_per_frame fused launches without w a frame.
  10. options: every model and training option of the JAX package at full
      width through the drivers' functions, 5 steps a stage on a corpus of
      6 frames: (a) r4's uv_uvr -> e2e_uvr (--uv_refine 3, the TransG
@@ -123,7 +128,11 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      make_forward_fn forward; then by `python -m ...serve --port 0` as a
      fresh process, whose frames equal the in-process ones bit for bit;
      the --warp_block_parts 8 program with its weights baked in launches
-     top-k and the forward with w given once each. Numbers: export, load
+     top-k and the forward with w given once each; (e) bench_serve's
+     ladder (concurrency 1 and 4, 12 requests each) on the same program in
+     a server process: finite positive frames/s, the server's exit 0 on
+     SIGINT, its fused launches (one a request, one a warm-up call).
+     Numbers: export, load
      and warm-up seconds, program and sidecar bytes, the median of 10
      requests at N=8 and N=1, frames/s through HTTP against the live
      forward, a request's split (device forward, host copy, PNG encode,
@@ -141,9 +150,11 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
  12. parallel: data parallel over ranks (parallel/mesh.py, runtime.py),
      two ranks time-sharing cuda:0 through --gpu_ids 0,0 over gloo (NCCL
      refuses two ranks on one card): (a) the flagship widths in float32,
-     SGD(1), one global batch of 2 on two ranks against one rank (losses
+     SGD(1), one global batch of 2 on two ranks against the same two
+     ranks as threads of this process, each at its own shapes (losses
      1e-4 relative, the changes of G, D and the EMA within the parity
-     tests' form), the ranks' parameters, Adam moments and EMA bit-equal
+     tests' form at 1e-5), the ranks' parameters, Adam moments and EMA
+     bit-equal
      after 5 Adam steps; (b) run_train with the flagship recipe, 5 steps
      on two ranks (loss keys, one metrics.jsonl writer, the checkpoints,
      each rank's launches), resumed on one rank; (c) the same under
@@ -151,6 +162,17 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      batch 8 on two ranks against one (1 uint8 level, each rank's fused
      forwards, one HTML); (e) profile_step at the flagship. parallel_path
      has the details; its times are no scaling number.
+ 13. tools: (a) bench_trained_regime at the bench's operating point (512
+     px, batch 2, tile 128, bf16), 4 windows of 15 steps: G_Prob lower in
+     the last window than in the first, each step's launches the bench's
+     (the fused forward keeping w and without w, the backward, the flow
+     warp), the fused forward and the backward timed on the first and
+     last windows' renderer tensors (CUDA graphs); (b) noisy_gt_ab at the
+     reference sizing (512 px, tile 64) cut in depth (16 frames, 1
+     pre-epoch, 1 epoch, 4 held-out frames at most), then noisyab_anatomy
+     on its dir, while (c) arm_ab64 (64 px, --limb_coords, 1 + 1 epochs)
+     runs beside it: finite summaries, IoUs in [0, 1], each arm's saved
+     epoch equal to --epochs, every stage-2 run's launches from its log.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -1288,15 +1310,15 @@ def pipeline_path(torch, smoke, tk, fk, repo, dev, smi):
     return {"stage2_epoch": l1}
 
 
-LAUNCH_FRAMES = 20
+LAUNCH_FRAMES = 12
 
 
 def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     """Phase 8: the reference launchers, each script's argv read from the
     script under launchers/ (launch.launcher_argv) and run through its
-    entry point's main, with only paths and epoch caps edited, and
-    --tf_log dropped where torch.utils.tensorboard does not import:
-    run_align_pose.sh; pretrain_trans.sh for 2 epochs (train_e2e.sh loads
+    entry point's main, with only paths and epoch caps edited (--tf_log
+    writes TensorBoard events, or logs/scalars.jsonl where
+    torch.utils.tensorboard does not import): run_align_pose.sh; pretrain_trans.sh for 2 epochs (train_e2e.sh loads
     its epoch 2; its 5 residual blocks go into stage 2's 9 partially);
     pretrain_tex.sh for one epoch (pose images, 78 LaplaceProj channels
     from .npy, --input_nc 81, 200 px); train_e2e.sh for one epoch
@@ -1353,21 +1375,13 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     env = {"TGT": p["align_target"], "SRC": p["align_source"],
            "OUT": os.path.join(work, "aligned"), "DATA": p["all"],
            "CKPTS": ck, "ROOT": p["root"]}
-    drop = []
-    try:
-        import torch.utils.tensorboard  # noqa: F401
-    except ImportError:
-        drop = ["--tf_log"]
-        print("[launchers] torch.utils.tensorboard does not import here: "
-              "--tf_log dropped from the launchers' argv (metrics.jsonl "
-              "records every scalar)", flush=True)
     none = {k: 0 for k in REPLACES}
     stages, launches = {}, {}
 
     def argv_of(script, args=(), e=None):
         _, argv = launcher_argv(os.path.join(repo, "launchers", script), args,
                                 env if e is None else e)
-        return [a for a in argv if a not in drop]
+        return argv
 
     def reset():
         torch.cuda.synchronize()
@@ -1406,9 +1420,10 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     st = through_main(pre_train, "run_pretrain_uv",
                       argv_of("pretrain_trans.sh") + ["--niter", "2"])
     record("pretrain_trans", st, time.perf_counter() - t)
-    smoke.require("pretrain_trans.sh: 2 epochs of 3 steps at batch 6, no "
+    n1 = LAUNCH_FRAMES // 6
+    smoke.require(f"pretrain_trans.sh: 2 epochs of {n1} steps at batch 6, no "
                   "kernel, epoch 2 saved",
-                  st.step == 6 and launches["pretrain_trans"] == none
+                  st.step == 2 * n1 and launches["pretrain_trans"] == none
                   and os.path.isfile(os.path.join(
                       ck, "uvGenerator_pretrain", "2_net_TransG.pth")),
                   f"({st.step} steps)")
@@ -1607,13 +1622,13 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
                                "fps": 8e3 / serve_ms,
                                "peak_mem_bytes": serve_peak},
         "profile": {"run_s": prof_s, "trace_bytes": trace_bytes},
-        "tf_log_dropped": bool(drop), "phase_s": phase_s,
+        "phase_s": phase_s,
         "card": smi}}), flush=True)
     shutil.rmtree(work, ignore_errors=True)    # checkpoints, 78-channel .npy
     return launches["train_e2e"]
 
 
-QUALITY_FRAMES = 24
+QUALITY_FRAMES = 20
 CORRUPT_FRAMES = 8
 # the oracle's bound: the JAX package's (tests/test_synthetic_video.py)
 ORACLE_TOL = 1e-5
@@ -1648,9 +1663,9 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
     call); (c) the bilinear corpus oracle on the fused kernel: a 512 px
     frame of data/synthetic_video rendered by texture_warp_planes on the
     card from its own IUV, atlas and bg, within 1e-5; (d) make_demo_data
-    at 512 px (24 frames bilinear; 8 frames with --corrupt 0.5), read back
+    at 512 px (20 frames bilinear; 8 frames with --corrupt 0.5), read back
     through FrameDataset; (e) quality_run at FULL_FLAGS, cut in depth only
-    (24 frames, 1 pre-epoch, 2 epochs): its val curve, the served frames,
+    (20 frames, 1 pre-epoch, 2 epochs): its val curve, the served frames,
     the parity JSON, and stage 2's launches from its log; (f) evaluate on
     the card: identical dirs score perfectly, and the renders against the
     GT agree with the same command on the CPU. Returns the launches per
@@ -1787,10 +1802,11 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
     # ---- d: make_demo_data at 512 px, read back through FrameDataset
     data = os.path.join(work, "demo")
     t = time.perf_counter()
-    smoke.require("make_demo_data (24 frames, bilinear)", make_demo_data.main([
-        "--out", data, "--keypoints", kp_dir, "--size", str(S), "--tile",
-        str(T), "--sampling", "bilinear"]) == 0)
-    numbers["make_demo_data_24_frames_s"] = time.perf_counter() - t
+    smoke.require(f"make_demo_data ({QUALITY_FRAMES} frames, bilinear)",
+                  make_demo_data.main([
+                      "--out", data, "--keypoints", kp_dir, "--size", str(S),
+                      "--tile", str(T), "--sampling", "bilinear"]) == 0)
+    numbers["make_demo_data_s"] = time.perf_counter() - t
     kp8 = os.path.join(work, "keypoints8")
     write_driving_sequence(base, kp8, CORRUPT_FRAMES)
     noisy = os.path.join(work, "demo_corrupt")
@@ -1912,6 +1928,12 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
                                      "flicker_ratio")), EVAL_FLICKER_RTOL)
     smoke.check("evaluate card vs cpu: VGG distance, LPIPS (relative, bf16)",
                 max(rel["vgg_dist"], rel["lpips"]), EVAL_VGG_RTOL)
+
+    # ---- g: quality_profile on (e)'s run
+    t = time.perf_counter()
+    numbers["quality_profile"] = quality_profile_path(
+        torch, smoke, tk, fk, q, S, T, smi)
+    numbers["quality_profile_s"] = time.perf_counter() - t
     numbers["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"measure": {
         "bench": b, "bench_infer": bi, "launches": seen,
@@ -1919,7 +1941,117 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
         "evaluate_identical": same, "evaluate_card": card,
         "evaluate_cpu": cpu, **numbers, "card": smi}}), flush=True)
     shutil.rmtree(work, ignore_errors=True)       # checkpoints, corpora
-    return {"per_train_step": per_step, "per_inference_batch": per_batch}
+    return {"per_train_step": per_step, "per_inference_batch": per_batch,
+            "quality_profile": numbers["quality_profile"]["launches"]["cuda"]}
+
+
+PROFILE_TILES = (32, 64, 128)
+# quality_profile's model-free numbers, fused kernel vs plain warp: float32
+# sums of one part a pixel in another order
+PROFILE_PSNR_TOL, PROFILE_SSIM_TOL = 1e-3, 1e-4
+
+
+def plain_warp(tex, uv, probs, k, eps):
+    """The renderer's warp through the kernels' plain versions (on the
+    card here: the yardstick of quality_profile's substitutions)."""
+    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
+    from neural_human_video_rendering_tpu_torch.ops import \
+        texture_warp_kernel as tk
+    B, _, H, W = probs.shape
+    tex32, fg, u, v = ttw._operands(tex, uv, probs, "float32")
+    w = tk.topk_select_plain(fg, k, 0, eps)
+    return tk.texture_warp_fwd_plain(tex32, u, v, w).view(B, -1, H, W)
+
+
+def quality_profile_path(torch, smoke, tk, fk, q, S, T, smi):
+    """Phase 9 (g): quality_profile.main on the cut quality run's held-out
+    frames (its run dir and corpus under q) at FULL_FLAGS, the
+    substitutions' warps through the fused kernel and then through the
+    plain warp on the card. Checks: every variant and tile finite; the
+    model-free all_gt_exact and tile sweep equal across the two routes
+    (PROFILE_*_TOL): the fused kernel on one-hot probabilities and one UV
+    copied to every part; launches_per_frame fused launches without w a
+    frame (the plain route: only the model's forward)."""
+    import math
+    from neural_human_video_rendering_tpu_torch import quality_profile as qp
+    from neural_human_video_rendering_tpu_torch import quality_run
+    argv = ["--data", os.path.join(q, "data"), "--run_dir",
+            os.path.join(q, "ckpt", "e2e"), "--how_many", "8",
+            "--ceiling_tiles", ",".join(str(t) for t in PROFILE_TILES), "--",
+            "--loadSize", str(S), "--tex_tile", str(T),
+            *quality_run.FULL_FLAGS, "--gpu_ids", "0"]
+    out, counts, secs = {}, {}, {}
+    for route, warp in (("cuda", qp.kernel_warp), ("plain", plain_warp)):
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        t = time.perf_counter()
+        out[route] = json.loads(json.dumps(qp.main(argv, warp=warp)))
+        torch.cuda.synchronize()
+        secs[route] = time.perf_counter() - t
+        counts[route] = launch_counts()
+    none = {k: 0 for k in REPLACES}
+    res, plain = out["cuda"], out["plain"]
+    n = res["config"]["frames"]
+    per = qp.launches_per_frame(len(PROFILE_TILES))
+    smoke.require(
+        f"quality_profile: {per} fused launches without w a frame (the "
+        f"model, 4 substitutions, {len(PROFILE_TILES)} tiles) in {n} "
+        "frames, no other kernel; the plain route only the model's",
+        counts["cuda"] == {**none, "texture_warp_topk_fwd": per * n}
+        and counts["plain"] == {**none, "texture_warp_topk_fwd": n},
+        json.dumps(counts))
+    rows = list(res["variants"].values()) + list(res["tile_ceiling"].values())
+    smoke.require(f"quality_profile: 7 variants and {len(PROFILE_TILES)} "
+                  "tiles, all finite",
+                  len(res["variants"]) == 7 and sorted(
+                      res["tile_ceiling"], key=int) == [
+                          str(t) for t in PROFILE_TILES]
+                  and all(math.isfinite(r["PSNR"]) and math.isfinite(
+                      r["SSIM"]) for r in rows), json.dumps(res))
+    pairs = {"all_gt_exact": (res["variants"]["all_gt_exact"],
+                              plain["variants"]["all_gt_exact"]),
+             **{f"tile {t}": (res["tile_ceiling"][t], plain["tile_ceiling"][t])
+                for t in res["tile_ceiling"]}}
+    d_psnr = max(abs(a["PSNR"] - b["PSNR"]) for a, b in pairs.values())
+    d_ssim = max(abs(a["SSIM"] - b["SSIM"]) for a, b in pairs.values())
+    smoke.check("quality_profile: all_gt_exact and the tile sweep, fused "
+                "kernel vs plain warp: PSNR (dB)", d_psnr, PROFILE_PSNR_TOL)
+    smoke.check("quality_profile: all_gt_exact and the tile sweep, fused "
+                "kernel vs plain warp: SSIM", d_ssim, PROFILE_SSIM_TOL)
+    others = {k: abs(res["variants"][k]["PSNR"] - plain["variants"][k]["PSNR"])
+              for k in res["variants"]}
+    # the fused kernel's device time on one-hot probabilities and one UV
+    # copied to every part (all_gt_exact of the last corpus frame, B=1)
+    from neural_human_video_rendering_tpu_torch.data import \
+        synthetic_video as sv
+    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
+    dev = torch.device("cuda", 0)
+    P = 24
+    joints = sv.load_reference_joints(os.path.join(q, "data", "openpose_json"),
+                                      S)[-1]
+    onehot, _, uv2 = qp.exact_gt(joints, S, P, dev)
+    atlas = qp.atlas_tensor(sv.part_texture_atlas(P, tile=T), dev)
+    uv = uv2[:, None].expand(1, P, 2, S, S).contiguous()
+    tex32, fg, u, v = ttw._operands(atlas, uv, onehot, "float32")
+    one_hot_ms = {
+        "ms": graph_ms(torch, lambda: tk.texture_warp_topk_fwd(
+            tex32, fg, u, v, 4, 1e-3)),
+        "plain_ms": cuda_ms(torch, lambda: plain_warp(atlas, uv, onehot, 4,
+                                                      1e-3), iters=5,
+                            warmup=1),
+        "body_pixels": int((onehot[:, 1:].sum(1) > 0).sum())}
+    print(f"[measure] quality_profile ({n} held-out frames, FULL_FLAGS 512 px "
+          f"tile 64): {json.dumps(res)}; plain-warp route: "
+          f"{json.dumps(plain)}; |dPSNR| every variant {json.dumps(others)} "
+          f"| {smi}", flush=True)
+    print(f"[measure] texture_warp_topk_fwd on one-hot probabilities "
+          f"(B=1, {S}^2, T={T}, k=4, eps=1e-3): {json.dumps(one_hot_ms)}",
+          flush=True)
+    return {"table": res, "plain_route": plain, "frames": n,
+            "launches_per_frame": per, "launches": counts, "s": secs,
+            "model_free_max_dpsnr": d_psnr, "model_free_max_dssim": d_ssim,
+            "one_hot_fused": one_hot_ms}
 
 
 # phase 10: every model and training option of the JAX package
@@ -2379,34 +2511,66 @@ def decode_frames(answer):
     return np.stack(out)
 
 
-def start_server(repo, model, gpu, timeout):
-    """python -m ...serve --port 0 in a fresh process -> (process, port,
-    its start-up lines); killed if it has not bound a port in `timeout`
-    seconds."""
-    import threading
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "neural_human_video_rendering_tpu_torch.serve",
-         "--model", model, "--port", "0", "--gpu_ids", gpu],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=repo)
-    timer = threading.Timer(timeout, proc.kill)
-    timer.start()
-    lines, port = [], None
-    for line in proc.stdout:
-        lines.append(line.rstrip())
-        if " on http://" in line:
-            port = int(line.rsplit(":", 1)[1])
-            break
-    timer.cancel()
-    return proc, port, lines
+LADDER_REQUESTS, LADDER = 12, "1,4"
 
 
-def stop_server(proc):
-    proc.terminate()
+def bench_serve_path(smoke, repo, model, opt, gpu, joints, served, smi):
+    """Phase 11: the program in a fresh server process (bench_serve's
+    start_server: `python -m ...serve --port 0`), whose frames of `joints`
+    must equal the in-process ones (`served`) bit for bit; then (e)
+    bench_serve's ladder on it (concurrency LADDER, LADDER_REQUESTS
+    requests each; joints of a synthetic driving sequence). Checks: a
+    finite positive ladder, the server's exit 0 on SIGINT, its launches:
+    the fused forward without w once a request and once for each warm-up
+    (the server's and the ladder's), no other kernel. Numbers: the
+    server's start-up s, the ladder, concurrency 4 over 1 (above 1 where
+    the PNG encodes of concurrent requests overlap the device calls)."""
+    import math
+
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import bench_serve
+    kp = os.path.join(repo, "build", "chip_smoke", "serve", "keypoints")
+    write_driving_sequence(opt, kp, SERVE_BATCH)
+    t0 = time.perf_counter()
+    srv, base = bench_serve.start_server(model, 0, gpu, SERVER_START_S)
     try:
-        proc.wait(timeout=30)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        health = bench_serve.wait_healthy(srv, base)
+        start_s = time.perf_counter() - t0
+        print("[serve] fresh process: " + " | ".join(
+            ln.rstrip() for ln in srv.lines[-4:]), flush=True)
+        fresh = decode_frames(http_json(base + "/render",
+                                        {"joints": joints.tolist()}))
+        smoke.require("the fresh process's frames equal the in-process ones "
+                      "bit for bit", np.array_equal(fresh, served))
+        t0 = time.perf_counter()
+        payload = bench_serve.driving_payload(kp, health["batch"],
+                                              health["frame"][1])
+        result = {"artifact": os.path.basename(model),
+                  "batch": health["batch"],
+                  "ladder": bench_serve.ladder(base, payload, health["batch"],
+                                               LADDER_REQUESTS, LADDER),
+                  "n_requests": LADDER_REQUESTS}
+        ladder_s = time.perf_counter() - t0
+    finally:
+        server = bench_serve.stop_server(srv)
+    ladder = result["ladder"]
+    levels = LADDER.split(",")
+    smoke.require(f"bench_serve: its JSON keys, frames/s finite and > 0 at "
+                  f"concurrency {LADDER}",
+                  list(ladder) == levels and result["batch"] == SERVE_BATCH
+                  and all(math.isfinite(v) and v > 0 for v in ladder.values()),
+                  json.dumps(result))
+    smoke.require("bench_serve: the server exits 0 on SIGINT",
+                  server["rc"] == 0, json.dumps(server))
+    want = {**{k: 0 for k in REPLACES}, "texture_warp_topk_fwd":
+            3 + LADDER_REQUESTS * len(levels)}
+    smoke.require("the server process launched the fused forward without w "
+                  "once a request and a warm-up, no other kernel",
+                  server["launches"] == want, json.dumps(server))
+    out = {**result, "server": server, "ladder_s": ladder_s,
+           "concurrency_4_over_1": ladder[levels[-1]] / ladder[levels[0]]}
+    print(f"[serve] bench_serve: {json.dumps(out)} | {smi}", flush=True)
+    return {"fresh_server_start_s": start_s, "bench_serve": out}
 
 
 def export_path(torch, smoke, tk, fk, repo, dev, smi):
@@ -2566,21 +2730,10 @@ def export_path(torch, smoke, tk, fk, repo, dev, smi):
     del httpd
     torch.cuda.empty_cache()
 
-    # ---- the same program from a fresh server process
-    t0 = time.perf_counter()
-    proc, port, lines = start_server(repo, model, gpu, SERVER_START_S)
-    try:
-        numbers["fresh_server_start_s"] = time.perf_counter() - t0
-        print("[serve] fresh process: " + " | ".join(lines[-4:]), flush=True)
-        smoke.require("a fresh server process binds a port", port is not None,
-                      " | ".join(lines[-6:]))
-        if port is not None:
-            fresh = decode_frames(http_json(f"http://127.0.0.1:{port}/render",
-                                            {"joints": joints.tolist()}))
-            smoke.require("the fresh process's frames equal the in-process "
-                          "ones bit for bit", np.array_equal(fresh, served))
-    finally:
-        stop_server(proc)
+    # ---- the same program from a fresh server process (bench_serve's),
+    # then (e) bench_serve's ladder on it
+    numbers.update(bench_serve_path(smoke, repo, model, opt, gpu, joints,
+                                    served, smi))
 
     # ---- --warp_block_parts 8, the weights baked in: top-k with the cap,
     # then the forward with w given
@@ -2806,13 +2959,10 @@ PAR_ONE, PAR_TWO = "--gpu_ids=0", "--gpu_ids=0,0"     # one rank, two ranks
 PAR_EXACT = ("--dtype float32 --warp_topk 24 --warp_eps 0 "
              "--no_vgg_loss").split()
 PAR_LOSS_RTOL = 1e-4
-# the parity tests' form (_assert_deltas), its first term loosened from
-# 1e-5: at 2 x 512^2 pixels a float32 rounding of another batch split
-# flips the sign of an L1 term (UV, mask, temporal, feature matching)
-# where |x| is within ~1e-6 of 0, and each flip moves the gradient by
-# 2 lambda / count through the whole generator: measured up to 5.7e-3 of
-# the largest change (no flip: 4.6e-5) on the H100
-PAR_SCALE_TOL, PAR_TENSOR_TOL = 1e-2, 1e-4
+# the parity tests' form (_assert_deltas): the reference runs the ranks'
+# own shapes (selfcheck.thread_ranks), so only the order of the final
+# gradient sums differs
+PAR_SCALE_TOL, PAR_TENSOR_TOL = 1e-5, 1e-4
 STAGE2_KEYS = ["D_total", "G_FM", "G_GAN", "G_L2", "G_Mask", "G_Prob",
                "G_Temp", "G_UV", "G_VGG", "G_total"]
 LOSS_LINE = re.compile(r"^\(epoch: (\d+), iters: (-?\d+), time: ([0-9.]+)\) "
@@ -2861,16 +3011,56 @@ def rank_launches(text):
         r"counters' reset: (\{[^}]*\})", text)}
 
 
+def parallel_parity(torch, smoke, work, dev):
+    """Phase 12 (a): the flagship widths in float32, SGD(1), one global
+    batch of 2: two ranks of one sample over gloo against the same two
+    ranks run as threads of this process (selfcheck.thread_ranks: each
+    rank's own shapes, so only the order of the final gradient sums
+    differs), at the parity tests' form (PAR_SCALE_TOL); then the ranks'
+    parameters, Adam moments and EMA bit-equal after PAR_ADAM Adam
+    steps."""
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
+    from neural_human_video_rendering_tpu_torch.runtime import launch
+    t0 = time.perf_counter()
+    o2 = TrainOptions().parse(TRAIN + PAR_EXACT + [PAR_TWO], save=False)
+    syn = dsm.SyntheticDataset(o2, length=12, seed=o2.seed)
+    batch = dsm.collate([syn[i] for i in (1, 11)])
+    atlas = sc.linear_atlas(o2.n_parts, o2.tex_tile)
+    one_dir, two_dir = os.path.join(work, "a_one"), os.path.join(work, "a_two")
+    sc.thread_ranks(o2, batch, atlas, syn.background(), one_dir, PAR_ADAM,
+                    2, dev)
+    torch.cuda.empty_cache()
+    _, out_a = fd_captured(launch, sc.rank_step, o2, batch, atlas,
+                           syn.background(), two_dir, PAR_ADAM, where=work,
+                           batch=o2.batchSize)
+    got = sc.compare(one_dir, two_dir, PAR_SCALE_TOL, PAR_TENSOR_TOL)
+    print(f"[parallel] (a) {json.dumps(got)}", flush=True)
+    smoke.require("(a) two ranks on cuda:0 over gloo",
+                  "rank 1 of 2 on cuda:0 (gloo)" in out_a
+                  and "NCCL refuses" in out_a)
+    smoke.require("(a) two rank files, the same loss keys",
+                  got["n_rank_files"] == 2 and got["same_loss_keys"])
+    smoke.check("(a) step-1 losses 2 ranks vs 2 threads (relative)",
+                got["loss_max_rel"], PAR_LOSS_RTOL)
+    for m, r in got["delta_ratio"].items():
+        smoke.check(f"(a) {m} changes 2 ranks vs 2 threads (err/tol, worst "
+                    f"at {r['tensor']})", r["ratio"], 1.0)
+    smoke.require(f"(a) ranks bit-equal after {PAR_ADAM} Adam steps "
+                  "(parameters, moments, EMA)", got["ranks_bit_equal"],
+                  json.dumps(got["checksums"]))
+    return {**got, "s": time.perf_counter() - t0}
+
+
 def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     """Phase 12: data parallel (parallel/mesh.py, runtime.py). Two ranks
     share cuda:0 through --gpu_ids 0,0 over gloo (NCCL refuses two ranks
     on one card); a world of 1 under torchrun runs NCCL. Their times are
     two processes time-sharing one card: no scaling number.
-      (a) the flagship widths in float32, SGD(1), one global batch of 2:
-          two ranks of 1 sample against one rank of 2 (the step's losses
-          and the changes of G, D and the EMA), then the ranks' parameters,
-          Adam moments and EMA bit-equal after 5 Adam steps
-          (parallel/selfcheck.py);
+      (a) parallel_parity: two ranks of one sample against the same two
+          ranks run as threads of this process, then the ranks bit-equal
+          after 5 Adam steps;
       (b) the flagship recipe (bf16) through run_train on a corpus of 10
           frames, 5 steps on two ranks: the loss keys, finite losses, one
           metrics.jsonl writer, the epoch's checkpoints, each rank's
@@ -2890,12 +3080,7 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     from neural_human_video_rendering_tpu_torch import profile_step
     from neural_human_video_rendering_tpu_torch.config import (TestOptions,
                                                                TrainOptions)
-    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
     from neural_human_video_rendering_tpu_torch.infer import test_driver as td
-    from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
-    from neural_human_video_rendering_tpu_torch.parallel.mesh import \
-        DataParallel
-    from neural_human_video_rendering_tpu_torch.runtime import launch
     from neural_human_video_rendering_tpu_torch.train import drivers
     from neural_human_video_rendering_tpu_torch.utils.image import read_png
     t_phase = time.perf_counter()
@@ -2906,35 +3091,7 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     per_step = {k: TRAIN_LAUNCHES_PER_STEP.get(k, 0) for k in REPLACES}
 
     # ---- (a) parity at the flagship widths
-    t0 = time.perf_counter()
-    o1 = TrainOptions().parse(TRAIN + PAR_EXACT + [PAR_ONE], save=False)
-    o2 = TrainOptions().parse(TRAIN + PAR_EXACT + [PAR_TWO], save=False)
-    syn = dsm.SyntheticDataset(o1, length=12, seed=o1.seed)
-    batch = dsm.collate([syn[i] for i in (1, 11)])
-    atlas = sc.linear_atlas(o1.n_parts, o1.tex_tile)
-    one_dir, two_dir = os.path.join(work, "a_one"), os.path.join(work, "a_two")
-    sc.rank_step(o1, batch, atlas, syn.background(), one_dir, PAR_ADAM,
-                 dp=DataParallel.solo(dev))
-    torch.cuda.empty_cache()
-    _, out_a = fd_captured(launch, sc.rank_step, o2, batch, atlas,
-                           syn.background(), two_dir, PAR_ADAM, where=work,
-                           batch=o2.batchSize)
-    got = sc.compare(one_dir, two_dir, PAR_SCALE_TOL, PAR_TENSOR_TOL)
-    print(f"[parallel] (a) {json.dumps(got)}", flush=True)
-    smoke.require("(a) two ranks on cuda:0 over gloo",
-                  "rank 1 of 2 on cuda:0 (gloo)" in out_a
-                  and "NCCL refuses" in out_a)
-    smoke.require("(a) two rank files, the same loss keys",
-                  got["n_rank_files"] == 2 and got["same_loss_keys"])
-    smoke.check("(a) step-1 losses 2 ranks vs 1 (relative)",
-                got["loss_max_rel"], PAR_LOSS_RTOL)
-    for m, r in got["delta_ratio"].items():
-        smoke.check(f"(a) {m} changes 2 ranks vs 1 (err/tol, worst at "
-                    f"{r['tensor']})", r["ratio"], 1.0)
-    smoke.require(f"(a) ranks bit-equal after {PAR_ADAM} Adam steps "
-                  "(parameters, moments, EMA)", got["ranks_bit_equal"],
-                  json.dumps(got["checksums"]))
-    numbers["a"] = {**got, "s": time.perf_counter() - t0}
+    numbers["a"] = parallel_parity(torch, smoke, work, dev)
     torch.cuda.empty_cache()
 
     # ---- (b) the flagship recipe through run_train on two ranks
@@ -3109,6 +3266,250 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     shutil.rmtree(ck, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"parallel": numbers, "card": smi}), flush=True)
+    return numbers
+
+
+# phase 13: the tools (bench_trained_regime, noisy_gt_ab + noisyab_anatomy,
+# arm_ab64)
+TR_WINDOWS, TR_STEPS = 4, 15
+AB_FRAMES = 16            # --data_ratio 0.9: 2 held-out frames
+AB64_FRAMES = 24
+BENCH_STEP_LAUNCHES = {"topk_select": 0, "texture_warp_fwd": 0,
+                       "texture_warp_topk_fwd": 2, "texture_warp_bwd": 1,
+                       "flow_warp_fwd": 1}
+
+
+def trained_regime_path(torch, smoke, tk, fk, dev, smi):
+    """Phase 13 (a): bench_trained_regime.run at bench.bench_options (512
+    px, batch 2, tile 128, bf16), TR_WINDOWS windows of TR_STEPS steps.
+    Checks: G_Prob lower in the last window than in the first; each
+    window's launches the bench step's (BENCH_STEP_LAUNCHES a step; the
+    first window also holds the untimed first step). Numbers: each
+    window's steps/s and G_Prob, and on the first and last windows'
+    renderer tensors (the step's forward after the window) the fused
+    forward keeping w and the backward by CUDA-graph replay, with the
+    selected (pixel, part) pairs."""
+    from neural_human_video_rendering_tpu_torch import bench
+    from neural_human_video_rendering_tpu_torch import \
+        bench_trained_regime as btr
+    from neural_human_video_rendering_tpu_torch.data.wire import unpack_batch
+    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        pose_from_batch
+    opt = bench.bench_options(128, "bfloat16", "0")
+    K, EPS = opt.warp_topk, opt.warp_eps
+    per_window, tensors = [], {}
+
+    def on_window(wi, state, batch):
+        torch.cuda.synchronize()
+        per_window.append(launch_counts())
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        if wi not in (0, TR_WINDOWS - 1):
+            return
+        with torch.no_grad():
+            b = unpack_batch(batch, dev)
+            outs = state.renderer(pose_from_batch(opt, b), state.bg[None],
+                                  state.static_tex[None], state.tex_mask)
+            tex, fg, u, v = ttw._operands(outs["texture"], outs["uv"],
+                                          outs["probs"], opt.warp_dtype)
+            w = tk.topk_select(fg, K, 0, EPS)
+            g = torch.randn((tex.shape[0], tex.shape[2], fg.shape[2]),
+                            device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(9))
+        tensors[wi] = {
+            "fused_keep_w_ms": graph_ms(torch, lambda: tk.texture_warp_topk_fwd(
+                tex, fg, u, v, K, EPS, return_w=True)),
+            "fused_no_w_ms": graph_ms(torch, lambda: tk.texture_warp_topk_fwd(
+                tex, fg, u, v, K, EPS)),
+            "bwd_ms": graph_ms(torch, lambda: tk.texture_warp_bwd(
+                tex, u, v, w, g)),
+            "selected": int((w > 0).sum()),
+            "selected_per_part_max": int((w > 0).sum(2).max())}
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, lines = btr.run(opt, dev, TR_WINDOWS, TR_STEPS, on_window)
+    secs = time.perf_counter() - t0
+    probs = [x["G_Prob"] for x in lines]
+    smoke.require("bench_trained_regime: G_Prob lower in the last window "
+                  "than in the first", probs[-1] < probs[0], str(probs))
+    want = [{k: v * (TR_STEPS + (wi == 0)) for k, v in
+             BENCH_STEP_LAUNCHES.items()} for wi in range(TR_WINDOWS)]
+    smoke.require("bench_trained_regime: a step launches the bench step's "
+                  "kernels (2 fused forwards: w kept, and the t-1 render "
+                  "without; the backward; the flow warp)",
+                  per_window == want, json.dumps(per_window))
+    out = {"summary": summary, "windows": lines, "s": secs,
+           "renderer_tensors": {"first": tensors[0],
+                                "last": tensors[TR_WINDOWS - 1]},
+           "launches": {k: sum(x[k] for x in per_window) for k in REPLACES}}
+    print(f"[tools] bench_trained_regime ({TR_WINDOWS} x {TR_STEPS} steps): "
+          f"{json.dumps(out)} | {smi}", flush=True)
+    return out
+
+
+def stage2_launches(log_path):
+    """The '[kernels] launches ...' lines of the stage-2 runs in a tool's
+    run.log, in order."""
+    with open(log_path) as f:
+        return [json.loads(ln.split(": ", 1)[1]) for ln in f
+                if ln.startswith("[kernels] launches")]
+
+
+def ab_tools_path(torch, smoke, repo, work, smi):
+    """Phase 13 (b) and (c): noisy_gt_ab at SIZES_FULL (512 px, tile 64; a
+    subprocess: the arms' stages, then its --skip_train scoring) on
+    AB_FRAMES frames, 1 pre-epoch and 1 epoch, --how_many 4; arm_ab64 (64
+    px, --limb_coords, 1 + 1 epochs) in a subprocess beside it; then
+    noisyab_anatomy on noisy_gt_ab's dir in this process. Checks: every
+    summary number finite, IoUs in [0, 1], each arm's anchor_epoch equal
+    to --epochs, every stage-2 run's launches (2 fused forwards, the
+    backward and the flow warp a step, a fused forward a held-out batch),
+    the anatomy's keys and finite values."""
+    import math
+    from neural_human_video_rendering_tpu_torch import noisyab_anatomy
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    pkg = "neural_human_video_rendering_tpu_torch"
+    ab, a64 = os.path.join(work, "noisy_gt_ab"), os.path.join(work, "ab64")
+    kp, kp64 = os.path.join(work, "kp512"), os.path.join(work, "kp64")
+    write_driving_sequence(TrainOptions().parse(TRAIN, save=False), kp,
+                           AB_FRAMES)
+    write_driving_sequence(TrainOptions().parse(TRAIN + ["--loadSize", "64"],
+                                                save=False), kp64, AB64_FRAMES)
+    os.makedirs(a64, exist_ok=True)
+    numbers = {}
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "arm_ab64.log"), "w") as log64:
+        side = subprocess.Popen(
+            [sys.executable, "-m", f"{pkg}.arm_ab64", "--name", "limb_coords",
+             "--arm_flags=--limb_coords", "--arm_kw",
+             '{"limb_coords": true}', "--out", os.path.join(a64, "limb.json"),
+             "--keypoints", kp64, "--epochs", "1", "--pre_epochs", "1",
+             "--how_many", "4", "--gpu_ids", "0", "--work", a64],
+            stdout=log64, stderr=subprocess.STDOUT, cwd=repo)
+        try:
+            r = subprocess.run(
+                [sys.executable, "-m", f"{pkg}.noisy_gt_ab", "--out", ab,
+                 "--keypoints", kp, "--epochs", "1", "--pre_epochs", "1",
+                 "--how_many", "4", "--gpu_ids", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=repo)
+            numbers["noisy_gt_ab_s"] = time.perf_counter() - t0
+            rc64 = side.wait(timeout=900)
+        finally:
+            if side.poll() is None:
+                side.kill()
+                side.wait()
+    numbers["arm_ab64_s"] = time.perf_counter() - t0
+    print(r.stdout[-3000:], flush=True)
+    with open(os.path.join(work, "arm_ab64.log")) as f:
+        print(f.read()[-3000:], flush=True)
+    smoke.require("noisy_gt_ab exits 0", r.returncode == 0)
+    smoke.require("arm_ab64 exits 0", rc64 == 0)
+    if r.returncode != 0 or rc64 != 0:
+        return numbers
+    with open(os.path.join(ab, "noisy_gt_ab.json")) as f:
+        nab = json.load(f)
+    with open(os.path.join(a64, "limb.json")) as f:
+        lever = json.load(f)
+    numbers.update(noisy_gt_ab=nab, arm_ab64=lever)
+    for arm in ("clean", "noisy"):
+        m = nab[arm]
+        smoke.require(f"noisy_gt_ab {arm}: finite, IoUs in [0, 1], "
+                      "anchor_epoch 1 (= --epochs)",
+                      all(math.isfinite(v) for k, v in m.items()
+                          if k != "anchor_epoch")
+                      and all(0.0 <= m[k] <= 1.0 for k in m if "IoU" in k)
+                      and m["anchor_epoch"] == 1 and m["held_out_frames"] > 0,
+                      json.dumps(m))
+    smoke.require("arm_ab64: both arms finite, anchor_epoch 1",
+                  all(math.isfinite(v) for arm in ("base", "limb_coords")
+                      for k, v in lever[arm].items() if k != "anchor_epoch")
+                  and all(lever[arm]["anchor_epoch"] == 1
+                          for arm in ("base", "limb_coords"))
+                  and math.isfinite(lever["delta_PSNR"]), json.dumps(lever))
+    # every stage-2 run: 2 fused forwards (t and the t-1 render), the
+    # backward and the flow warp a step; a fused forward a held-out batch
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    launches = {}
+    for name, log, data, runs in (
+            ("noisy_gt_ab", os.path.join(ab, "run.log"),
+             os.path.join(ab, "clean"),
+             [os.path.join(ab, f"ckpt_{a}", "e2e") for a in ("clean",
+                                                            "noisy")]),
+            ("arm_ab64", os.path.join(a64, "run.log"),
+             os.path.join(a64, "data"),
+             [os.path.join(a64, f"ckpt_{a}", "e2e") for a in (
+                 "base", "limb_coords")])):
+        logged = stage2_launches(log)
+        held = len(dsm.FrameDataset(TrainOptions().parse(
+            ["--img_path", os.path.join(data, "frames"), "--data_ratio",
+             "0.9", "--no_flip"], save=False), "test"))
+        want = []
+        for run in runs:
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                recs = [json.loads(ln) for ln in f if ln.strip()]
+            steps = max(x["step"] for x in recs)
+            evals = sum(1 for x in recs if "val_PSNR" in x)
+            want.append({"topk_select": 0, "texture_warp_fwd": 0,
+                         "texture_warp_topk_fwd": 2 * steps
+                         + evals * -(-held // 2),
+                         "texture_warp_bwd": steps, "flow_warp_fwd": steps})
+        smoke.require(f"{name}: each stage-2 run's launches (2 fused forwards, "
+                      "the backward, the flow warp a step; a fused forward a "
+                      "held-out batch)", logged == want,
+                      f"{json.dumps(logged)} vs {json.dumps(want)}")
+        launches[name] = logged
+    numbers["launches"] = launches
+    # the anatomy of noisy_gt_ab's dir, in this process
+    t0 = time.perf_counter()
+    tk_counts = launch_counts()
+    rc = noisyab_anatomy.main(["--ab", ab, "--size", "512", "--tile", "64",
+                               "--n_eval", "4", "--gpu_ids", "0", "--out",
+                               os.path.join(work, "anatomy.json")])
+    torch.cuda.synchronize()
+    numbers["anatomy_s"] = time.perf_counter() - t0
+    numbers["anatomy_launches"] = {k: v - tk_counts[k]
+                                   for k, v in launch_counts().items()}
+    with open(os.path.join(work, "anatomy.json")) as f:
+        anatomy = json.load(f)
+    numbers["anatomy"] = anatomy
+    smoke.require("noisyab_anatomy: both arms, saved epochs 1 and latest, "
+                  "finite values, the three SSIM zones",
+                  rc == 0 and sorted(anatomy) == ["clean", "noisy"] and all(
+                      sorted(a["epochs"]) == ["1", "latest"]
+                      and all(math.isfinite(v) for e in a["epochs"].values()
+                              for v in e.values())
+                      and sorted(a["ssim_zones_latest"]) == [
+                          "background", "edge", "interior"]
+                      for a in anatomy.values()), json.dumps(anatomy))
+    print(f"[tools] noisy_gt_ab (SIZES_FULL 512 px tile 64, {AB_FRAMES} "
+          f"frames, 1 + 1 epochs): {json.dumps(nab)}; arm_ab64 (64 px, "
+          f"limb_coords, 1 + 1 epochs): {json.dumps(lever)}; anatomy: "
+          f"{json.dumps(anatomy)} | {smi}", flush=True)
+    return numbers
+
+
+def tools_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 13: (a) trained_regime_path, (b) + (c) ab_tools_path. Returns
+    the numbers with the launches of each tool's main path."""
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    numbers = {"trained_regime": trained_regime_path(torch, smoke, tk, fk,
+                                                     dev, smi)}
+    torch.cuda.empty_cache()
+    numbers["ab"] = ab_tools_path(torch, smoke, repo, work, smi)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"tools": {k: v for k, v in numbers.items()},
+                      "card": smi}), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
     return numbers
 
 
@@ -3410,6 +3811,22 @@ def main() -> int:
     serving11 = serving_path(torch, smoke, tk, fk, repo, dev, smi)
     # ------------------------------------------------------- 12. parallel
     parallel = parallel_path(torch, smoke, tk, fk, repo, dev, smi)
+    # ---------------------------------------------------------- 13. tools
+    t13 = time.perf_counter()
+    tools = tools_path(torch, smoke, tk, fk, repo, dev, smi)
+    print(f"[tools] phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
+    ab_launches = tools["ab"].get("launches", {})
+    launches_tools = {
+        "quality_profile (phase 9 g)": launch_bench.pop("quality_profile"),
+        "bench_serve server (phase 11 e)":
+            serving11["bench_serve"]["server"]["launches"] or {},
+        "bench_trained_regime (phase 13 a)":
+            tools["trained_regime"]["launches"],
+        **{f"{tool} stage 2, arm {i} (phase 13)": counts
+           for tool, runs in ab_launches.items()
+           for i, counts in enumerate(runs)},
+        "noisyab_anatomy (phase 13 b)": tools["ab"].get("anatomy_launches",
+                                                        {})}
 
     # launches: each kernel's count from the main path that runs it
     bp_path = "run_inference --warp_block_parts 8, 1 batch of 8"
@@ -3455,6 +3872,8 @@ def main() -> int:
                         for r, v in parallel["d"]["launches_ranks"].items()}}
         entry["options_shapes"] = {k: v[name] for k, v in
                                    options["kernels"].items() if name in v}
+        entry["launches_tools"] = {k: v.get(name, 0)
+                                   for k, v in launches_tools.items()}
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "
                            "calls replayed (warm L2 where the inputs fit); "
                            "host_us: host clock per call, no sync")

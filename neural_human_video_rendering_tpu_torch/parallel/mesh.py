@@ -123,7 +123,7 @@ class DataParallel:
         n = x.shape[0]
         buf = x.new_zeros((n * self.world,) + tuple(x.shape[1:]))
         buf[self.rank * n:(self.rank + 1) * n] = x
-        dist.all_reduce(buf, group=self.group)
+        self._all_reduce(buf)
         return buf
 
     # ---- reductions
@@ -140,7 +140,7 @@ class DataParallel:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             flat = _flatten_dense_tensors(grads)
-            dist.all_reduce(flat, group=self.group)
+            self._all_reduce(flat)
             flat.div_(self.world)
             for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
                 g.copy_(r)
@@ -154,7 +154,7 @@ class DataParallel:
         names = list(metrics)
         flat = torch.stack([metrics[k].detach().float().reshape(())
                             for k in names])
-        dist.all_reduce(flat, group=self.group)
+        self._all_reduce(flat)
         flat.div_(self.world)
         return dict(zip(names, flat.unbind(0)))
 
@@ -163,7 +163,7 @@ class DataParallel:
         masked mean's denominator), or sums to be averaged."""
         x = x.detach().clone()
         if self.parallel:
-            dist.all_reduce(x, group=self.group)
+            self._all_reduce(x)
         return x
 
     def count_share(self, count: torch.Tensor) -> torch.Tensor:
@@ -183,8 +183,8 @@ class DataParallel:
             return
         with torch.no_grad():
             for t in tensors:
-                dist.broadcast(t.data if isinstance(t, torch.nn.Parameter)
-                               else t, src=0, group=self.group)
+                self._broadcast(t.data if isinstance(t, torch.nn.Parameter)
+                                else t)
         self.check("replicate", tensors)
 
     def check(self, what: str, tensors: Sequence[torch.Tensor]
@@ -196,8 +196,8 @@ class DataParallel:
             return None
         s = tensor_checksum(tensors).to(self.device)
         lo, hi = s.clone(), s.clone()
-        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=self.group)
-        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=self.group)
+        self._all_reduce(lo, dist.ReduceOp.MIN)
+        self._all_reduce(hi, dist.ReduceOp.MAX)
         if int(lo) != int(hi):
             raise RuntimeError(
                 f"[mesh] {what}: the ranks' checksums differ ({int(lo)} to "
@@ -207,3 +207,11 @@ class DataParallel:
     def barrier(self) -> None:
         if self.parallel:
             dist.barrier(group=self.group)
+
+    # ---- the transport (parallel.selfcheck.ThreadRank replaces it)
+    def _all_reduce(self, x: torch.Tensor,
+                    op: dist.ReduceOp = dist.ReduceOp.SUM) -> None:
+        dist.all_reduce(x, op=op, group=self.group)
+
+    def _broadcast(self, x: torch.Tensor) -> None:
+        dist.broadcast(x, src=0, group=self.group)

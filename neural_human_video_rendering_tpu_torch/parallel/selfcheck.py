@@ -1,11 +1,21 @@
 """A self-check of data parallel on the stage-2 step: ranks that split one
-fixed global batch against one rank that takes it whole.
+fixed global batch, over a process group, against the same ranks run as
+threads of one process.
 
     from neural_human_video_rendering_tpu_torch.runtime import launch
     launch(rank_step, opt, batch, atlas, bg, out_dir, adam_steps,
            where=out_dir, batch=opt.batchSize)
-    rank_step(opt1, batch, atlas, bg, out_dir1, adam_steps, dp=<one rank>)
-    compare(out_dir1, out_dir)
+    thread_ranks(opt, batch, atlas, bg, ref_dir, adam_steps, world, device)
+    compare(ref_dir, out_dir)
+
+The reference (``thread_ranks``) runs each rank's rows at the rank's own
+shapes, with the same global count share, and sums the gradients in rank
+order and divides by the world once: the ranks' code with another
+transport (``ThreadRank``), so only the order of the final sums may
+differ. A reference that takes the global batch in one pass runs its
+convolutions and reductions at other shapes, and their rounding flips the
+sign of L1 terms within ~1e-6 of 0, each flip moving the gradient by
+2 lambda / count through the whole generator.
 
 Each rank builds the state from --seed (rank 0's weights broadcast),
 zeroes TexG's head and takes its rows of the batch. It runs one step with
@@ -16,25 +26,109 @@ timing the step's phases, and writes the checksums of its parameters,
 Adam moments, EMA and pool (``parallel.mesh.tensor_checksum``): every
 rank's must be the same.
 
-The step runs in float32 without TF32. Give it a texture linear in the
-texel coordinates (``linear_atlas``): with TexG's head at zero the warp's
-gradient is then the same in every texel cell, so the rounding that a
-different batch split brings cannot move a sample across a texel edge
-and change its gradient by far more than the rounding.
+The step runs in float32 without TF32, and with cuDNN's deterministic
+algorithms: others sum some weight gradients in a run-dependent order,
+which on the card moves D's changes between two runs of the same shapes
+by more than the rounding of the final sums. Give it a texture linear in
+the texel coordinates (``linear_atlas``): with TexG's head at zero the
+warp's gradient is then the same in every texel cell, so the rounding
+that a different batch split brings cannot move a sample across a texel
+edge and change its gradient by far more than the rounding.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..train.state import create_train_state
 from ..train.steps import make_train_step
 from .mesh import DataParallel, module_tensors, optimizer_tensors
+
+
+class _Threads:
+    """The rendezvous of ``world`` ThreadRanks: each collective deposits
+    every rank's tensor, then each rank reads them all in rank order."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.slots: List[Optional[torch.Tensor]] = [None] * world
+        self.barrier = threading.Barrier(world)
+
+    def exchange(self, rank: int, x: torch.Tensor) -> List[torch.Tensor]:
+        self.slots[rank] = x.detach().clone()
+        self.barrier.wait()
+        got = list(self.slots)
+        self.barrier.wait()         # every rank has read before the next
+        return got
+
+
+class ThreadRank(DataParallel):
+    """A rank of a world run as threads of one process: DataParallel's
+    methods with the transport replaced (sums in rank order, rank 0's
+    values broadcast)."""
+    threads: Optional[_Threads] = None
+
+    @property
+    def parallel(self) -> bool:
+        return True
+
+    def _all_reduce(self, x, op=dist.ReduceOp.SUM) -> None:
+        got = self.threads.exchange(self.rank, x)
+        out = got[0]
+        for g in got[1:]:
+            out = (out + g if op == dist.ReduceOp.SUM else
+                   torch.minimum(out, g) if op == dist.ReduceOp.MIN else
+                   torch.maximum(out, g))
+        x.copy_(out)
+
+    def _broadcast(self, x) -> None:
+        x.copy_(self.threads.exchange(self.rank, x)[0])
+
+    def barrier(self) -> None:
+        self.threads.exchange(self.rank, torch.zeros(()))
+
+
+def thread_ranks(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
+                 bg: np.ndarray, out_dir: str, adam_steps: int, world: int,
+                 device: torch.device) -> None:
+    """``rank_step`` of each of ``world`` ranks as threads of this process
+    on ``device`` (the reference of the module docstring); writes
+    {out_dir}/rank{r}.pt, then restores the TF32 and cuDNN settings that
+    rank_step sets. A rank's exception breaks the others' waits and is
+    raised here."""
+    threads = _Threads(world)
+    errors: List[BaseException] = []
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+
+    def run(rank):
+        dp = ThreadRank(rank=rank, world=world, local_rank=rank,
+                        device=torch.device(device), backend="threads")
+        dp.threads = threads
+        try:
+            rank_step(opt, batch, atlas, bg, out_dir, adam_steps, dp=dp)
+        except BaseException as e:          # noqa: BLE001 - raised below
+            errors.append(e)
+            threads.barrier.abort()
+
+    workers = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    # rank_step's process-wide settings, back as they were
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+    real = [e for e in errors if not isinstance(e, threading.BrokenBarrierError)]
+    if errors:
+        raise (real or errors)[0]
 
 
 def linear_atlas(P: int, T: int, seed: int = 5) -> np.ndarray:
@@ -70,6 +164,7 @@ def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
     dp = dp if dp is not None else DataParallel()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     rows = dp.shard_batch(batch)
     st = _state(opt, atlas, bg, dp)
     before = {"G": _cpu(st.renderer.state_dict()),

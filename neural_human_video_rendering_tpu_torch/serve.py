@@ -33,7 +33,9 @@ device once and passed on every call; without one the program holds its
 weights (--bake_weights). At start-up one warm-up call builds the CUDA
 kernels if they are not built yet and pays the first launch, so the first
 request does not; its seconds are printed. --port 0 binds a free port;
-the start-up line names the port bound.
+the start-up line names the port bound. On SIGINT the server stops, prints
+its kernel launches (``[kernels] launches ...``) and exits 0 (1 after a
+device failure).
 """
 
 from __future__ import annotations
@@ -227,6 +229,9 @@ def main(argv=None) -> int:
         pass
     finally:
         httpd.server_close()
+        from .train.drivers import kernel_launches
+        print(f"[kernels] launches since the counters' reset: "
+              f"{json.dumps(kernel_launches())}", flush=True)
     return 1 if httpd.model.failed else 0
 
 

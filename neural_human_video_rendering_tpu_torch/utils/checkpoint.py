@@ -157,6 +157,18 @@ def load_epoch_anchor(run_dir: str) -> Optional[int]:
         return None
 
 
+def saved_epoch(run_dir: str) -> Optional[int]:
+    """The last completed epoch that a run dir's latest save records:
+    latest_state.pth's epoch (stage 2), else the pretrain stages' epoch
+    anchor (load_epoch_anchor); None where neither records one."""
+    path = os.path.join(run_dir, STATE_FILE)
+    if os.path.exists(path):
+        ep = int(torch.load(path, map_location="cpu",
+                            weights_only=True)["epoch"])
+        return ep if ep >= 0 else None
+    return load_epoch_anchor(run_dir)
+
+
 def save_train_state(run_dir: str, g_opt, d_opt, step: int, epoch) -> str:
     """latest_state.pth: both optimizers' state (Adam moments, update
     counts), the step and the epoch (-1 when unknown). With the

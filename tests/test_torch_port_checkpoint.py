@@ -12,6 +12,7 @@ in another order); everything read back from a file, and the resumed
 run, exactly (CPU float32, the same operations in the same order).
 """
 
+import json
 import os
 
 import flax.serialization as fser
@@ -361,8 +362,15 @@ def test_prune_metrics_after_matches_jax(tmp_path):
 
 
 def test_tf_log_is_refused_without_tensorboard(tmp_path, monkeypatch):
+    """--tf_log where torch.utils.tensorboard does not import: the port
+    falls back to logs/scalars.jsonl as the JAX Visualizer does, and
+    writes the same line for the same log_losses call (JAX's own check:
+    tests/test_visualizer.py::test_tf_log_scalars)."""
     import builtins
+    import dataclasses
 
+    from neural_human_video_rendering_tpu.utils.visualizer import \
+        Visualizer as JVisualizer
     from neural_human_video_rendering_tpu_torch.utils.visualizer import \
         Visualizer
     real_import = builtins.__import__
@@ -373,7 +381,90 @@ def test_tf_log_is_refused_without_tensorboard(tmp_path, monkeypatch):
         return real_import(name, *args, **kw)
 
     monkeypatch.setattr(builtins, "__import__", no_tensorboard)
-    opt = TrainOptions().parse(TINY + ["--checkpoints_dir", str(tmp_path),
-                                       "--tf_log"], save=False)
-    with pytest.raises(NotImplementedError, match="tf_log"):
-        Visualizer(opt)
+    opt = TrainOptions().parse(TINY + ["--checkpoints_dir",
+                                       str(tmp_path / "port"), "--tf_log"],
+                               save=False)
+    jopt = dataclasses.replace(JOptions(**FLAGS), name=opt.name, tf_log=True,
+                               checkpoints_dir=str(tmp_path / "jax"))
+    lines = {}
+    for name, vis in (("port", Visualizer(opt)), ("jax", JVisualizer(jopt))):
+        assert vis.tb is None
+        vis.log_losses(epoch=2, it=5, losses={"G_total": 3.0, "D_real": 0.25},
+                       step=105)
+        vis.log_losses(epoch=2, it=6, losses={"G_total": np.float32(2.5)},
+                       step=106)
+        vis.close()
+        assert vis.jsonl.closed
+        lines[name] = (tmp_path / name / opt.name / "logs" /
+                       "scalars.jsonl").read_text()
+    assert lines["port"] == lines["jax"]
+    assert json.loads(lines["port"].splitlines()[0]) == {
+        "step": 105, "G_total": 3.0, "D_real": 0.25}
+
+
+def test_forked_metrics_jsonl_leaves_the_parent_alone(tmp_path):
+    """A run dir forked with `cp -al` shares metrics.jsonl's inode with its
+    parent: the fork's Visualizer rewrites a private copy before appending,
+    so the parent's bytes stay (the metrics counterpart of
+    tests/test_checkpoint.py::test_save_breaks_hardlinks)."""
+    from neural_human_video_rendering_tpu_torch.utils.visualizer import \
+        Visualizer
+    parent, fork = tmp_path / "parent", tmp_path / "ckpt" / "fork"
+    parent.mkdir()
+    fork.mkdir(parents=True)
+    before = b'{"epoch": 1, "it": 0, "step": 1, "G_total": 1.0}\n'
+    (parent / "metrics.jsonl").write_bytes(before)
+    os.link(parent / "metrics.jsonl", fork / "metrics.jsonl")
+    opt = TrainOptions().parse(TINY + ["--checkpoints_dir",
+                                       str(tmp_path / "ckpt"), "--name",
+                                       "fork", "--no_html"], save=False)
+    vis = Visualizer(opt)
+    vis.log_losses(epoch=2, it=0, losses={"G_total": 0.5}, step=2)
+    vis.close()
+    assert (parent / "metrics.jsonl").read_bytes() == before
+    assert os.stat(parent / "metrics.jsonl").st_nlink == 1
+    forked = (fork / "metrics.jsonl").read_bytes()
+    assert forked.startswith(before) and forked.count(b"\n") == 2
+
+
+def _dedup_case(name):
+    """The four files tests/test_metrics_dedup.py builds for dedup_metrics."""
+    def loss(e, s):
+        return {"epoch": e, "it": 0, "step": s, "G_total": 1.0}
+
+    def val(e, s):
+        return {"epoch": e, "it": -1, "step": s, "val_PSNR": 20.0 + e}
+
+    if name == "full_restart":
+        a = [r for e in range(1, 6) for r in (loss(e, e * 3), val(e, e * 3))]
+        b = [r for e in range(1, 8) for r in (loss(e, e * 3), val(e, e * 3))]
+        return a + b
+    if name == "resume":
+        return ([val(e, e * 3) for e in range(1, 11)]
+                + [val(e, e * 3) for e in range(6, 13)])
+    if name == "clean":
+        return [r for e in range(1, 5) for r in
+                (loss(e, e * 3 - 1), loss(e, e * 3), val(e, e * 3))]
+    assert name == "step_reset"
+    return [loss(1, 1), loss(1, 2), loss(2, 3), loss(2, 1), loss(3, 2)]
+
+
+@pytest.mark.parametrize("case", ["full_restart", "resume", "clean",
+                                  "step_reset"])
+def test_dedup_metrics_matches_jax(tmp_path, case):
+    """dedup_metrics against the JAX function on a copy of the same file:
+    the same count dropped and the same bytes afterwards."""
+    from neural_human_video_rendering_tpu.utils.visualizer import \
+        dedup_metrics as j_dedup
+    from neural_human_video_rendering_tpu_torch.utils.visualizer import \
+        dedup_metrics as t_dedup
+    text = "".join(json.dumps(r) + "\n" for r in _dedup_case(case))
+    got = {}
+    for name, fn in (("jax", j_dedup), ("port", t_dedup)):
+        run = tmp_path / name
+        run.mkdir()
+        (run / "metrics.jsonl").write_text(text)
+        got[name] = (fn(str(run)), (run / "metrics.jsonl").read_text())
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == {"full_restart": 10, "resume": 5, "clean": 0,
+                              "step_reset": 1}[case]

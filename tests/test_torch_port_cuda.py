@@ -2,7 +2,9 @@
 PyTorch version at small shapes, the launch counters, the wrappers'
 refusals, a backward through a tiny renderer on the card against the CPU,
 a checkpoint saved on the card read on the CPU, a stage-2 resume on the
-card, and the image pool's colliding writes on the card against the CPU. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
+card, the image pool's colliding writes on the card against the CPU,
+quality_profile's tile sweep through the fused kernel against the plain
+warp, and a bench_trained_regime window's launches. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
 torch.cuda.is_available() is False. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -864,3 +866,77 @@ def test_two_ranks_on_one_card_match_one_rank(cuda, tmp_path):
     assert max(r["ratio"] for r in got["delta_ratio"].values()) <= 1.0, \
         got["delta_ratio"]
     assert got["ranks_bit_equal"], got["checksums"]
+
+
+def _plain_warp(tex, uv, probs, k, eps):
+    """The renderer's warp through the plain versions (on any device)."""
+    B, _, H, W = probs.shape
+    tex32, fg, u, v = ttw._operands(tex, uv, probs, "float32")
+    w = tk.topk_select_plain(fg, k, 0, eps)
+    return tk.texture_warp_fwd_plain(tex32, u, v, w).view(B, -1, H, W)
+
+
+def test_quality_profile_model_free_on_the_card_matches_plain(cuda):
+    """quality_profile's tile sweep (one-hot probabilities, one UV copied
+    to every part) through the fused kernel against the plain version on
+    the card: 1e-3 dB PSNR and 1e-4 SSIM, one launch a frame and tile."""
+    from neural_human_video_rendering_tpu_torch import quality_profile as qp
+    from neural_human_video_rendering_tpu_torch.config import Options
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data import \
+        synthetic_video as sv
+    S, P, k, eps = 128, 24, 4, 1e-3
+    syn = dsm.SyntheticDataset(Options(loadSize=S), length=3, seed=0)
+    bg = qp.nchw(sv.background_image(S), cuda)
+    atlas = qp.atlas_tensor(sv.part_texture_atlas(P, tile=64), cuda)
+    exact = []
+    for j in syn.joints:
+        onehot, mask, uv = qp.exact_gt(j, S, P, cuda)
+        real = qp.compose(mask, qp.gt_warp(_plain_warp, atlas, uv, onehot,
+                                           k, eps), bg)
+        exact.append((onehot, mask, uv, real))
+    tk.reset_launch_counts()
+    got = qp.tile_ceiling(exact, bg, (16, 32), P, k, eps)
+    torch.cuda.synchronize()
+    assert tk.texture_warp_topk_fwd.launches == 2 * len(exact)
+    want = qp.tile_ceiling(exact, bg, (16, 32), P, k, eps, _plain_warp)
+    for t, ref in want.items():
+        assert abs(got[t]["PSNR"] - ref["PSNR"]) <= 1e-3, (t, got, want)
+        assert abs(got[t]["SSIM"] - ref["SSIM"]) <= 1e-4, (t, got, want)
+        assert 10.0 < ref["PSNR"] < 100.0
+
+
+def test_bench_trained_regime_window_launches_on_the_card(cuda, monkeypatch):
+    """A window of bench_trained_regime at tiny widths on the card: each
+    step launches the fused forward twice (keeping w; the t-1 render
+    without), the backward and the flow warp once."""
+    from neural_human_video_rendering_tpu_torch import bench
+    from neural_human_video_rendering_tpu_torch import bench_trained_regime as btr
+    opt = bench.bench_options(16, "bfloat16", "0")
+    for key, val in dict(loadSize=32, ngf=4, ngf_global=4, ndf=4,
+                         n_blocks_translate=1, n_downsample_translate=2,
+                         n_blocks_global=1, n_downsample_global=1,
+                         n_blocks_bg=1, n_downsample_bg=1,
+                         n_layers_D=2).items():
+        setattr(opt, key, val)
+    seen = []
+
+    def on_window(wi, state, batch):
+        torch.cuda.synchronize()
+        seen.append({"topk_select": tk.topk_select.launches,
+                     "texture_warp_fwd": tk.texture_warp_fwd.launches,
+                     "texture_warp_topk_fwd": tk.texture_warp_topk_fwd.launches,
+                     "texture_warp_bwd": tk.texture_warp_bwd.launches,
+                     "flow_warp_fwd": fk.flow_warp_fwd.launches})
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    summary, lines = btr.run(opt, cuda, 2, 3, on_window)
+    # the first window also holds the untimed first step
+    assert seen == [{"topk_select": 0, "texture_warp_fwd": 0,
+                     "texture_warp_topk_fwd": 2 * n, "texture_warp_bwd": n,
+                     "flow_warp_fwd": n} for n in (4, 3)]
+    assert summary["metric"] == "trained_regime_speedup_512px_bs2"
+    assert [x["window"] for x in lines] == [0, 1]

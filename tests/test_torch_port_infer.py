@@ -172,7 +172,7 @@ def test_synthetic_assets_match_jax(tiny_opt):
 
 
 _FORBIDDEN = ("jax", "flax", "optax", "msgpack",
-              "neural_human_video_rendering_tpu")
+              "neural_human_video_rendering_tpu", "tools")
 
 
 def _imported_modules(path):

@@ -61,6 +61,7 @@ from neural_human_video_rendering_tpu_torch.data import dataset as tds
 from neural_human_video_rendering_tpu_torch.infer import test_driver as td
 from neural_human_video_rendering_tpu_torch.models import generators as tg
 from neural_human_video_rendering_tpu_torch.models.bridge import params_from_jax
+from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
 from neural_human_video_rendering_tpu_torch.parallel.mesh import DataParallel
 from neural_human_video_rendering_tpu_torch.train import drivers
 from neural_human_video_rendering_tpu_torch.train import state as tstate
@@ -80,6 +81,7 @@ CPU = torch.device("cpu")
 FRAMES = (1, 11, 1, 11)
 EMPTY = 1                   # the sample with no foreground: rank 0's half
 POOL_STEPS = 4
+SC_ADAM = 1                 # parallel.selfcheck's Adam steps
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -272,7 +274,15 @@ def _steps_rank(opt, out, dp=None):
            "real_local": _port_stage2(cases["real"], _local_counts(dp)),
            "uv": _port_uv(cases["uv"], dp),
            "pool": _port_pool(cases["pool"], dp)}
+    sc.rank_step(*_selfcheck_args(cases["fake"]), os.path.join(out, "sc_ranks"),
+                 SC_ADAM, dp=dp)
     torch.save(res, os.path.join(out, f"steps_rank{dp.rank}.pt"))
+
+
+def _selfcheck_args(case):
+    """parallel.selfcheck's (opt, batch, atlas, bg) of the stage-2 case."""
+    return (TOptions(**case["flags"], gpu_ids="-1"), case["batch"],
+            case["atlas"], case["bg"])
 
 
 @pytest.fixture(scope="module")
@@ -285,6 +295,10 @@ def steps_run(tmp_path_factory):
     runtime.launch(_steps_rank, _cpu_ranks(tmp), str(tmp), where=str(tmp),
                    batch=2)
     ranks = [torch.load(tmp / f"steps_rank{r}.pt") for r in (0, 1)]
+    sc.thread_ranks(*_selfcheck_args(cases["fake"]), str(tmp / "sc_threads"),
+                    SC_ADAM, 2, CPU)
+    cases["selfcheck"] = sc.compare(str(tmp / "sc_threads"),
+                                    str(tmp / "sc_ranks"))
     return cases, ranks
 
 
@@ -308,6 +322,20 @@ def test_two_ranks_match_the_jax_mesh_step(steps_run, mode):
     for m in ("G", "D", "EMA"):
         before = case["G0"] if m != "D" else case["D0"]
         _assert_deltas(m, got[m], case[m], before)
+
+
+def test_selfcheck_reference_of_the_ranks_own_shapes(steps_run):
+    """parallel.selfcheck's reference, the two ranks as threads of this
+    process at their own shapes (thread_ranks), against the two gloo
+    ranks of the fixture: the losses within 1e-5 relative and each
+    module's change within the parity tests' form at its first term of
+    1e-5 (compare's defaults, which chip_smoke phase 12(a) uses too)."""
+    got = steps_run[0]["selfcheck"]
+    assert got["n_rank_files"] == 2 and got["same_loss_keys"]
+    assert got["ranks_bit_equal"]
+    assert got["loss_max_rel"] <= 1e-5, got
+    for m, r in got["delta_ratio"].items():
+        assert r["ratio"] <= 1.0, (m, r)
 
 
 def test_local_averaging_misses_the_jax_step(steps_run):
