@@ -173,6 +173,23 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      on its dir, while (c) arm_ab64 (64 px, --limb_coords, 1 + 1 epochs)
      runs beside it: finite summaries, IoUs in [0, 1], each arm's saved
      epoch equal to --epochs, every stage-2 run's launches from its log.
+ 14. native data: the native decode/prefetch runtime
+     (data/native_loader.py, native/loader.cpp). (a) g++'s version,
+     whether it finds png.h and jpeglib.h, and the loader's build (its
+     library, or why it did not build: then the host decodes with OpenCV,
+     as the JAX package does on such a host). (b) Where it built:
+     decode_image against decode_image_plain in the three modes on a
+     1024 px frame, mask and IUV PNG read at 512 and on a 1920x1080 JPEG
+     (a non-integer ratio), within 1 ulp (labels exactly); NativeBatcher
+     with 4 threads bit-equal to per-file decodes on every frame, mask
+     and IUV file; a bad path counted as one error. (c) The flagship's
+     stage-2 recipe through train's main on an 8-frame corpus at 1024 px
+     with --bg_path on the JPEG, one epoch (4 steps at batch 2): every
+     frame, mask, IUV and the background decoded by (a)'s route (counted
+     in the port's dataset module), the reason printed exactly where the
+     loader is unavailable, per step one fused forward keeping w, one
+     backward and one flow warp. Numbers: decode ms of one stage-2 sample
+     by each route the host has, the step, the loader's share of it.
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -3513,6 +3530,271 @@ def tools_path(torch, smoke, tk, fk, repo, dev, smi):
     return numbers
 
 
+# phase 14: the native decode/prefetch runtime (data/native_loader.py +
+# native/loader.cpp) and the stage-2 path reading its files through it
+NATIVE_FRAMES = 8         # batch 2: 4 stage-2 steps an epoch
+NATIVE_SRC = 1024         # the corpus's frames, masks and IUV
+NATIVE_S = 512            # ... read at the flagship's loadSize
+BG_W, BG_H = 1920, 1080   # the background JPEG: a non-integer ratio to 512
+NATIVE_ULP = 1            # decode_image against decode_image_plain
+NATIVE_NOTE = "[data] native loader unavailable:"
+
+
+class _Tee:
+    """A text stream that keeps what is written to it and passes it on."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
+def host_headers(gxx):
+    """{header: whether g++ finds it} for the loader's two headers."""
+    found = {}
+    for h in ("png.h", "jpeglib.h"):
+        found[h] = gxx is not None and subprocess.run(
+            [gxx, "-E", "-x", "c++", "-", "-o", os.devnull],
+            input=f"#include <{h}>\n", capture_output=True,
+            text=True).returncode == 0
+    return found
+
+
+def max_ulp(a, b):
+    """The largest difference of two float32 arrays in units in the last
+    place of the second (0 where equal)."""
+    import numpy as np
+    d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    return float((d / np.spacing(np.abs(b)).astype(np.float64)).max())
+
+
+def native_corpus(opt, root):
+    """write_corpus at NATIVE_SRC px (NATIVE_FRAMES frames) plus bg.jpg, a
+    BG_W x BG_H JPEG of the corpus's background stretched with OpenCV."""
+    import cv2
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.data.dataset import \
+        SyntheticDataset
+    from neural_human_video_rendering_tpu_torch.utils.image import to_uint8
+    d = write_corpus(opt, root, NATIVE_FRAMES)
+    bg = to_uint8(SyntheticDataset(opt, length=1, seed=opt.seed).background())
+    bg = cv2.resize(bg, (BG_W, BG_H), interpolation=cv2.INTER_CUBIC)
+    d["bg_jpg"] = os.path.join(root, "bg.jpg")
+    cv2.imwrite(d["bg_jpg"], bg[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 95])
+    return d
+
+
+def native_exact(smoke, nl, d, S):
+    """Phase 14 (b): decode_image against decode_image_plain in the three
+    modes on a frame, a mask and an IUV PNG (NATIVE_SRC -> S) and on
+    bg.jpg (BG_W x BG_H -> S); NativeBatcher (4 threads) against per-file
+    decode_image on every frame, mask and IUV file; a bad path counted.
+    Returns the numbers."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.utils import image as timg
+    first = "frame00000.png"
+    files = [os.path.join(d["frames"], first), os.path.join(d["mask"], first),
+             os.path.join(d["densepose"], first), d["bg_jpg"]]
+    worst = {}
+    for path in files:
+        pixels = (timg._jpeg_native(path, False) if path.endswith(".jpg")
+                  else timg.read_png(path))
+        for mode in (nl.MODE_RGB, nl.MODE_GRAY, nl.MODE_LABEL):
+            got = nl.decode_image(path, S, mode)
+            want = nl.decode_image_plain(pixels, S, mode)
+            err = (max_ulp(got, want) if got.dtype == np.float32
+                   else float((got != want).sum()))
+            worst[f"{os.path.basename(os.path.dirname(path))}/"
+                  f"{os.path.basename(path)} mode {mode}"] = err
+    for name, err in worst.items():
+        smoke.check(f"native decode_image vs decode_image_plain {name} "
+                    f"(ulp; labels: values that differ)", err,
+                    NATIVE_ULP if "mode 2" not in name else 0)
+    batch_ms = {}
+    for key, mode in (("frames", nl.MODE_RGB), ("mask", nl.MODE_GRAY),
+                      ("densepose", nl.MODE_LABEL)):
+        paths = [os.path.join(d[key], f) for f in sorted(os.listdir(d[key]))]
+        t = time.perf_counter()
+        single = np.stack([nl.decode_image(p, S, mode) for p in paths])
+        t_single = time.perf_counter() - t
+        b = nl.NativeBatcher(paths, S, mode, threads=4)
+        try:
+            t = time.perf_counter()
+            b.submit(range(len(paths)))
+            got = b.wait()
+            t_batch = time.perf_counter() - t
+            smoke.require(f"NativeBatcher (4 threads) == decode_image on the "
+                          f"{len(paths)} {key} files", np.array_equal(got, single))
+            batch_ms[key] = {"per_file_ms": t_single * 1e3 / len(paths),
+                             "batcher_4_threads_ms": t_batch * 1e3 / len(paths)}
+        finally:
+            b.close()
+    b = nl.NativeBatcher([files[0], os.path.join(d["frames"], "missing.png")],
+                         S, nl.MODE_RGB, threads=4)
+    try:
+        b.submit([0, 1])
+        try:
+            b.wait()
+            err = ""
+        except IOError as e:
+            err = str(e)
+    finally:
+        b.close()
+    smoke.require("NativeBatcher counts one error for a bad path",
+                  err.startswith("1 decode errors"), f"({err!r})")
+    return {"max_ulp_or_labels": worst, "decode_ms_per_file": batch_ms}
+
+
+def native_data_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 14: (a) the host's g++ and headers and the native loader's
+    build; (b) where it built, native_exact; (c) the flagship's stage-2
+    recipe through train's main, one epoch of the NATIVE_FRAMES-frame
+    NATIVE_SRC px corpus with --bg_path on bg.jpg: every frame, mask, IUV
+    and the background decoded by the route (a) found (native where the
+    loader built, else OpenCV's rules with the reason printed), per step
+    the fused forward keeping w, the backward and the flow warp once. The
+    epoch save is phase 7's: here it is recorded and writes nothing.
+    Numbers: the build, decode ms of one stage-2 sample by each route the
+    host has, the step, and the loader's share of it."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data import native_loader as nl
+    from neural_human_video_rendering_tpu_torch.train import __main__ as train
+    from neural_human_video_rendering_tpu_torch.train import drivers
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "native")
+    S = NATIVE_S
+    # ---- (a) the host and the build
+    gxx = shutil.which("g++")
+    gxx_version = (subprocess.run([gxx, "--version"], capture_output=True,
+                                  text=True).stdout.splitlines()[0]
+                   if gxx else "no g++")
+    headers = host_headers(gxx)
+    nl._load.cache_clear()     # earlier phases' loads tried it first
+    t = time.perf_counter()
+    built = nl.available()     # g++ where the library is missing, else a load
+    build_s = time.perf_counter() - t
+    print(f"[native] {gxx_version} | png.h {headers['png.h']} | jpeglib.h "
+          f"{headers['jpeglib.h']} | " + (
+              f"built {nl.library_path()} ({build_s:.2f} s)" if built
+              else f"not built: {nl.unavailable_reason()}"), flush=True)
+    smoke.require("native loader built exactly where g++ finds both headers",
+                  built == all(headers.values()))
+    route = "native" if built else "cv2"
+    base = TrainOptions().parse(TRAIN + ["--loadSize", str(NATIVE_SRC)],
+                                save=False)
+    t = time.perf_counter()
+    d = native_corpus(base, os.path.join(work, "corpus"))
+    corpus_s = time.perf_counter() - t
+    numbers = {"host": {"gxx": gxx_version, "headers": headers,
+                        "library": str(nl.library_path()) if built else None,
+                        "unavailable_reason": nl.unavailable_reason(),
+                        "build_or_load_s": build_s},
+               "route": route, "corpus_write_s": corpus_s}
+    # ---- (b) the loader against its plain version
+    if built:
+        numbers["exact"] = native_exact(smoke, nl, d, S)
+    # ---- (c) the stage-2 path on this route
+    ck = os.path.join(work, "ckpt")
+    argv = TRAIN + [
+        "--pose_path", d["openpose_json"], "--img_path", d["frames"],
+        "--mask_path", d["mask"], "--densepose_path", d["densepose"],
+        "--flow_path", d["flow"], "--flow_inv_path", d["flow_inv"],
+        "--bg_path", d["bg_jpg"], "--texture_path",
+        os.path.join(work, "corpus", "texture.png"), "--checkpoints_dir", ck,
+        "--name", "native", "--niter", "1", "--no_decay", "--no_flip",
+        "--display_freq", "10000"]
+    saves = []
+    save_orig = drivers.save_checkpoint
+    drivers.save_checkpoint = lambda run_dir, st, epoch, completed=None: \
+        saves.append(epoch)
+    err_orig = sys.stderr
+    tee = _Tee(err_orig)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    fk.reset_launch_counts()
+    dsm.reset_decode_routes()
+    sys.stderr = tee
+    try:
+        t = time.perf_counter()
+        st = through_main(train, "run_train", argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+    finally:
+        sys.stderr = err_orig
+        drivers.save_checkpoint = save_orig
+    launches = launch_counts()
+    routes = dict(dsm.decode_routes)
+    steps = NATIVE_FRAMES // 2
+    files = 3 * NATIVE_FRAMES + 1            # frames, masks, IUV, bg.jpg
+    noted = NATIVE_NOTE in "".join(tee.parts)
+    print(f"[native] stage 2 on the {route} route: {st.step} steps in "
+          f"{run_s:.1f} s; decode routes {routes}; launches {launches}; "
+          f"saves {saves}; reason printed: {noted}", flush=True)
+    smoke.require(f"native data: {steps} stage-2 steps, finite losses",
+                  st.step == steps and all(np.isfinite(float(v))
+                                           for v in st.metrics.values()))
+    smoke.require(f"native data: every frame, mask, IUV and the background "
+                  f"on the {route} route (at least {files} files)",
+                  set(routes) == {route} and routes[route] >= files,
+                  str(routes))
+    smoke.require("native data: the reason printed where the loader is "
+                  "unavailable, and only there", noted == (not built))
+    smoke.require("native data: per step 1 fused forward, 1 backward, 1 flow "
+                  "warp", launches == {**{k: 0 for k in REPLACES},
+                                       "texture_warp_topk_fwd": steps,
+                                       "texture_warp_bwd": steps,
+                                       "flow_warp_fwd": steps}, str(launches))
+    times = sorted(st.step_seconds[1:])
+    step_ms = times[len(times) // 2] * 1e3
+    # decode ms of one stage-2 sample (frame t and t-1: images, masks, IUV,
+    # flows) by each route the host has
+    opt = TrainOptions().parse(argv, save=False)
+    sample_ms = {}
+    load_orig = nl._load
+    try:
+        for r in ("native", "cv2"):
+            if r == "native" and not built:
+                sample_ms[r] = "not available on this host"
+                continue
+            if r == "cv2":
+                nl._load = lambda: (None, "switched off to time OpenCV's route")
+            ds = dsm.FrameDataset(opt, "train")
+            ds[1]
+            t = time.perf_counter()
+            for i in range(2, NATIVE_FRAMES):
+                ds[i]
+            sample_ms[r] = (time.perf_counter() - t) * 1e3 / (NATIVE_FRAMES - 2)
+    finally:
+        nl._load = load_orig
+    # the decode work of a step's 2 samples over the step's median ms (the
+    # loader's threads overlap it with the step)
+    loader_ms = 2 * sample_ms[route]
+    numbers.update({
+        "stage2": {"steps": st.step, "run_s": run_s, "step_ms_median": step_ms,
+                   "ms_steps": [x * 1e3 for x in st.step_seconds],
+                   "decode_routes": routes, "launches": launches,
+                   "saves_recorded": saves},
+        "decode_ms_per_sample": sample_ms,
+        "loader_ms_per_step": loader_ms,
+        "loader_share_of_step": loader_ms / step_ms,
+        "phase_s": time.perf_counter() - t_phase, "card": smi})
+    print(json.dumps({"native_data": numbers}), flush=True)
+    del st
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3815,6 +4097,8 @@ def main() -> int:
     t13 = time.perf_counter()
     tools = tools_path(torch, smoke, tk, fk, repo, dev, smi)
     print(f"[tools] phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
+    # ------------------------------------------------------ 14. native data
+    native14 = native_data_path(torch, smoke, tk, fk, repo, dev, smi)
     ab_launches = tools["ab"].get("launches", {})
     launches_tools = {
         "quality_profile (phase 9 g)": launch_bench.pop("quality_profile"),
@@ -3874,6 +4158,7 @@ def main() -> int:
                                    options["kernels"].items() if name in v}
         entry["launches_tools"] = {k: v.get(name, 0)
                                    for k, v in launches_tools.items()}
+        entry["launches_native_data"] = native14["stage2"]["launches"][name]
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "
                            "calls replayed (warm L2 where the inputs fit); "
                            "host_us: host clock per call, no sync")

@@ -1,17 +1,24 @@
 """Host-side data: file decoding, canvas geometry, the real-data
 FrameDataset, the deterministic synthetic dataset, batching.
 
-A copy of the JAX package's ``data/dataset.py``. Files decode through
+A copy of the JAX package's ``data/dataset.py``. ``load_image``,
+``load_mask`` and ``load_iuv`` decode as the JAX package's do: through the
+native loader (``data/native_loader.py``, ``native/loader.cpp``: bilinear
+resize, soft masks, its own nearest rule for IUV) where it builds on the
+host, else, and for a file it cannot decode, by OpenCV's rules through
 ``utils/image`` (OpenCV where it imports, else the port's own PNG reader
 and a JPEG decoder), so synthetic data and PNG corpora need no image
-library.
+library. Where the library is unavailable the reason is printed once on
+stderr. ``decode_routes`` counts the files each route decoded.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import queue
+import sys
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -21,6 +28,7 @@ from ..utils.image import read_image, resize
 from . import densepose as dp
 from . import keypoints as kp
 from . import laplace as lp
+from . import native_loader as nl
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
@@ -33,27 +41,80 @@ def list_images(d: str) -> List[str]:
     return sorted(f for f in os.listdir(d) if f.lower().endswith(IMG_EXTS))
 
 
+# files decoded by each route since the last reset_decode_routes():
+# "native" (native/loader.cpp) or "cv2" (OpenCV's rules)
+decode_routes: collections.Counter = collections.Counter()
+_routes_lock = threading.Lock()
+_reason_printed = False
+
+
+def reset_decode_routes() -> None:
+    """Zero decode_routes; the next fallback prints its reason again."""
+    global _reason_printed
+    with _routes_lock:
+        decode_routes.clear()
+        _reason_printed = False
+
+
+def _count(route: str) -> None:
+    with _routes_lock:
+        decode_routes[route] += 1
+
+
+def _native_decode(path: str, size: int, mode: int) -> Optional[np.ndarray]:
+    """loader.cpp's decode of the file, as the JAX package's dataset.py
+    decodes where the library is available; None where it is not (the
+    reason printed once) or where the file does not decode (IOError): the
+    caller then decodes by OpenCV's rules."""
+    global _reason_printed
+    if not nl.available():
+        with _routes_lock:
+            first, _reason_printed = not _reason_printed, True
+        if first:
+            print(f"[data] native loader unavailable: "
+                  f"{nl.unavailable_reason()}; decoding with OpenCV, as the "
+                  "JAX package does on such a host", file=sys.stderr, flush=True)
+        return None
+    try:
+        out = nl.decode_image(path, size, mode)
+    except IOError:
+        return None
+    _count("native")
+    return out
+
+
 def load_image(path: str, size: int) -> np.ndarray:
     """Image file -> (size, size, 3) float32 RGB in [-1, 1]."""
+    out = _native_decode(path, size, nl.MODE_RGB)
+    if out is not None:
+        return out
     img = read_image(path, "rgb")
     if img.shape[0] != size or img.shape[1] != size:
         img = resize(img, (size, size), "area")
+    _count("cv2")
     return img.astype(np.float32) / 255.0 * 2.0 - 1.0
 
 
 def load_mask(path: str, size: int) -> np.ndarray:
     """Mask file -> (size, size, 1) float32 in [0, 1]."""
+    out = _native_decode(path, size, nl.MODE_GRAY)
+    if out is not None:
+        return out[..., None]
     m = read_image(path, "gray")
     if m.shape[0] != size or m.shape[1] != size:
         m = resize(m, (size, size), "nearest")
+    _count("cv2")
     return (m.astype(np.float32) / 255.0)[..., None]
 
 
 def load_iuv(path: str, size: int) -> Tuple[np.ndarray, np.ndarray]:
     """DensePose IUV image -> (parts (S,S) int32, uv (S,S,2) float32)."""
-    img = read_image(path, "rgb")
-    if img.shape[0] != size or img.shape[1] != size:
-        img = resize(img, (size, size), "nearest")
+    img = _native_decode(path, size, nl.MODE_LABEL)
+    if img is None:
+        img = read_image(path, "rgb")
+        if img.shape[0] != size or img.shape[1] != size:
+            img = resize(img, (size, size), "nearest")
+        _count("cv2")
     return dp.decode_iuv(img)
 
 

@@ -4,7 +4,9 @@ refusals, a backward through a tiny renderer on the card against the CPU,
 a checkpoint saved on the card read on the CPU, a stage-2 resume on the
 card, the image pool's colliding writes on the card against the CPU,
 quality_profile's tile sweep through the fused kernel against the plain
-warp, and a bench_trained_regime window's launches. Marked ``gpu``; every test skips (inside the ``cuda`` fixture) where
+warp, a bench_trained_regime window's launches, and the native loader's
+worker pool against its plain version on the card's host. Marked
+``gpu``; every test skips (inside the ``cuda`` fixture) where
 torch.cuda.is_available() is False. Run on the card with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -940,3 +942,32 @@ def test_bench_trained_regime_window_launches_on_the_card(cuda, monkeypatch):
                      "flow_warp_fwd": n} for n in (4, 3)]
     assert summary["metric"] == "trained_regime_speedup_512px_bs2"
     assert [x["window"] for x in lines] == [0, 1]
+
+
+def test_native_batcher_on_the_card_host_matches_plain(cuda, tmp_path):
+    """The card's host decoding a 1024 px PNG frame to 512 through the
+    native loader's worker pool: equal to decode_image_plain on the
+    file's pixels in all three modes (skips where the loader does not
+    build on that host, which then decodes with OpenCV)."""
+    from neural_human_video_rendering_tpu_torch.data import native_loader as nl
+    from neural_human_video_rendering_tpu_torch.utils.image import (
+        encode_png, read_png)
+    if not nl.available():
+        pytest.skip(f"native loader unavailable: {nl.unavailable_reason()}")
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:1024, 0:1024].astype(np.float32)
+    img = np.clip(np.stack([np.sin(xx / 40), np.cos(yy / 60),
+                            np.sin((xx + yy) / 90)], -1) * 100 + 128
+                  + rng.normal(0, 20, (1024, 1024, 3)), 0, 255).astype(np.uint8)
+    path = str(tmp_path / "frame.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+    pixels = read_png(path)
+    for mode in (nl.MODE_RGB, nl.MODE_GRAY, nl.MODE_LABEL):
+        b = nl.NativeBatcher([path], 512, mode, threads=4)
+        b.submit([0, 0])
+        got = b.wait()
+        b.close()
+        want = nl.decode_image_plain(pixels, 512, mode)
+        for item in got:
+            np.testing.assert_array_equal(item, want)

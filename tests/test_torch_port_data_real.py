@@ -3,13 +3,21 @@ package's on a tiny corpus in the reference directory layout, the port's
 image decoding against OpenCV, BatchLoader, and the densepose / laplace
 copies.
 
-The corpus is written with cv2 from the JAX package's SyntheticDataset
-samples, at loadSize (32 px), so no resize runs. The JAX side decodes
-through its cv2 path (its native loader is switched off for these tests:
-its resize differs from cv2's and its [-1, 1] scaling rounds the last ulp
-differently). The scale_width corpus is 32 wide and 24 high: no resize,
-the canvas pads. Exact equality everywhere in this file, except the JPEG
-decode (libjpeg against OpenCV's, within 1 level).
+Every test runs on both decode routes (the ``route`` fixture): OpenCV's
+rules ("cv2": INTER_AREA for images, INTER_NEAREST for masks and IUV) or
+the native loader ("native": native/loader.cpp's bilinear resize, soft
+masks, its own nearest rule), each forced on both packages at once by
+patching their ``native_loader.available``; the native cases skip where
+the JAX package's library does not build. The corpus is written with cv2
+from the JAX package's SyntheticDataset samples, at loadSize (32 px), so
+no resize runs, and at 48 px for the cases that resize; the loader cases
+resize 48x40 and 96x96 sources to 32; evaluate scores 48 px frames at 32.
+The scale_width corpus is 32 wide and 24 high: no resize, the canvas
+pads (OpenCV's rules on both routes, as in the JAX package). Exact
+equality everywhere in this file, except the JPEG decode (libjpeg
+against OpenCV's, within 1 level) and evaluate's metrics (PSNR within
+1e-4 dB and SSIM within 1e-5, each framework's float32 arithmetic on
+bit-equal decoded frames).
 """
 
 import json
@@ -25,10 +33,12 @@ from neural_human_video_rendering_tpu.data import dataset as jds
 from neural_human_video_rendering_tpu.data import densepose as jdp
 from neural_human_video_rendering_tpu.data import keypoints as jkp
 from neural_human_video_rendering_tpu.data import laplace as jlp
+from neural_human_video_rendering_tpu.infer import evaluate as jev
 from neural_human_video_rendering_tpu_torch.config import Options as TOptions
 from neural_human_video_rendering_tpu_torch.data import dataset as tds
 from neural_human_video_rendering_tpu_torch.data import densepose as tdp
 from neural_human_video_rendering_tpu_torch.data import laplace as tlp
+from neural_human_video_rendering_tpu_torch.infer import evaluate as tev
 from neural_human_video_rendering_tpu_torch.utils import image as timg
 
 N = 10
@@ -44,9 +54,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(autouse=True)
-def _jax_decodes_with_cv2(monkeypatch):
-    monkeypatch.setattr(jds.nl, "available", lambda: False)
+@pytest.fixture(autouse=True, params=["cv2", "native"])
+def route(request, monkeypatch):
+    """Both packages decode by one route: OpenCV's rules ("cv2") or the
+    native loader ("native"; skipped where the JAX package's loader does
+    not build on this host)."""
+    native = request.param == "native"
+    if native and not jds.nl.available():
+        pytest.skip("the JAX package's native loader does not build here")
+    for nl in (jds.nl, tds.nl):
+        monkeypatch.setattr(nl, "available", lambda: native)
+    tds.reset_decode_routes()
+    return request.param
 
 
 def _write_flo(path, fl):
@@ -214,7 +233,7 @@ def test_jpeg_decoders(tmp_path, monkeypatch):
 
 def test_loaders_match_jax(tmp_path):
     """load_image / load_mask / load_iuv / load_flow / load_texture_atlas
-    with a resize (OpenCV on both sides), and the .flo reader."""
+    with a resize (the route on both sides), and the .flo reader."""
     flags = write_corpus(str(tmp_path), S=32)
     f0 = os.path.join(flags["img_path"], "frame00003.png")
     m0 = os.path.join(flags["mask_path"], "frame00003.png")
@@ -237,6 +256,83 @@ def test_loaders_match_jax(tmp_path):
         np.testing.assert_array_equal(
             tds.load_texture_atlas(str(tmp_path / "atlas.png"), tile),
             jds.load_texture_atlas(str(tmp_path / "atlas.png"), tile))
+
+
+def _sources(root, H, W, seed=0):
+    """An RGB frame (PNG and JPEG), a binary elliptical mask as gray and as
+    RGB PNG, and an IUV map, H x W; returns their paths."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    smooth = np.stack([np.sin(xx / 5), np.cos(yy / 7), np.sin((xx + yy) / 9)], -1)
+    rgb = np.clip((smooth * 0.4 + 0.5) * 255 + rng.normal(0, 20, (H, W, 3)),
+                  0, 255).astype(np.uint8)
+    ell = (((xx - W / 2) / (0.35 * W)) ** 2 + ((yy - H / 2) / (0.4 * H)) ** 2
+           < 1).astype(np.uint8) * 255
+    parts = np.where(ell > 0, rng.integers(1, 25, (H, W)), 0).astype(np.int32)
+    uv = rng.uniform(0, 1, (H, W, 2)).astype(np.float32)
+    p = {k: os.path.join(root, f"{k}_{H}x{W}.{ext}") for k, ext in (
+        ("frame", "png"), ("jpeg", "jpg"), ("mask", "png"), ("mask_rgb", "png"),
+        ("iuv", "png"))}
+    cv2.imwrite(p["frame"], rgb[..., ::-1])
+    cv2.imwrite(p["jpeg"], rgb[..., ::-1])
+    cv2.imwrite(p["mask"], ell)
+    cv2.imwrite(p["mask_rgb"], np.repeat(ell[..., None], 3, -1))
+    cv2.imwrite(p["iuv"], jdp.encode_iuv(parts, uv)[..., ::-1])
+    return p
+
+
+@pytest.mark.parametrize("H,W", [(48, 40), (96, 96)])
+def test_loaders_resize_match_jax(tmp_path, route, H, W):
+    """Sources that resize to 32 (and to 20): load_image, load_mask and
+    load_iuv bit-equal to the JAX package's on either route; the route
+    shows in the masks (soft only on the native route) and is counted."""
+    p = _sources(str(tmp_path), H, W)
+    for size in (32, 20):
+        for key in ("frame", "jpeg"):
+            np.testing.assert_array_equal(tds.load_image(p[key], size),
+                                          jds.load_image(p[key], size))
+        for key in ("mask", "mask_rgb"):
+            m = tds.load_mask(p[key], size)
+            np.testing.assert_array_equal(m, jds.load_mask(p[key], size))
+        for a, b in zip(tds.load_iuv(p["iuv"], size),
+                        jds.load_iuv(p["iuv"], size)):
+            np.testing.assert_array_equal(a, b)
+    soft = tds.load_mask(p["mask"], 20)
+    assert ((soft > 0) & (soft < 1)).any() == (route == "native")
+    assert dict(tds.decode_routes) == {route: 11}
+
+
+def test_frame_dataset_resized_matches_jax(tmp_path):
+    """A 48 px corpus read at loadSize 32: every item of the port's
+    FrameDataset bit-equal to the JAX package's, on either route."""
+    flags = write_corpus(str(tmp_path), S=48)
+    common = dict(loadSize=32, no_flip=True, **flags)
+    jd = jds.FrameDataset(JOptions(**common), "train")
+    td = tds.FrameDataset(TOptions(**common), "train")
+    _assert_items_equal(jd, td)
+
+
+def test_evaluate_resized_matches_jax(tmp_path):
+    """evaluate on two dirs of 48 px frames scored at 32: the frames it
+    scores bit-equal to the JAX package's, PSNR / SSIM within float32."""
+    res, gt = str(tmp_path / "res"), str(tmp_path / "gt")
+    for d, seed in ((res, 1), (gt, 2)):
+        os.makedirs(d)
+        for i in range(3):
+            frame = cv2.imread(_sources(str(tmp_path), 48, 48, seed + 10 * i)
+                               ["frame"])
+            cv2.imwrite(os.path.join(d, f"frame{i:05d}.png"), frame)
+    for d in (res, gt):
+        names = sorted(os.listdir(d))
+        np.testing.assert_array_equal(
+            tev._load(d, names, 32, torch.device("cpu")).permute(0, 2, 3, 1).numpy(),
+            np.stack([jds.load_image(os.path.join(d, n), 32) for n in names]))
+    kw = dict(size=32, batch_size=2, use_vgg=False)
+    want = jev.evaluate_dirs(res, gt, **kw)
+    got = tev.evaluate_dirs(res, gt, device=torch.device("cpu"), **kw)
+    assert got["frames"] == want["frames"] == 3
+    assert abs(got["psnr"] - want["psnr"]) <= 1e-4
+    assert abs(got["ssim"] - want["ssim"]) <= 1e-5
 
 
 class _Counting:
