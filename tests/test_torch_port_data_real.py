@@ -8,10 +8,12 @@ rules ("cv2": INTER_AREA for images, INTER_NEAREST for masks and IUV) or
 the native loader ("native": native/loader.cpp's bilinear resize, soft
 masks, its own nearest rule), each forced on both packages at once by
 patching their ``native_loader.available``; the native cases skip where
-the JAX package's library does not build. The corpus is written with cv2
-from the JAX package's SyntheticDataset samples, at loadSize (32 px), so
-no resize runs, and at 48 px for the cases that resize; the loader cases
-resize 48x40 and 96x96 sources to 32; evaluate scores 48 px frames at 32.
+the JAX package's library does not build, once a build lost to another
+test process has been retried (jax_native_loader_ready). The corpus is
+written with cv2 from the JAX package's SyntheticDataset samples, at
+loadSize (32 px), so no resize runs, and at 48 px for the cases that
+resize; the loader cases resize 48x40 and 96x96 sources to 32; evaluate
+scores 48 px frames at 32.
 The scale_width corpus is 32 wide and 24 high: no resize, the canvas
 pads (OpenCV's rules on both routes, as in the JAX package). Exact
 equality everywhere in this file, except the JPEG decode (libjpeg
@@ -40,6 +42,7 @@ from neural_human_video_rendering_tpu_torch.data import densepose as tdp
 from neural_human_video_rendering_tpu_torch.data import laplace as tlp
 from neural_human_video_rendering_tpu_torch.infer import evaluate as tev
 from neural_human_video_rendering_tpu_torch.utils import image as timg
+from test_torch_port_native_loader import jax_native_loader_ready
 
 N = 10
 
@@ -60,8 +63,8 @@ def route(request, monkeypatch):
     native loader ("native"; skipped where the JAX package's loader does
     not build on this host)."""
     native = request.param == "native"
-    if native and not jds.nl.available():
-        pytest.skip("the JAX package's native loader does not build here")
+    if native:
+        jax_native_loader_ready()
     for nl in (jds.nl, tds.nl):
         monkeypatch.setattr(nl, "available", lambda: native)
     tds.reset_decode_routes()

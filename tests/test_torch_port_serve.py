@@ -15,6 +15,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -92,8 +93,13 @@ def test_serve_roundtrip(artifact, capsys):
                                    atol=1.5 / 127.5)
         both = _post(port, {"joints": joints.tolist()})
         assert both["frames"][1] == got["frames"][0]
-        assert set(httpd.model.timing) == {"forward_s", "transfer_s",
-                                           "png_s", "json_s"}
+        # the handler records its PNG and JSON seconds after it has sent
+        # the answer: wait for its thread to do so
+        parts = {"forward_s", "transfer_s", "png_s", "json_s"}
+        deadline = time.monotonic() + 30
+        while set(httpd.model.timing) != parts and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert set(httpd.model.timing) == parts
         for bad in ({"joints": [[1, 2]]}, {"joints": np.zeros(
                 (3, 18, 3)).tolist()}, {"nope": 1}):
             with pytest.raises(urllib.error.HTTPError) as e:
