@@ -85,9 +85,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      backward, the flow warp) and per inference batch (the fused forward
      without w); the bilinear corpus oracle on the fused kernel (a 512 px
      frame of data/synthetic_video within 1e-5 of the warp of its own IUV);
-     make_demo_data at 512 px (20 frames bilinear, 8 with --corrupt 0.5)
+     make_demo_data at 512 px (16 frames bilinear, 8 with --corrupt 0.5)
      read back through FrameDataset; quality_run at FULL_FLAGS cut in depth
-     (20 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
+     (16 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
      parity JSON and stage 2's launches; evaluate on the card (identical
      dirs, and renders against the GT against the CPU: PSNR 1e-3 dB, SSIM
      1e-5, flicker 1e-5 relative, VGG distance and LPIPS 3e-2 relative);
@@ -151,11 +151,13 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      two ranks time-sharing cuda:0 through --gpu_ids 0,0 over gloo (NCCL
      refuses two ranks on one card): (a) the flagship widths in float32,
      SGD(1), one global batch of 2 on two ranks against the same two
-     ranks as threads of this process, each at its own shapes (losses
+     ranks as threads of this process, each at its own shapes, both on
+     the eager route (graphed ranks overflow the shared card in cuDNN's
+     plan search: ROADMAP C15; phase 15 holds the graphs' gradients) (losses
      1e-4 relative, the changes of G, D and the EMA within the parity
      tests' form at 1e-5), the ranks' parameters, Adam moments and EMA
      bit-equal
-     after 5 Adam steps; (b) run_train with the flagship recipe, 5 steps
+     after 3 Adam steps; (b) run_train with the flagship recipe, 3 steps
      on two ranks (loss keys, one metrics.jsonl writer, the checkpoints,
      each rank's launches), resumed on one rank; (c) the same under
      torchrun at world 1 over NCCL; (d) run_inference of 16 frames at
@@ -168,7 +170,7 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      (the fused forward keeping w and without w, the backward, the flow
      warp), the fused forward and the backward timed on the first and
      last windows' renderer tensors (CUDA graphs); (b) noisy_gt_ab at the
-     reference sizing (512 px, tile 64) cut in depth (16 frames, 1
+     reference sizing (512 px, tile 64) cut in depth (12 frames, 1
      pre-epoch, 1 epoch, 4 held-out frames at most), then noisyab_anatomy
      on its dir, while (c) arm_ab64 (64 px, --limb_coords, 1 + 1 epochs)
      runs beside it: finite summaries, IoUs in [0, 1], each arm's saved
@@ -190,6 +192,30 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      loader is unavailable, per step one fused forward keeping w, one
      backward and one flow warp. Numbers: decode ms of one stage-2 sample
      by each route the host has, the step, the loader's share of it.
+ 15. the compiled step: make_train_step and make_forward_fn capture CUDA
+     graphs on the card (train/graphs.py, the counterpart of the JAX
+     package's jax.jit), so phases 3-14 run the graphs and count their
+     launches on the replays. At the flagship recipe (TRAIN with
+     --pool_size 8, batch 2), each route from one start with cuDNN
+     deterministic: (a1) one SGD(1) step in float32, the losses within
+     1e-5 relative and the changes (the gradients) of G, D and the EMA in
+     phase 12's form; (a2) 5 Adam steps: step 1's losses within 1e-5,
+     every graphed update (Adam, the EMA) equal to the eager update on
+     the graph's own gradients, the pool's count and generator equal,
+     the later losses printed beside a second eager run's (two runs part:
+     texture_warp_bwd's float atomics, amplified by Adam); (a3) step 1's
+     gradients of G and D as the recipe trains (bf16, VGG, the pool),
+     graphed against eager in phase 12's form at bf16's unit roundoff,
+     on 3 seeds' states and batches, beside a second eager run's (the
+     floor); (b) 3 steps' launches each route, equal and the main
+     path's; (e) a batch of 1 captures a second graph, and each capture's
+     warm-up launched the step's kernels 3 times (kept out of the
+     counters, printed). (c) Both routes at the
+     recipe and at the bench's operating point, in this process: wall ms
+     a step (median of 20), device ms (profiler, CUDA events), the busy
+     share, peak memory, capture seconds. (d) The graphed forward at
+     batch 8 bit-equal to the eager forward, frames/s both ways, one
+     fused launch a batch (compiled_path has the details).
 The last lines are the kernels' JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -394,6 +420,16 @@ def launch_counts():
     from neural_human_video_rendering_tpu_torch.train.drivers import \
         kernel_launches
     return kernel_launches()
+
+
+def fused_modes():
+    """The fused forward's launches by mode (keeping w for a backward, or
+    not): its wrapper's counters, which a CUDA graph's replays advance."""
+    from neural_human_video_rendering_tpu_torch.ops import \
+        texture_warp_kernel as tk
+    f = tk.texture_warp_topk_fwd
+    return {"keep_w": f.launches_keep_w,
+            "no_w": f.launches - f.launches_keep_w}
 
 
 def warp_inputs(torch, B, P, H, W, T, seed, device):
@@ -1470,6 +1506,10 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     forward = generators.FeatEncoder.forward
 
     def timed_forward(self, img):
+        # a capture launches nothing and its replays run no Python: the
+        # graphed step's E is timed on the capture's eager warm-up calls
+        if torch.cuda.is_current_stream_capturing():
+            return forward(self, img)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1517,8 +1557,9 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
             for k, v in feat_ms.items() if v}
     feat["step_ms_median"] = stages["train_e2e"]["ms_median"]
     print(f"[launchers] E's forward inside stage 2 (batch 2, 512 px; "
-          f"with_grad: frame t, without_grad: the detached t-1 render and the "
-          f"held-out batch): {json.dumps(feat)} | {smi}", flush=True)
+          f"with_grad: frame t on the graph's warm-up calls, without_grad: "
+          f"the detached t-1 render there and the held-out batch): "
+          f"{json.dumps(feat)} | {smi}", flush=True)
     del st, g
     torch.cuda.empty_cache()
 
@@ -1645,14 +1686,14 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     return launches["train_e2e"]
 
 
-QUALITY_FRAMES = 20
+QUALITY_FRAMES = 12
 CORRUPT_FRAMES = 8
 # the oracle's bound: the JAX package's (tests/test_synthetic_video.py)
 ORACLE_TOL = 1e-5
 # evaluate on the card against the CPU on the same dirs
 EVAL_PSNR_TOL, EVAL_SSIM_TOL, EVAL_FLICKER_RTOL, EVAL_VGG_RTOL = (
     1e-3, 1e-5, 1e-5, 3e-2)
-EVAL_CPU_FRAMES = 4
+EVAL_CPU_FRAMES = 2
 # bench.py's and bench_infer.py's rounds: one warm-up, then 2 x 20 steps;
 # one warm-up and 1 x 20 forwards (bench_infer: 2 x 20)
 BENCH_STEPS, BENCH_FORWARDS, BENCH_INFER_FORWARDS = 1 + 2 * 20, 1 + 20, 1 + 2 * 20
@@ -1676,13 +1717,12 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
     """Phase 9: the port measures itself. (a) bench.main and (b)
     bench_infer.main in process: their JSON lines (keys, finite values
     > 0) and the launches of each train step and inference batch (the
-    fused forward's two modes told apart by a spy on the dispatcher's
-    call); (c) the bilinear corpus oracle on the fused kernel: a 512 px
+    fused forward's two modes told apart by its wrapper's counters); (c) the bilinear corpus oracle on the fused kernel: a 512 px
     frame of data/synthetic_video rendered by texture_warp_planes on the
     card from its own IUV, atlas and bg, within 1e-5; (d) make_demo_data
-    at 512 px (20 frames bilinear; 8 frames with --corrupt 0.5), read back
+    at 512 px (16 frames bilinear; 8 frames with --corrupt 0.5), read back
     through FrameDataset; (e) quality_run at FULL_FLAGS, cut in depth only
-    (20 frames, 1 pre-epoch, 2 epochs): its val curve, the served frames,
+    (16 frames, 1 pre-epoch, 2 epochs): its val curve, the served frames,
     the parity JSON, and stage 2's launches from its log; (f) evaluate on
     the card: identical dirs score perfectly, and the renders against the
     GT agree with the same command on the CPU. Returns the launches per
@@ -1705,13 +1745,6 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
     numbers = {}
 
     # ---- a, b: the benchmark entry points, launches per step and batch
-    fused = ttw.texture_warp_topk_fwd
-    modes = {"keep_w": 0, "no_w": 0}
-
-    def spy(*args, return_w=False, **kw):
-        modes["keep_w" if return_w else "no_w"] += 1
-        return fused(*args, return_w=return_w, **kw)
-
     seen = {}
 
     def counted(name, module, fn_name):
@@ -1721,10 +1754,9 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
             torch.cuda.synchronize()
             tk.reset_launch_counts()
             fk.reset_launch_counts()
-            modes.update(keep_w=0, no_w=0)
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            seen[name] = {**launch_counts(), **modes}
+            seen[name] = {**launch_counts(), **fused_modes()}
             return out
         return fn, wrapped
 
@@ -1732,7 +1764,6 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
                (bench, "inference_fps", "bench_inference"),
                (bench_infer, "inference_fps", "bench_infer")]
     saved = []
-    ttw.texture_warp_topk_fwd = spy
     try:
         for module, fn_name, name in patches:
             fn, wrapped = counted(name, module, fn_name)
@@ -1749,7 +1780,6 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
             smoke.require(f"{name}.main exits 0", rc == 0)
             torch.cuda.empty_cache()
     finally:
-        ttw.texture_warp_topk_fwd = fused
         for module, fn_name, fn in saved:
             setattr(module, fn_name, fn)
     b, bi = lines["bench"], lines["bench_infer"]
@@ -2127,7 +2157,6 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
     from neural_human_video_rendering_tpu_torch.data import dataset as dsm
     from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
     from neural_human_video_rendering_tpu_torch.infer import test_driver as td
-    from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
     from neural_human_video_rendering_tpu_torch.train import drivers
     from neural_human_video_rendering_tpu_torch.train.steps import (
         make_forward_fn, make_train_step)
@@ -2151,15 +2180,8 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
                  "--save_latest_freq", "0"]
     none = {k: 0 for k in REPLACES}
 
-    # the fused forward's modes by a spy on the dispatcher's call; each
-    # stage-2 step's batch keys and an after-step hook by one on the step
-    fused = ttw.texture_warp_topk_fwd
-    modes = {"keep_w": 0, "no_w": 0}
-
-    def spy(*args, return_w=False, **kw):
-        modes["keep_w" if return_w else "no_w"] += 1
-        return fused(*args, return_w=return_w, **kw)
-
+    # the fused forward's modes by its wrapper's counters; each stage-2
+    # step's batch keys and an after-step hook by a spy on the step
     make = drivers.make_train_step
     hooks = {"keys": set(), "after": None}
 
@@ -2182,7 +2204,6 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
         torch.cuda.reset_peak_memory_stats()
         tk.reset_launch_counts()
         fk.reset_launch_counts()
-        modes.update(keep_w=0, no_w=0)
         hooks["keys"] = set()
         opt = TrainOptions().parse(argv + ["--name", name], save=False)
         t = time.perf_counter()
@@ -2195,7 +2216,7 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
                       "ms_steps": [x * 1e3 for x in st.step_seconds],
                       "wall_s": time.perf_counter() - t,
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                      "launches": {**launch_counts(), **modes},
+                      "launches": {**launch_counts(), **fused_modes()},
                       "losses": losses}
         print(f"[options] {name}: {json.dumps(runs[name])} | {smi}",
               flush=True)
@@ -2233,7 +2254,6 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
         print(f"[options] {name}: {json.dumps(runs[name])} | {smi}",
               flush=True)
 
-    ttw.texture_warp_topk_fwd = spy
     drivers.make_train_step = spy_make
     try:
         # ---- (a) r4 uv_uvr -> e2e_uvr: --uv_refine 3, the TransG handoff
@@ -2371,7 +2391,6 @@ def options_path(torch, smoke, tk, fk, repo, dev, smi):
         stage2_numbers("d_local_1024", st, opt, OPT_STEP_LAUNCHES)
         del st
     finally:
-        ttw.texture_warp_topk_fwd = fused
         drivers.make_train_step = make
 
     # ---- (d) serving at batch 8, 1024^2 (random weights from --seed)
@@ -2966,8 +2985,8 @@ def serving_path(torch, smoke, tk, fk, repo, dev, smi):
 
 
 # phase 12: data parallel over ranks (two ranks share the one card)
-PAR_ADAM = 5              # (a): Adam steps before the ranks' checksums
-PAR_FRAMES = 10           # (b): 5 steps an epoch at global batch 2
+PAR_ADAM = 3              # (a): Adam steps before the ranks' checksums
+PAR_FRAMES = 6            # (b): 3 steps an epoch at global batch 2
 PAR_NCCL_FRAMES = 6       # (c): 3 steps
 PAR_INFER = 16            # (d): two batches of 8
 PAR_ONE, PAR_TWO = "--gpu_ids=0", "--gpu_ids=0,0"     # one rank, two ranks
@@ -3033,9 +3052,9 @@ def parallel_parity(torch, smoke, work, dev):
     batch of 2: two ranks of one sample over gloo against the same two
     ranks run as threads of this process (selfcheck.thread_ranks: each
     rank's own shapes, so only the order of the final gradient sums
-    differs), at the parity tests' form (PAR_SCALE_TOL); then the ranks'
-    parameters, Adam moments and EMA bit-equal after PAR_ADAM Adam
-    steps."""
+    differs), both on make_train_step's eager route (ROADMAP C15), at
+    the parity tests' form (PAR_SCALE_TOL); then the ranks' parameters, Adam moments and
+    EMA bit-equal after PAR_ADAM Adam steps."""
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
     from neural_human_video_rendering_tpu_torch.data import dataset as dsm
     from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
@@ -3049,9 +3068,13 @@ def parallel_parity(torch, smoke, work, dev):
     sc.thread_ranks(o2, batch, atlas, syn.background(), one_dir, PAR_ADAM,
                     2, dev)
     torch.cuda.empty_cache()
+    # the ranks take the eager route, as the threads must: two graphed
+    # ranks of the flagship on one card overflow its memory in cuDNN's
+    # plan search, whose caught out-of-memory errors pick other
+    # algorithms (ROADMAP C15; the ranks' allocator records are printed)
     _, out_a = fd_captured(launch, sc.rank_step, o2, batch, atlas,
                            syn.background(), two_dir, PAR_ADAM, where=work,
-                           batch=o2.batchSize)
+                           batch=o2.batchSize, eager=True)
     got = sc.compare(one_dir, two_dir, PAR_SCALE_TOL, PAR_TENSOR_TOL)
     print(f"[parallel] (a) {json.dumps(got)}", flush=True)
     smoke.require("(a) two ranks on cuda:0 over gloo",
@@ -3077,9 +3100,9 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     two processes time-sharing one card: no scaling number.
       (a) parallel_parity: two ranks of one sample against the same two
           ranks run as threads of this process, then the ranks bit-equal
-          after 5 Adam steps;
-      (b) the flagship recipe (bf16) through run_train on a corpus of 10
-          frames, 5 steps on two ranks: the loss keys, finite losses, one
+          after 3 Adam steps;
+      (b) the flagship recipe (bf16) through run_train on a corpus of 6
+          frames, 3 steps on two ranks: the loss keys, finite losses, one
           metrics.jsonl writer, the epoch's checkpoints, each rank's
           launches (one fused forward keeping w, one backward, one flow
           warp a step); then --continue_train on one rank from the
@@ -3161,7 +3184,7 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     torch.cuda.synchronize()
     one_launch = launch_counts()
     smoke.require("(b) one rank resumes the two-rank save at epoch 2, "
-                  "step 5", st1 is not None and st1.start_epoch == 2
+                  f"step {steps_b}", st1 is not None and st1.start_epoch == 2
                   and st1.step == 2 * steps_b
                   and f"resumed at epoch 2 (step {steps_b}" in out_r)
     smoke.require("(b) one rank's launches a step equal each rank's",
@@ -3289,7 +3312,7 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
 # phase 13: the tools (bench_trained_regime, noisy_gt_ab + noisyab_anatomy,
 # arm_ab64)
 TR_WINDOWS, TR_STEPS = 4, 15
-AB_FRAMES = 16            # --data_ratio 0.9: 2 held-out frames
+AB_FRAMES = 12            # --data_ratio 0.9: 1 held-out frame
 AB64_FRAMES = 24
 BENCH_STEP_LAUNCHES = {"topk_select": 0, "texture_warp_fwd": 0,
                        "texture_warp_topk_fwd": 2, "texture_warp_bwd": 1,
@@ -3795,6 +3818,408 @@ def native_data_path(torch, smoke, tk, fk, repo, dev, smi):
     return numbers
 
 
+COMPILED_STEPS = 5           # (a): steps eager and graphed
+COMPILED_TIMED = 20          # (c): timed steps a route (after 3 warm-ups)
+COMPILED_FWD_ITERS = 20      # (d): timed forwards a route
+COMPILED_LOSS_RTOL = 1e-5    # (a): each step's losses graphed vs eager
+COMPILED_GRAD_SEEDS = 3      # (a3): states and batches
+# (a3): the bf16 recipe's step-1 gradients graphed vs eager, phase 12's
+# form (scale_tol * the module's largest gradient + tensor_tol * the
+# tensor's) at bf16's unit roundoff
+COMPILED_GRAD_SCALE_TOL = COMPILED_GRAD_TENSOR_TOL = 2.0 ** -8
+
+
+def step_times(torch, smi, step, state, batch, eager, tag):
+    """(c) one route of a step on one packed batch: wall ms a step (host
+    clock to a synchronise, median of COMPILED_TIMED after 3 warm-ups,
+    a capture included in the first), device ms a step (the profiler's
+    kernel time, and CUDA events around a step), the busy share, peak
+    memory over the warm-ups and the timed steps, and the capture
+    seconds."""
+    import statistics
+    from neural_human_video_rendering_tpu_torch.kernel_ab import wall_ms
+    kw = {"mark": lambda name: None} if eager else {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls = wall_ms(torch, lambda: step(state, batch, **kw), 3,
+                    COMPILED_TIMED)
+    peak = torch.cuda.max_memory_allocated() - base
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        step(state, batch, **kw)
+    end.record()
+    end.synchronize()
+    trace = trace_forward(torch, lambda: step(state, batch, **kw), iters=3)
+    wall = statistics.median(walls)
+    prog = getattr(step, "program", None)
+    out = {"route": "eager" if eager else "graphed", "wall_ms_median": wall,
+           "wall_ms_min": min(walls), "wall_ms_max": max(walls),
+           "device_ms_profiler": trace["device_busy_ms_per_call"],
+           "device_ms_events_5_steps": start.elapsed_time(end) / 5,
+           "busy_share": trace["device_busy_ms_per_call"] / wall,
+           "peak_mem_bytes_above_state": peak,
+           "capture_s": (list(prog.capture_s) if prog is not None
+                         and not eager else None),
+           "port_kernels_ms": trace["port_kernels_ms_per_call"],
+           "card": smi}
+    print(f"[compiled] (c) {tag} {json.dumps(out)}", flush=True)
+    return out
+
+
+def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
+    """Phase 15: the compiled step. make_train_step's graphed route
+    against its eager route (a call with a mark) from one start, with
+    cuDNN's deterministic algorithms. (a1) The gradients: the recipe in
+    float32 with every part blended (PAR_EXACT), one SGD(1) step each
+    route, the losses within COMPILED_LOSS_RTOL and the changes of G, D
+    and the EMA in phase 12's form. (a2) The recipe as it trains (bf16,
+    Adam with the schedule, the EMA, --pool_size 8), 5 steps each route
+    and a second eager run: step 1's losses within COMPILED_LOSS_RTOL;
+    every graphed step's update (Adam's parameters, moments and counts,
+    the EMA) equal to the eager update on the gradients the graph made
+    (graphed_update_err); the pool's draws and count equal. (a3) Step 1's
+    gradients of G and D as the recipe trains, graphed against eager
+    (COMPILED_GRAD_*_TOL), on (a2)'s start and more seeds, with a second
+    eager run's beside them. The later
+    steps' losses are printed against the eager-vs-eager floor:
+    texture_warp_bwd adds dtex with float atomics, Adam turns the noise
+    of the gradients of the biases ahead of instance norms into steps of
+    lr, and two runs of either route part within a few steps. (b) The
+    launches of each route over 3 steps, counted on the replays. (c) Both
+    routes timed (step_times) at the recipe and at the bench's operating
+    point. (d) The graphed forward at batch 8 against the eager forward,
+    frames/s both ways and its launches. (e) A partial last batch
+    captures a second graph."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import bench
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.infer import test_driver as td
+    from neural_human_video_rendering_tpu_torch.kernel_ab import \
+        graphed_update_err
+    from neural_human_video_rendering_tpu_torch.parallel.selfcheck import \
+        delta_ratio
+    from neural_human_video_rendering_tpu_torch.train.graphs import WARMUP
+    from neural_human_video_rendering_tpu_torch.train.state import (
+        create_train_state, make_optimizer)
+    from neural_human_video_rendering_tpu_torch.train.steps import (
+        make_forward_fn, make_train_step)
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "compiled")
+    ckpt = ["--checkpoints_dir", os.path.join(work, "ckpt")]
+    opt = TrainOptions().parse(TRAIN + ckpt + ["--name", "compiled",
+                                               "--pool_size", "8"], save=False)
+    ds = dsm.SyntheticDataset(opt, length=2 * COMPILED_STEPS + 1,
+                              seed=opt.seed)
+    batches = [pack_batch(dsm.collate([ds[2 * i], ds[2 * i + 1]]))
+               for i in range(COMPILED_STEPS)]
+    atlas, bg = ds.texture_atlas(), ds.background()
+    out = {"card": smi}
+
+    def cpu(sd):
+        return {k: v.detach().float().cpu().clone() for k, v in sd.items()}
+
+    def snapshot(st):
+        return {"G": cpu(st.renderer.state_dict()),
+                "D": cpu(st.disc.state_dict()), "EMA": cpu(st.g_ema)}
+
+    def load(st, snap):
+        st.renderer.load_state_dict(snap["G"])
+        st.disc.load_state_dict(snap["D"])
+        st.g_ema = {k: v.to(dev, copy=True) for k, v in snap["EMA"].items()}
+
+    def moved(run, snap, m):
+        return {k: v - snap[m][k] for k, v in run["end"][m].items()}
+
+    # ---- (a1) the gradients: one SGD(1) step each route, float32
+    o32 = TrainOptions().parse(TRAIN + PAR_EXACT + ckpt + [
+        "--name", "compiled_sgd"], save=False)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    sgd, start = {}, None
+    for name in ("eager", "graphed"):
+        st = create_train_state(o32, atlas, bg, device=dev)
+        if start is None:
+            start = snapshot(st)
+        else:
+            load(st, start)
+        step = make_train_step(
+            o32, st.renderer, st.disc, None,
+            torch.optim.SGD(st.renderer.parameters(), lr=1.0),
+            torch.optim.SGD(st.disc.parameters(), lr=1.0))
+        kw = {} if name == "graphed" else {"mark": lambda n: None}
+        sgd[name] = {"losses": {k: float(v) for k, v in
+                                step(st, batches[0], **kw).items()},
+                     "end": snapshot(st)}
+        del st, step
+        torch.cuda.empty_cache()
+    ratios = {m: delta_ratio(moved(sgd["graphed"], start, m),
+                             moved(sgd["eager"], start, m),
+                             PAR_SCALE_TOL, PAR_TENSOR_TOL)
+              for m in ("G", "D", "EMA")}
+    loss_rel = max(abs(sgd["graphed"]["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in sgd["eager"]["losses"].items())
+    print(f"[compiled] (a1) one SGD(1) step float32, graphed vs eager: "
+          f"losses max rel {loss_rel:.3e}, changes (err/tol, phase 12's "
+          f"form) {json.dumps(ratios)}", flush=True)
+    smoke.check("(a1) the SGD step's losses graphed vs eager (relative)",
+                loss_rel, COMPILED_LOSS_RTOL)
+    for m, r in ratios.items():
+        smoke.check(f"(a1) {m} changes (gradients) graphed vs eager "
+                    f"(err/tol, worst at {r['tensor']})", r["ratio"], 1.0)
+    out["a1"] = {"loss_max_rel": loss_rel, "ratios": ratios}
+    del sgd, start
+
+    # ---- (a2) the recipe's Adam, EMA and pool, 5 steps each route, all
+    # from one state put back to its start (the graphed run last: its
+    # state and step go on to (b) and (e))
+    def restart(st, o, snap, gen0, n):
+        """st back at its start: weights, EMA, fresh optimizers, the pool
+        and its generator, the step counts."""
+        load(st, snap)
+        st.g_opt = make_optimizer(o, st.renderer.named_parameters(), n)
+        st.d_opt = make_optimizer(o, st.disc.named_parameters(), n)
+        st.pool_buf.zero_()
+        st.pool_n.zero_()
+        st.pool_gen.set_state(gen0)
+        st.step, st.step_t, st.step_t_at = 0, None, -1
+
+    def grads(st):
+        """Each parameter's .grad of G and D, float32 on the host."""
+        return {m: {k: p.grad.detach().float().cpu().clone()
+                    for k, p in mod.named_parameters() if p.grad is not None}
+                for m, mod in (("G", st.renderer), ("D", st.disc))}
+
+    runs, step1 = {}, {}
+    st = create_train_state(opt, atlas, bg, steps_per_epoch=len(batches),
+                            device=dev)
+    start, gen0 = snapshot(st), st.pool_gen.get_state()
+    for name in ("eager", "eager_again", "graphed"):
+        if name != "eager":
+            restart(st, opt, start, gen0, len(batches))
+        step = make_train_step(opt, st.renderer, st.disc, st.vgg, st.g_opt,
+                               st.d_opt)
+        losses, update_err = [], []
+        for b in batches:
+            if name == "graphed":
+                m, err = graphed_update_err(torch, st, step, b,
+                                            opt.ema_decay)
+                update_err.append(err)
+            else:
+                m = step(st, b, mark=lambda n: None)
+            losses.append({k: float(v) for k, v in m.items()})
+            if b is batches[0]:
+                step1[name] = grads(st)
+        torch.cuda.synchronize()
+        runs[name] = {"losses": losses, "update_err": update_err,
+                      "pool_n": int(st.pool_n),
+                      "gen": st.pool_gen.get_state().clone(),
+                      "steps": st.step, "step_t": int(st.step_t),
+                      "captures": (step.program.captures
+                                   if name == "graphed" else 0)}
+        torch.cuda.empty_cache()
+    graphed_state, graphed_step = st, step
+    del st, step
+
+    # ---- (a3) the recipe's gradients at step 1 (bf16, VGG, the pool of
+    # 8), graphed against eager, beside eager against eager: (a2)'s start
+    # and COMPILED_GRAD_SEEDS - 1 more seeds' states and batches
+    by_seed = {opt.seed: step1}
+    for seed in range(opt.seed + 1, opt.seed + COMPILED_GRAD_SEEDS):
+        o = TrainOptions().parse(TRAIN + ckpt + [
+            "--name", "compiled_grads", "--pool_size", "8",
+            "--seed", str(seed)], save=False)
+        d = dsm.SyntheticDataset(o, length=2, seed=seed)
+        b = pack_batch(dsm.collate([d[0], d[1]]))
+        st = create_train_state(o, d.texture_atlas(), d.background(),
+                                steps_per_epoch=1, device=dev)
+        snap, g0 = snapshot(st), st.pool_gen.get_state()
+        by_seed[seed] = {}
+        for name in ("eager", "eager_again", "graphed"):
+            restart(st, o, snap, g0, 1)
+            step = make_train_step(o, st.renderer, st.disc, st.vgg,
+                                   st.g_opt, st.d_opt)
+            step(st, b, **({} if name == "graphed"
+                           else {"mark": lambda n: None}))
+            by_seed[seed][name] = grads(st)
+            del step
+        del st
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    a3 = {}
+    for seed, got in by_seed.items():
+        a3[seed] = {f"{r} vs eager": {m: delta_ratio(
+            got[r][m], got["eager"][m], COMPILED_GRAD_SCALE_TOL,
+            COMPILED_GRAD_TENSOR_TOL) for m in ("G", "D")}
+            for r in ("graphed", "eager_again")}
+    print(f"[compiled] (a3) step-1 gradients, bf16 recipe (err/tol, scale "
+          f"{COMPILED_GRAD_SCALE_TOL} + tensor {COMPILED_GRAD_TENSOR_TOL}) "
+          f"{json.dumps(a3)}", flush=True)
+    for seed, row in a3.items():
+        for m, r in row["graphed vs eager"].items():
+            smoke.check(f"(a3) seed {seed}: {m} step-1 gradients graphed vs "
+                        f"eager, bf16 recipe (err/tol, worst at "
+                        f"{r['tensor']})", r["ratio"], 1.0)
+    out["a3"] = a3
+    del by_seed, step1
+    e, g, e2 = runs["eager"], runs["graphed"], runs["eager_again"]
+
+    def rel(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+
+    first = rel(g["losses"][0], e["losses"][0])
+    later = [rel(lg, le) for lg, le in zip(g["losses"], e["losses"])]
+    floor = [rel(l2, le) for l2, le in zip(e2["losses"], e["losses"])]
+    print(f"[compiled] (a2) {COMPILED_STEPS} Adam steps: losses graphed vs "
+          f"eager (max rel a step) {json.dumps(later)}, eager vs eager "
+          f"{json.dumps(floor)}; the update on the graph's own gradients "
+          f"(max abs a step) {json.dumps(g['update_err'])}", flush=True)
+    smoke.require("(a2) the same loss keys each step", all(
+        sorted(a) == sorted(b) for a, b in zip(e["losses"], g["losses"])))
+    smoke.check("(a2) step 1's losses graphed vs eager (relative; the same "
+                "state and batch)", first, COMPILED_LOSS_RTOL)
+    smoke.check("(a2) Adam, the EMA and the counts of every graphed step "
+                "equal the eager update on its gradients (max abs)",
+                max(g["update_err"]), 0.0)
+    smoke.require("(a2) the pool's draws and count equal",
+                  g["pool_n"] == e["pool_n"] == 8
+                  and torch.equal(g["gen"], e["gen"]),
+                  f"(pool_n {g['pool_n']} / {e['pool_n']})")
+    smoke.require("(a2) step and device counter advanced",
+                  g["steps"] == e["steps"] == COMPILED_STEPS
+                  and g["step_t"] == COMPILED_STEPS)
+    smoke.require("(a2) one capture for the batch shape", g["captures"] == 1,
+                  str(g["captures"]))
+    smoke.require("(a2) finite losses every step", all(
+        np.isfinite(v) for r in (e, g) for ls in r["losses"]
+        for v in ls.values()))
+    out["a2"] = {"loss_rel_step1": first, "loss_rel_by_step": later,
+                 "loss_rel_eager_vs_eager": floor,
+                 "update_max_abs": g["update_err"],
+                 "captures": g["captures"]}
+    del runs, start
+
+    # ---- (b) launches on the replays, each route
+    launches = {}
+    for name, kw in (("graphed", {}), ("eager", {"mark": lambda n: None})):
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        for b in batches[:3]:
+            graphed_step(graphed_state, b, **kw)
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+    want = {k: 3 * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    print(f"[compiled] (b) launches over 3 steps {json.dumps(launches)}",
+          flush=True)
+    smoke.require("(b) the graphed step launches what the eager one does",
+                  launches["graphed"] == launches["eager"] == want,
+                  json.dumps(launches))
+    out["b"] = launches
+
+    # ---- (e) a partial last batch: its own capture
+    part = pack_batch(dsm.collate([ds[2 * COMPILED_STEPS]]))
+    metrics = graphed_step(graphed_state, part)
+    torch.cuda.synchronize()
+    caps = graphed_step.program.captures
+    warm = graphed_step.program.warmup_launches
+    print(f"[compiled] (e) a batch of 1 after batches of 2: {caps} captures "
+          f"({len(graphed_step.program.entries)} held), capture s "
+          f"{json.dumps(graphed_step.program.capture_s)}, the warm-ups' "
+          f"launches (not in the counters) {json.dumps(warm)}", flush=True)
+    smoke.require("(e) each capture's warm-up launched the step's kernels "
+                  f"{WARMUP} times", all(
+                      warm.get(k, 0) == 2 * WARMUP * v
+                      for k, v in TRAIN_LAUNCHES_PER_STEP.items()),
+                  json.dumps(warm))
+    smoke.require("(e) a partial batch captures a second graph", caps == 2)
+    smoke.require("(e) its losses finite", all(
+        np.isfinite(float(v)) for v in metrics.values()))
+    out["e"] = {"captures": caps, "warmup_launches": warm,
+                "capture_s": list(graphed_step.program.capture_s)}
+    del graphed_state, graphed_step
+    torch.cuda.empty_cache()
+
+    # ---- (c) times, both routes, in this process
+    recipe = TrainOptions().parse(TRAIN + ckpt + ["--name", "compiled_c"],
+                                  save=False)
+    points = {"recipe": recipe,
+              "bench": bench.bench_options(64, "float32", "0")}
+    out["c"] = {}
+    for tag, o in points.items():
+        d = dsm.SyntheticDataset(o, length=2, seed=0)
+        b = pack_batch(dsm.collate([d[0], d[1]]))
+        o.checkpoints_dir = os.path.join(work, "ckpt")
+        st = create_train_state(o, d.texture_atlas(), d.background(),
+                                device=dev)
+        res = {}
+        for eager in (True, False):
+            step = make_train_step(o, st.renderer, st.disc, st.vgg, st.g_opt,
+                                   st.d_opt)
+            res["eager" if eager else "graphed"] = step_times(
+                torch, smi, step, st, b, eager, tag)
+            del step
+        res["wall_ratio_graphed_over_eager"] = (
+            res["graphed"]["wall_ms_median"] / res["eager"]["wall_ms_median"])
+        out["c"][tag] = res
+        smoke.require(f"(c) {tag}: both routes timed, finite",
+                      all(np.isfinite(r["wall_ms_median"]) for r in
+                          (res["eager"], res["graphed"])))
+        del st
+        torch.cuda.empty_cache()
+
+    # ---- (d) the forward at batch 8
+    renderer = td.build_renderer(recipe, dev)
+    fwd = make_forward_fn(recipe, renderer)
+    assets = td.assets_to_device(recipe, atlas, bg, dev)
+    joints = torch.from_numpy(np.stack([ds[i % len(ds)]["joints"]
+                                        for i in range(8)])).to(dev)
+    want_f = fwd.eager(assets, joints)
+    got_f = fwd(assets, joints)
+    torch.cuda.synchronize()
+    diffs = {k: float((got_f[k].float() - want_f[k].float()).abs().max())
+             for k in ("fake", "fg", "mask", "uv", "probs")}
+    print(f"[compiled] (d) graphed vs eager forward at batch 8, max abs "
+          f"{json.dumps(diffs)}", flush=True)
+    smoke.require("(d) the graphed frames equal the eager forward's",
+                  all(v == 0.0 for v in diffs.values()), json.dumps(diffs))
+    fps = {}
+    for name, fn in (("eager", fwd.eager), ("graphed", fwd)):
+        for _ in range(3):
+            fn(assets, joints)
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COMPILED_FWD_ITERS):
+            fn(assets, joints)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / COMPILED_FWD_ITERS
+        counts = launch_counts()
+        trace = trace_forward(torch, lambda: fn(assets, joints))
+        fps[name] = {"ms_per_batch": ms, "fps": 8e3 / ms,
+                     "device_ms_profiler": trace["device_busy_ms_per_call"],
+                     "busy_share": trace["device_busy_ms_per_call"] / ms,
+                     "texture_warp_topk_fwd_launches": counts[
+                         "texture_warp_topk_fwd"], "card": smi}
+        smoke.require(f"(d) {name} forward: one fused launch a batch",
+                      counts == {**{k: 0 for k in counts},
+                                 "texture_warp_topk_fwd": COMPILED_FWD_ITERS},
+                      json.dumps(counts))
+    print(f"[compiled] (d) {json.dumps(fps)}", flush=True)
+    out["d"] = {"max_abs": diffs, **fps}
+    del fwd, renderer
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[compiled] phase 15 {out['s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4099,6 +4524,8 @@ def main() -> int:
     print(f"[tools] phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
     # ------------------------------------------------------ 14. native data
     native14 = native_data_path(torch, smoke, tk, fk, repo, dev, smi)
+    # ------------------------------------------------- 15. the compiled step
+    compiled = compiled_path(torch, smoke, tk, fk, repo, dev, smi)
     ab_launches = tools["ab"].get("launches", {})
     launches_tools = {
         "quality_profile (phase 9 g)": launch_bench.pop("quality_profile"),
@@ -4159,6 +4586,8 @@ def main() -> int:
         entry["launches_tools"] = {k: v.get(name, 0)
                                    for k, v in launches_tools.items()}
         entry["launches_native_data"] = native14["stage2"]["launches"][name]
+        entry["launches_compiled_3_steps"] = {
+            k: v[name] for k, v in compiled["b"].items()}
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "
                            "calls replayed (warm L2 where the inputs fit); "
                            "host_us: host clock per call, no sync")

@@ -9,6 +9,8 @@ PyTorch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .keypoints import COCO18_LIMBS, LIMB_COLORS
@@ -29,6 +31,21 @@ def _point_segment_dist2(px, py, ax, ay, bx, by):
     return dx * dx + dy * dy
 
 
+# Constants on the device, made once per device: a host copy inside a
+# captured step (train/graphs.py) would break its capture.
+@functools.lru_cache(maxsize=None)
+def _limb_colors(device: torch.device) -> torch.Tensor:
+    """LIMB_COLORS (L, 3) on ``device``."""
+    return torch.as_tensor(LIMB_COLORS, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_index(device: torch.device):
+    """The limbs' two joints as int64 index tensors (L,) on ``device``."""
+    return (torch.tensor(_LIMBS_A, device=device),
+            torch.tensor(_LIMBS_B, device=device))
+
+
 def render_skeleton(joints: torch.Tensor, height: int, width: int,
                     radius: float = 4.0,
                     conf_thresh: float = 0.05) -> torch.Tensor:
@@ -44,18 +61,18 @@ def render_skeleton(joints: torch.Tensor, height: int, width: int,
     B, dev = joints.shape[0], joints.device
     py = torch.arange(height, dtype=torch.float32, device=dev).view(1, height, 1)
     px = torch.arange(width, dtype=torch.float32, device=dev).view(1, 1, width)
-    a = joints[:, _LIMBS_A]                                   # (B, L, 3)
-    b = joints[:, _LIMBS_B]
-    colors = torch.as_tensor(LIMB_COLORS, device=dev)         # (L, 3)
+    ia, ib = _limb_index(dev)
+    a = joints.index_select(1, ia)                            # (B, L, 3)
+    b = joints.index_select(1, ib)
+    colors = _limb_colors(dev)                                # (L, 3)
     best_d2 = torch.full((B, height, width), float("inf"), device=dev)
     planes = torch.zeros((B, 3, height, width), device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
     for i in range(len(_LIMBS_A)):
         ai = a[:, i].view(B, 3, 1, 1)
         bi = b[:, i].view(B, 3, 1, 1)
         d2 = _point_segment_dist2(px, py, ai[:, 0], ai[:, 1], bi[:, 0], bi[:, 1])
         valid = (ai[:, 2] > conf_thresh) & (bi[:, 2] > conf_thresh)
-        d2 = torch.where(valid, d2, inf)
+        d2 = torch.where(valid, d2, float("inf"))
         upd = d2 < best_d2
         best_d2 = torch.where(upd, d2, best_d2)
         planes = torch.where(upd[:, None], colors[i].view(1, 3, 1, 1), planes)
@@ -99,8 +116,9 @@ def limb_coord_maps(joints: torch.Tensor, height: int, width: int,
     B, dev = joints.shape[0], joints.device
     py = torch.arange(height, dtype=torch.float32, device=dev).view(1, height, 1)
     px = torch.arange(width, dtype=torch.float32, device=dev).view(1, 1, width)
-    a = joints[:, _LIMBS_A]                                   # (B, L, 3)
-    b = joints[:, _LIMBS_B]
+    ia, ib = _limb_index(dev)
+    a = joints.index_select(1, ia)                            # (B, L, 3)
+    b = joints.index_select(1, ib)
     chans = []
     for i in range(len(_LIMBS_A)):
         ai = a[:, i].view(B, 3, 1, 1)

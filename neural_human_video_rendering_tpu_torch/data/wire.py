@@ -3,9 +3,11 @@ the JAX package's ``data/wire.py``.
 
 ``pack_batch`` (host, numpy, the same numbers as the JAX package's) ships
 every image-like field as uint8 and the flows as float16, 4x fewer bytes
-than float32; ``unpack_batch`` uploads a batch and dequantises it with
-torch ops on the device as the train step's first op. It is dtype-driven:
-float32 fields pass through, so raw and packed batches both work.
+than float32; ``unpack_batch`` uploads a batch (``host_tensors``) and
+dequantises it (``dequantize``) with torch ops on the device as the train
+step's first op; a captured step uploads into its static buffers and
+captures the dequantisation. It is dtype-driven: float32 fields pass
+through, so raw and packed batches both work.
 
 Layout: the host batch is the dataset's NHWC (``(B, H, W, C)``);
 ``unpack_batch`` returns the port's NCHW: image / image_prev / bg
@@ -45,13 +47,18 @@ def pack_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def unpack_batch(batch, device) -> Dict[str, torch.Tensor]:
-    """Wire (or raw float32) host batch -> float32 / int64 NCHW tensors on
-    ``device``: one upload of the packed bytes, then the dequantisation and
-    the layout change as device ops."""
+def host_tensors(batch) -> Dict[str, torch.Tensor]:
+    """The host batch's arrays as CPU tensors (no copy): what the upload
+    moves, packed or raw."""
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+
+
+def dequantize(raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Uploaded wire (or raw float32) tensors -> float32 / int64 NCHW
+    tensors on their device: the dequantisation and the layout change, a
+    captured step's first device ops."""
     out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
+    for k, t in raw.items():
         if k in _U8_SYM and t.dtype == torch.uint8:
             t = t.float() / 127.5 - 1.0
         elif k in _U8_UNIT and t.dtype == torch.uint8:
@@ -64,3 +71,11 @@ def unpack_batch(batch, device) -> Dict[str, torch.Tensor]:
             t = t.permute(0, 3, 1, 2).contiguous()
         out[k] = t
     return out
+
+
+def unpack_batch(batch, device) -> Dict[str, torch.Tensor]:
+    """Wire (or raw float32) host batch -> float32 / int64 NCHW tensors on
+    ``device``: one upload of the packed bytes, then the dequantisation and
+    the layout change as device ops."""
+    return dequantize({k: t.to(device, non_blocking=True)
+                       for k, t in host_tensors(batch).items()})

@@ -27,9 +27,12 @@ With --step it times the flagship stage-2 step instead (chip_smoke phase
 6's fixed-batch step: this checkout's chip_smoke.py TRAIN flags, 512 px,
 batch 2, the recipe's losses, random weights from --seed 0, one
 pre-packed batch, no loader): 5 warm-up steps, then 30 steps each ended
-by a synchronise (host clock), then the phases of 10 more by CUDA events
-(make_train_step's marks); it prints the median, quartiles, minimum and
-the phases' medians.
+by a synchronise (host clock), first as make_train_step returns the step
+(graphed on the card where the tree captures it, eager in a tree before
+that), then eager (a call with a mark), then the phases of 10 more by
+CUDA events (make_train_step's marks, eager); it prints the median,
+quartiles and minimum of each route, the tree's route, and the phases'
+medians.
 Run parent, change, change, parent in one command. Prints one JSON line;
 exits non-zero without a CUDA card.
 """
@@ -126,10 +129,71 @@ def forward_times(torch, smoke, tk, ttw, tex8, uv8, probs8):
     return out
 
 
-def step_times(torch, smoke, tree):
-    """{median_ms, q1_ms, q3_ms, min_ms, phases_ms} of the fixed-batch
-    stage-2 step of the checkout at tree (see the module's docstring)."""
+def wall_ms(torch, fn, warmups, iters):
+    """The host-clock ms of ``iters`` calls of fn, each ended by a
+    synchronise, after ``warmups`` calls."""
     import time
+    for _ in range(warmups):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def graphed_update_err(torch, st, step, batch, decay):
+    """One graphed step of ``st``, then its update redone eagerly: the
+    pre-step parameters, Adam moments and counts and the EMA put back,
+    both optimizers' eager update (ScheduledAdam.update) and ema_blend run
+    on the gradients the graph left in .grad, and the result held
+    against the graph's. Returns (the step's metrics, the largest absolute
+    difference); the state is left as the graph left it. The gradients
+    of two runs differ (texture_warp_bwd's float atomics), so this is how
+    the captured update is held to the eager one exactly."""
+    from neural_human_video_rendering_tpu_torch.parallel.mesh import \
+        optimizer_tensors
+    from neural_human_video_rendering_tpu_torch.train.steps import ema_blend
+    opts = (st.g_opt, st.d_opt)
+
+    def tensors():
+        return ([p for o in opts for grp in o.param_groups
+                 for p in grp["params"]] + optimizer_tensors(st.g_opt)
+                + optimizer_tensors(st.d_opt) + list(st.g_ema.values()))
+
+    before = tensors()
+    saved = [t.detach().clone() for t in before]
+    t_before = torch.tensor(st.step, dtype=torch.int64, device=st.device)
+    metrics = step(st, batch)
+    after = tensors()
+    got = [t.detach().clone() for t in after]
+    with torch.no_grad():
+        known = {id(t) for t in before}
+        for t, s in zip(before, saved):
+            t.copy_(s)
+        for t in after:
+            if id(t) not in known:       # Adam's moments made at the capture
+                t.zero_()
+        for o in opts:                   # the update as the step ran it
+            o.freeze_count -= 1
+            o.update()
+            o.freeze_count += 1
+        ema_blend(st.g_ema, st.renderer, t_before, decay)
+        err = max(float((t - w).abs().max()) for t, w in zip(after, got))
+        for t, w in zip(after, got):
+            t.copy_(w)
+    return metrics, err
+
+
+def step_times(torch, smoke, tree):
+    """{median_ms, q1_ms, q3_ms, min_ms, route, eager, phases_ms} of the
+    fixed-batch stage-2 step of the checkout at tree (see the module's
+    docstring): the step as make_train_step returns it (route: graphed or
+    eager), then eager (``eager``: the same quartiles), then the eager
+    phases."""
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
     from neural_human_video_rendering_tpu_torch.data import dataset as dsm
     from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
@@ -149,15 +213,20 @@ def step_times(torch, smoke, tree):
     st = create_train_state(opt, ds.texture_atlas(), ds.background())
     step = make_train_step(opt, st.renderer, st.disc, st.vgg, st.g_opt,
                            st.d_opt)
-    for _ in range(5):
-        step(st, batch)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(30):
-        t = time.perf_counter()
-        step(st, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
+
+    def timed(**kw):
+        """Quartiles of 30 synchronised steps after 5 warm-ups (a capture
+        in the first, where the route is a graph)."""
+        s = sorted(wall_ms(torch, lambda: step(st, batch, **kw), 5, 30))
+        return {"median_ms": s[15], "q1_ms": s[7], "q3_ms": s[22],
+                "min_ms": s[0]}
+
+    # the tree's own route (a graph where make_train_step captures one),
+    # then the eager step (a mark that does nothing)
+    out = timed()
+    out["route"] = ("graphed" if getattr(step, "program", None) is not None
+                    else "eager")
+    out["eager"] = timed(mark=lambda name: None)
     phases = {}
     for _ in range(10):
         events = [("start", torch.cuda.Event(enable_timing=True))]
@@ -172,9 +241,8 @@ def step_times(torch, smoke, tree):
         torch.cuda.synchronize()
         for (_, a), (name, b) in zip(events, events[1:]):
             phases.setdefault(name, []).append(a.elapsed_time(b))
-    s = sorted(times)
-    return {"median_ms": s[15], "q1_ms": s[7], "q3_ms": s[22], "min_ms": s[0],
-            "phases_ms": {k: sorted(v)[5] for k, v in phases.items()}}
+    out["phases_ms"] = {k: sorted(v)[5] for k, v in phases.items()}
+    return out
 
 
 def main() -> int:

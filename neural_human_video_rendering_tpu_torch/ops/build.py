@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -63,7 +64,8 @@ def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
         out = library_path(name)
         if out.is_file():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # one name per process and thread: two threads may build at once
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         if ptxas_verbose:

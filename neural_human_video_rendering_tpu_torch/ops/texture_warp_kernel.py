@@ -462,6 +462,7 @@ def _texture_warp_topk_fwd_cuda(tex, fg, u, v, k, eps, return_w):
         w.data_ptr() if return_w else None, out.data_ptr(), tex4.data_ptr(),
         B, P, C, T, N, k, float(eps), stream)
     texture_warp_topk_fwd.launches += 1
+    texture_warp_topk_fwd.launches_keep_w += bool(return_w)
     _check(err, "texture_warp_topk_fwd")
     return out, w
 
@@ -501,6 +502,7 @@ def texture_warp_topk_fwd(tex: torch.Tensor, fg: torch.Tensor,
 
 
 texture_warp_topk_fwd.launches = 0
+texture_warp_topk_fwd.launches_keep_w = 0     # of them, keeping w
 
 
 # ---- texture_warp_bwd
@@ -582,4 +584,5 @@ def reset_launch_counts() -> None:
     topk_select.launches = 0
     texture_warp_fwd.launches = 0
     texture_warp_topk_fwd.launches = 0
+    texture_warp_topk_fwd.launches_keep_w = 0
     texture_warp_bwd.launches = 0

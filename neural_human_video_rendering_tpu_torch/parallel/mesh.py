@@ -20,7 +20,9 @@ semantics by hand:
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used: the
 collectives that NCCL and gloo both support on CUDA tensors. A lone rank
 (``solo``) has no process group, and each of its methods is the
-identity.
+identity. The reductions a train step makes are host points of a
+captured step (``utils/host_point.py``): on the card each one ends a
+CUDA graph, runs on the host, and the next graph goes on from it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from ..utils.host_point import host_point
 
 _INT_VIEW = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
 
@@ -123,7 +127,7 @@ class DataParallel:
         n = x.shape[0]
         buf = x.new_zeros((n * self.world,) + tuple(x.shape[1:]))
         buf[self.rank * n:(self.rank + 1) * n] = x
-        self._all_reduce(buf)
+        self._reduce(buf)
         return buf
 
     # ---- reductions
@@ -140,7 +144,7 @@ class DataParallel:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             flat = _flatten_dense_tensors(grads)
-            self._all_reduce(flat)
+            self._reduce(flat)
             flat.div_(self.world)
             for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
                 g.copy_(r)
@@ -154,7 +158,7 @@ class DataParallel:
         names = list(metrics)
         flat = torch.stack([metrics[k].detach().float().reshape(())
                             for k in names])
-        self._all_reduce(flat)
+        self._reduce(flat)
         flat.div_(self.world)
         return dict(zip(names, flat.unbind(0)))
 
@@ -163,7 +167,7 @@ class DataParallel:
         masked mean's denominator), or sums to be averaged."""
         x = x.detach().clone()
         if self.parallel:
-            self._all_reduce(x)
+            self._reduce(x)
         return x
 
     def count_share(self, count: torch.Tensor) -> torch.Tensor:
@@ -209,6 +213,11 @@ class DataParallel:
             dist.barrier(group=self.group)
 
     # ---- the transport (parallel.selfcheck.ThreadRank replaces it)
+    def _reduce(self, x: torch.Tensor) -> None:
+        """The sum over the ranks of x, in place, as a host point of a
+        captured step."""
+        host_point(lambda: self._all_reduce(x))
+
     def _all_reduce(self, x: torch.Tensor,
                     op: dist.ReduceOp = dist.ReduceOp.SUM) -> None:
         dist.all_reduce(x, op=op, group=self.group)

@@ -12,10 +12,18 @@ The reference (``thread_ranks``) runs each rank's rows at the rank's own
 shapes, with the same global count share, and sums the gradients in rank
 order and divides by the world once: the ranks' code with another
 transport (``ThreadRank``), so only the order of the final sums may
-differ. A reference that takes the global batch in one pass runs its
-convolutions and reductions at other shapes, and their rounding flips the
-sign of L1 terms within ~1e-6 of 0, each flip moving the gradient by
-2 lambda / count through the whole generator.
+differ. The threads take make_train_step's eager route (two threads'
+captures would run at once, which cuDNN refuses), and so do the ranks
+that compare with them (``eager``): two graphed ranks of the flagship on
+one card overflow its memory while cuDNN searches its plans, the
+allocator's caught out-of-memory errors send cuDNN to other algorithms,
+and those round differently from the reference's. Each rank records its
+allocator's caught out-of-memory count and peak reservation. A
+reference that takes the
+global batch in one pass runs its convolutions and reductions at other
+shapes, and their rounding flips the sign of L1 terms within ~1e-6 of 0,
+each flip moving the gradient by 2 lambda / count through the whole
+generator.
 
 Each rank builds the state from --seed (rank 0's weights broadcast),
 zeroes TexG's head and takes its rows of the batch. It runs one step with
@@ -158,9 +166,11 @@ def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
               bg: np.ndarray, out_dir: str, adam_steps: int,
-              dp: Optional[DataParallel] = None) -> None:
+              dp: Optional[DataParallel] = None,
+              eager: bool = False) -> None:
     """This rank's part of the check (the module docstring); writes
-    {out_dir}/rank{r}.pt."""
+    {out_dir}/rank{r}.pt. The SGD step takes make_train_step's route (a
+    CUDA graph on the card) unless ``eager``; threads run it eagerly."""
     dp = dp if dp is not None else DataParallel()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -172,7 +182,11 @@ def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
     step = make_train_step(opt, st.renderer, st.disc, st.vgg,
                            torch.optim.SGD(st.renderer.parameters(), lr=1.0),
                            torch.optim.SGD(st.disc.parameters(), lr=1.0), dp)
-    losses = {k: float(v) for k, v in step(st, rows).items()}
+    # threads of one process run the eager step: their captures would
+    # run at once, which cuDNN refuses (CUDNN_STATUS_INTERNAL_ERROR)
+    kw = ({"mark": lambda name: None}
+          if eager or isinstance(dp, ThreadRank) else {})
+    losses = {k: float(v) for k, v in step(st, rows, **kw).items()}
     after = {"G": _cpu(st.renderer.state_dict()),
              "D": _cpu(st.disc.state_dict()), "EMA": _cpu(st.g_ema)}
     deltas = {m: {k: after[m][k] - before[m][k] for k in before[m]}
@@ -205,8 +219,15 @@ def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
         parts["pool"] = [st.pool_buf, st.pool_n]
     checksums = {k: dp.check(f"{k} after {adam_steps} steps", v)
                  for k, v in parts.items()}
+    alloc = None
+    if dp.device.type == "cuda":
+        mem = torch.cuda.memory_stats(dp.device)
+        alloc = {"num_ooms": mem.get("num_ooms", 0),
+                 "max_reserved_bytes": torch.cuda.max_memory_reserved(
+                     dp.device)}
     os.makedirs(out_dir, exist_ok=True)
     torch.save({"rank": dp.rank, "world": dp.world, "losses": losses,
+                "allocator": alloc,
                 "deltas": deltas if dp.is_lead else None,
                 "checksums": checksums, "adam_steps": adam_steps,
                 "phase_ms": {k: float(np.median(v[1:] or v))
@@ -237,9 +258,10 @@ def compare(one_dir: str, ranks_dir: str, scale_tol: float = 1e-5,
             tensor_tol: float = 1e-4) -> dict:
     """The ranks' results against one rank's: the worst relative loss
     difference, each module's ``delta_ratio``, whether every rank's
-    checksums are the same, and each run's median phase ms of its Adam
+    checksums are the same, each run's median phase ms of its Adam
     steps (synchronised at each phase's end: grad_all_reduce is the
-    ranks' gradient average)."""
+    ranks' gradient average) and each rank's allocator record (caught
+    out-of-memory errors, peak reservation; None on the CPU)."""
     one = torch.load(os.path.join(one_dir, "rank0.pt"))
     ranks = [torch.load(os.path.join(ranks_dir, f)) for f in
              sorted(os.listdir(ranks_dir)) if f.startswith("rank")]
@@ -258,4 +280,5 @@ def compare(one_dir: str, ranks_dir: str, scale_tol: float = 1e-5,
         "checksums": lead["checksums"],
         "phase_ms": {"one": one["phase_ms"],
                      "ranks": [r["phase_ms"] for r in ranks]},
+        "allocator": [r.get("allocator") for r in ranks],
     }

@@ -15,6 +15,12 @@ kernels' intervals over the steps' spans). A trace of the CPU alone (no
 kernels) is summed by its top-level CPU ops instead, under names that say
 so.
 
+The table is the eager step's (a call with a mark) or the eager forward's:
+the trainers run the captured program on the card (train/graphs.py), whose
+kernels a CUDA graph replay launches with no Python stack of their own. On
+the card the tool then traces that route too and adds its device ms a
+step and busy share as ``graphed``.
+
     python -m neural_human_video_rendering_tpu_torch.profile_step \\
         [--infer] [--steps 3] [--out DIR] [--gpu_ids 0]
     python -m neural_human_video_rendering_tpu_torch.profile_step --analyze DIR
@@ -57,9 +63,15 @@ def profile_options(a: argparse.Namespace):
         warp_dtype=a.warp_dtype, gpu_ids=a.gpu_ids)
 
 
-def run_trace(opt, out_dir: str, steps: int, infer: bool) -> str:
+def run_trace(opt, out_dir: str, steps: int, infer: bool,
+              graphed: bool = False) -> str:
     """Profile ``steps`` steps (or inference forwards) of ``opt`` on its
-    device after one warm-up; returns the trace's path."""
+    device after one warm-up; returns the trace's path. The eager step
+    (a call with a mark; the forward's eager closure) by default, whose
+    kernels the analysis attributes to lines; with ``graphed`` the
+    captured program make_train_step / make_forward_fn run on the card
+    (trace_graphed.json; its kernels are launched by a graph replay and
+    carry no Python stack of their own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -79,14 +91,17 @@ def run_trace(opt, out_dir: str, steps: int, infer: bool) -> str:
         assets = (st.static_tex, st.bg, st.tex_mask)
         joints = torch.from_numpy(batch["joints"]).to(device)
 
+        run = fwd if graphed else fwd.eager
+
         def one():
-            fwd(assets, joints)
+            run(assets, joints)
     else:
         step = make_train_step(opt, st.renderer, st.disc, st.vgg, st.g_opt,
                                st.d_opt)
+        kw = {} if graphed else {"mark": lambda name: None}
 
         def one():
-            step(st, batch)
+            step(st, batch, **kw)
 
     def sync():
         if cuda:
@@ -101,7 +116,8 @@ def run_trace(opt, out_dir: str, steps: int, infer: bool) -> str:
                 one()
                 sync()
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace.json")
+    path = os.path.join(out_dir, "trace_graphed.json" if graphed
+                        else "trace.json")
     prof.export_chrome_trace(path)
     return path
 
@@ -287,14 +303,26 @@ def main(argv=None) -> int:
     if a.analyze:
         path = a.analyze
     else:
-        path = run_trace(profile_options(a), a.out, a.steps, a.infer)
+        opt = profile_options(a)
+        path = run_trace(opt, a.out, a.steps, a.infer)
     out = analyze(path, a.top)
     out["trace"] = path
     if not a.analyze:
         out["mode"] = "infer" if a.infer else "train"
+        out["route"] = "eager"
         import torch
-        out["device"] = (torch.cuda.get_device_name(0) if a.gpu_ids.strip()
-                         and int(a.gpu_ids.split(",")[0]) >= 0 else "cpu")
+        card = a.gpu_ids.strip() and int(a.gpu_ids.split(",")[0]) >= 0
+        out["device"] = torch.cuda.get_device_name(0) if card else "cpu"
+        out["graphed"] = None
+        if card:        # the route the trainers take, beside the table
+            g = analyze(run_trace(opt, a.out, a.steps, a.infer, True))
+            out["graphed"] = {
+                k: g[k] for k in ("events", "steps", "device_ms_per_step",
+                                  "step_ms", "busy_share") if k in g}
+            out["graphed"]["note"] = (
+                "CUDA graph replays: the kernels carry no Python stack, so "
+                "this trace has no by-line rows; the rows above are the "
+                "eager step's")
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,0 +1,338 @@
+"""Captured programs: the port's counterpart of the JAX package's jitted
+steps (``jax.jit(step, donate_argnums=(0,))``, ``jax.jit(fwd)``).
+
+A ``Program`` turns a closure into one device program per input signature,
+as jit traces one per shape: on the card a CUDA graph, replayed with the
+host out of the loop. What a signature's first call does:
+
+  * the inputs (the host batch, already split into tensors) get static
+    device buffers, and every later call copies its inputs into them;
+  * the closure runs ``WARMUP`` times on a side stream (cuDNN picks its
+    algorithms, the warp backward raises its shared-memory opt-in), with
+    the state the closure updates saved before and restored after, so the
+    warm-up leaves no trace: the first replay is the signature's first
+    step, as jit's first call is;
+  * the closure runs once more under capture. A host point inside it
+    (``utils/host_point.py``: a collective of the data-parallel ranks,
+    which gloo cannot run inside a graph) ends the graph being captured,
+    runs on the host and opens the next graph in the same memory pool, so
+    a program is a chain of graphs with host steps between them;
+  * the kernel wrappers' launch counters count the launches of the steps
+    the program ran, one step's worth a replay, as they count the eager
+    closure's: a replay does not pass through the wrappers, so it adds
+    the launches its capture recorded (computed, not seen). The warm-up
+    calls do launch every kernel on the card, but their effects are
+    undone and they belong to no step: the counters are put back after
+    them, and the program keeps those launches apart, in
+    ``warmup_launches``. The capture itself launches nothing.
+
+The outputs are cloned out of the graph's pool on every replay, so a
+caller may keep them, as it keeps jit's fresh arrays. A capture that
+fails raises, naming the call that broke it: there is no fallback.
+
+The CPU has no graphs: there the callers run the eager closure.
+``StandIn`` is a capture that records nothing and replays by running the
+closure again, which lets the CPU tests drive a Program's bookkeeping.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+import traceback
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
+
+import torch
+
+from ..ops import flow_warp_kernel as fk
+from ..ops import texture_warp_kernel as tk
+from ..utils.host_point import capturing, host_point  # noqa: F401
+
+# calls of the closure on the side stream before a capture
+WARMUP = 3
+
+
+def kernel_counters() -> list:
+    """(wrapper, attribute) of every launch counter of the CUDA kernel
+    wrappers (``launches``, and ``launches_keep_w`` of the fused
+    forward), which the programs keep true."""
+    wrappers = [tk.topk_select, tk.texture_warp_fwd, tk.texture_warp_topk_fwd,
+                tk.texture_warp_bwd, fk.flow_warp_fwd]
+    return [(w, a) for w in wrappers for a in sorted(vars(w))
+            if a.startswith("launches")]
+
+
+def _counts() -> list:
+    return [getattr(w, a) for w, a in kernel_counters()]
+
+
+def _set_counts(counts) -> None:
+    for (w, a), n in zip(kernel_counters(), counts):
+        setattr(w, a, n)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree(v, fn) for v in x)
+    return fn(x) if torch.is_tensor(x) else x
+
+
+def _where(e: BaseException) -> str:
+    """Where e was raised, this module's frames left out: the innermost
+    frame, and the innermost of this repository's when it differs."""
+    here = os.path.abspath(__file__)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(here)))
+    frames = [f for f in traceback.extract_tb(e.__traceback__)
+              if os.path.abspath(f.filename) != here]
+    if not frames:
+        return "?"
+
+    def show(f):
+        return f"{os.path.basename(f.filename)}:{f.lineno} ({f.line})"
+
+    ours = [f for f in frames if os.path.abspath(f.filename).startswith(root)]
+    if not ours or ours[-1] is frames[-1]:
+        return show(frames[-1])
+    return f"{show(frames[-1])}, called from {show(ours[-1])}"
+
+
+class _CudaCapture:
+    """One capture on the card: graphs split at the host points, all in
+    one private memory pool, replayed in the order captured."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.host_ops: List[Callable[[], None]] = []
+        self.open: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+
+    def _begin(self) -> None:
+        self.open = torch.cuda.CUDAGraph()
+        # thread_local: a loader thread may use the card meanwhile
+        self.open.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+
+    def _end(self) -> None:
+        g, self.open = self.open, None
+        g.capture_end()
+        self.graphs.append(g)
+
+    def split(self, fn: Callable[[], None]) -> None:
+        self._end()
+        fn()
+        self.host_ops.append(fn)
+        self._begin()
+
+    def run(self, closure: Callable[[], Any], stream) -> None:
+        with torch.cuda.stream(stream), capturing(self):
+            self._begin()
+            try:
+                self.outputs = closure()
+                self._end()
+            except BaseException:
+                if self.open is not None:
+                    try:
+                        self.open.capture_end()
+                    except RuntimeError:
+                        pass             # the capture was invalidated
+                    self.open = None
+                raise
+
+    def replay(self) -> None:
+        for i, g in enumerate(self.graphs):
+            g.replay()
+            if i < len(self.host_ops):
+                self.host_ops[i]()
+
+    @property
+    def segments(self) -> int:
+        return len(self.graphs)
+
+
+class StandIn:
+    """A capture that records nothing (the CPU tests' stand-in for a CUDA
+    graph): the capture runs the closure and counts its host points, a
+    replay runs it again and copies its outputs into the captured ones,
+    with the wrappers' counts put back as a graph's replay leaves them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host_ops: List[Callable[[], None]] = []
+        self.closure: Optional[Callable[[], Any]] = None
+        self.outputs = None
+
+    def split(self, fn: Callable[[], None]) -> None:
+        fn()
+        self.host_ops.append(fn)
+
+    def run(self, closure: Callable[[], Any], stream) -> None:
+        with capturing(self):
+            self.outputs = closure()
+        self.closure = closure
+
+    def replay(self) -> None:
+        counts = _counts()
+        fresh = self.closure()
+        _set_counts(counts)
+        flat_new, flat_old = [], []
+        _tree(fresh, flat_new.append)
+        _tree(self.outputs, flat_old.append)
+        with torch.no_grad():
+            for old, new in zip(flat_old, flat_new):
+                old.copy_(new)
+
+    @property
+    def segments(self) -> int:
+        return len(self.host_ops) + 1
+
+
+class _Entry:
+    """A signature's capture: its static inputs, its outputs, the launches
+    one replay makes, and what it must keep alive."""
+
+    def __init__(self, capture, inputs, outputs, launches, keep):
+        self.capture = capture
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+        self.keep = keep
+
+
+class Program:
+    """Captures of one closure by signature (the module docstring).
+
+    program(key, inputs, make_closure, state=()) -> outputs (clones):
+    ``inputs`` maps names to tensors (host or device); ``key`` is the rest
+    of the signature, anything that changes what the closure launches
+    (the inputs' names, shapes and dtypes are added to it);
+    ``make_closure(static)`` returns the closure of that signature over
+    the static input buffers; ``state()`` lists the tensors the closure
+    updates in place (saved across the warm-up; a tensor that appears
+    during the warm-up, such as an optimizer's lazily made moment, is
+    zeroed after it). ``keep`` objects are held as long as the capture
+    (what the graphs address: assets, the train state).
+
+    ``name`` labels the line each capture prints on stderr: ``[name]
+    graphed (CUDA graph, capture n: ...)``. ``warmup_launches`` maps
+    each counter (``wrapper`` or ``wrapper.attribute``) to the launches
+    the warm-up calls made on the card, which the counters leave out."""
+
+    def __init__(self, name: str, device: torch.device,
+                 stand_in: bool = False):
+        self.name = name
+        self.device = torch.device(device)
+        if self.device.type != "cuda" and not stand_in:
+            raise ValueError(f"{name}: a captured program needs a CUDA "
+                             f"device, got {self.device}")
+        self.stand_in = stand_in
+        self.entries: Dict[Hashable, _Entry] = {}
+        self.captures = 0
+        self.capture_s: List[float] = []
+        self.warmup_launches: Dict[str, int] = {}
+
+    def clear(self) -> None:
+        """Drop every capture (their pools go with them)."""
+        self.entries.clear()
+
+    def __call__(self, key: Hashable, inputs: Dict[str, torch.Tensor],
+                 make_closure: Callable[[Dict[str, torch.Tensor]],
+                                        Callable[[], Any]],
+                 state: Callable[[], Sequence[torch.Tensor]] = tuple,
+                 keep: Sequence[Any] = ()) -> Any:
+        sig = (key, tuple((k, tuple(v.shape), v.dtype)
+                          for k, v in sorted(inputs.items())))
+        entry = self.entries.get(sig)
+        if entry is None:
+            entry = self._capture(sig, inputs, make_closure, state, keep)
+            self.entries[sig] = entry
+        for k, v in inputs.items():
+            entry.inputs[k].copy_(v, non_blocking=True)
+        entry.capture.replay()
+        for (w, a), n in entry.launches:
+            setattr(w, a, getattr(w, a) + n)
+        return _tree(entry.outputs, torch.clone)
+
+    def _capture(self, sig, inputs, make_closure, state, keep) -> _Entry:
+        t0 = time.perf_counter()
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                  for k, v in inputs.items()}
+        for k, v in inputs.items():
+            static[k].copy_(v)
+        closure = make_closure(static)
+        counts = _counts()
+        cuda = not self.stand_in
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        self._warm_up(closure, state, stream)
+        for (w, a), m, n in zip(kernel_counters(), _counts(), counts):
+            if m != n:
+                name = w.__name__ + ("" if a == "launches" else "." + a[9:])
+                self.warmup_launches[name] = \
+                    self.warmup_launches.get(name, 0) + m - n
+        _set_counts(counts)
+        cap = StandIn(self.device) if self.stand_in \
+            else _CudaCapture(self.device)
+        try:
+            if self.stand_in:      # it runs the closure: leave no trace
+                _preserving(state, lambda: cap.run(closure, stream))
+            else:
+                cap.run(closure, stream)
+            outputs = cap.outputs
+        except Exception as e:
+            raise RuntimeError(
+                f"[{self.name}] CUDA graph capture failed at {_where(e)}: "
+                f"{type(e).__name__}: {e}") from e
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        launches = [(c, m - n) for c, m, n in
+                    zip(kernel_counters(), _counts(), counts) if m != n]
+        _set_counts(counts)
+        self.captures += 1
+        self.capture_s.append(time.perf_counter() - t0)
+        lead = inputs.get("joints", next(iter(inputs.values()), None))
+        batch = f"batch {lead.shape[0]}, " if lead is not None else ""
+        kind = "stand-in" if self.stand_in else "CUDA graph"
+        print(f"[{self.name}] graphed ({kind}, capture {self.captures}: "
+              f"{batch}{cap.segments} segment"
+              f"{'s' if cap.segments > 1 else ''}, "
+              f"{self.capture_s[-1]:.2f} s)", file=sys.stderr, flush=True)
+        return _Entry(cap, static, outputs, launches, (closure, tuple(keep)))
+
+    def _warm_up(self, closure, state, stream) -> None:
+        """WARMUP calls of the closure on the side stream, leaving no trace
+        in the state."""
+        if stream is None:
+            _preserving(state, lambda: [closure() for _ in range(WARMUP)])
+            return
+        current = torch.cuda.current_stream(self.device)
+
+        def calls():
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUP):
+                    closure()
+            current.wait_stream(stream)
+
+        _preserving(state, calls)
+        stream.wait_stream(current)
+
+
+def _preserving(state: Callable[[], Sequence[torch.Tensor]],
+                fn: Callable[[], Any]) -> None:
+    """Run fn with the state's tensors as they were before it, after it: a
+    tensor that appears during fn (an optimizer's lazily made moment or
+    step count, zero when made) is zeroed."""
+    before = list(state())
+    saved = [t.detach().clone() for t in before]
+    fn()
+    with torch.no_grad():
+        known = {id(t) for t in before}
+        for t, s in zip(before, saved):
+            t.copy_(s)
+        for t in state():
+            if id(t) not in known:
+                t.zero_()

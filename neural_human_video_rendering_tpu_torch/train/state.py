@@ -48,6 +48,10 @@ class TrainState:
     pool_buf: Optional[torch.Tensor] = None
     pool_n: Optional[torch.Tensor] = None
     pool_gen: Optional[torch.Generator] = None
+    # the step count on the device (() int64, the EMA's decay reads it
+    # there) and the host step it was last set to or advanced to
+    step_t: Optional[torch.Tensor] = None
+    step_t_at: int = -1
 
     @property
     def device(self) -> torch.device:
@@ -94,12 +98,28 @@ class ScheduledAdam(torch.optim.Adam):
     (or fast-forwards to the saved step: utils/checkpoint), so it is the
     train state's step. ``scheduled`` says whether the JAX package's
     optimizer of the same flags holds a schedule state (the LR decays);
-    a resume from a JAX run reads optax's layout by it."""
+    a resume from a JAX run reads optax's layout by it.
+
+    On the card the update can be captured in a CUDA graph: Adam runs
+    ``capturable`` (its step counts on the device) with the learning rate
+    a device tensor that ``prepare`` fills from the schedule before each
+    update. ``step()`` is ``prepare(); update(); advance()``: a captured
+    step runs ``update`` in the graph and the other two on the host
+    around each replay (the freeze's Python branch is part of the graph's
+    signature: ``freezing``). On the CPU the learning rate stays a number
+    and Adam runs as torch runs it by default."""
 
     def __init__(self, params, lr: float, betas, schedule: Callable,
                  frozen=(), frozen_steps: int = 0, scheduled: bool = False):
-        super().__init__(params, lr=lr, betas=betas, eps=1e-8)
+        params = list(params)
+        card = next((p.device for p in params if p.is_cuda), None)
+        self.lr_t = (None if card is None else
+                     torch.full((), float(lr), dtype=torch.float32,
+                                device=card))
+        super().__init__(params, lr=lr if card is None else self.lr_t,
+                         betas=betas, eps=1e-8, capturable=card is not None)
         self.base_lr = lr
+        self.lr_now = float(lr)
         self.schedule = schedule
         self.scheduled = scheduled
         self.count = 0
@@ -107,24 +127,51 @@ class ScheduledAdam(torch.optim.Adam):
         self.frozen = list(frozen)
         self.frozen_steps = frozen_steps
 
-    def step(self, closure=None):
-        for group in self.param_groups:
-            group["lr"] = self.base_lr * self.schedule(self.count)
-        if self.freeze_count < self.frozen_steps:
+    @property
+    def freezing(self) -> bool:
+        return self.freeze_count < self.frozen_steps
+
+    def prepare(self) -> None:
+        """The learning rate of this update from the schedule (on the card:
+        the device tensor filled where the value changes)."""
+        lr = self.base_lr * self.schedule(self.count)
+        if self.lr_t is None:
+            for group in self.param_groups:
+                group["lr"] = lr
+        elif lr != self.lr_now:
+            self.lr_t.fill_(lr)
+        self.lr_now = lr
+
+    def update(self) -> None:
+        """The frozen gradients zeroed (while freezing), then Adam: no
+        Python state changes."""
+        if self.freezing:
             for p in self.frozen:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 else:
                     p.grad.zero_()
-        loss = super().step(closure)
+        super().step()
+
+    def advance(self) -> None:
         self.count += 1
         self.freeze_count += 1
-        return loss
+
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ScheduledAdam.step takes no closure")
+        self.prepare()
+        self.update()
+        self.advance()
 
     def state_dict(self):
         """torch's Adam state plus the update counts the schedule and the
-        freeze read."""
+        freeze read; the learning rate a number and capturable off, as a
+        CPU optimizer saves them (a device run's file loads anywhere)."""
         sd = super().state_dict()
+        for group in sd["param_groups"]:
+            group["lr"] = float(self.lr_now)
+            group["capturable"] = False
         sd["count"] = self.count
         sd["freeze_count"] = self.freeze_count
         return sd
@@ -133,9 +180,18 @@ class ScheduledAdam(torch.optim.Adam):
         state_dict = dict(state_dict)
         count = int(state_dict.pop("count", 0))
         freeze_count = int(state_dict.pop("freeze_count", count))
+        # this optimizer's own device settings (the step counts on the
+        # card when capturable), whatever the file's optimizer ran with
+        state_dict["param_groups"] = [
+            dict(g, capturable=self.lr_t is not None)
+            for g in state_dict["param_groups"]]
         super().load_state_dict(state_dict)
+        if self.lr_t is not None:
+            for group in self.param_groups:
+                group["lr"] = self.lr_t
         self.count = count
         self.freeze_count = freeze_count
+        self.lr_now = float("nan")       # prepare() sets it anew
 
 
 FREEZE_SCOPE = "global_trunk"

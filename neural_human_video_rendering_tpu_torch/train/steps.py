@@ -9,6 +9,7 @@ and texture pretrain steps (``make_pretrain_uv_step``,
 from __future__ import annotations
 
 import functools
+import sys
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -16,9 +17,11 @@ import torch
 
 from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
-from ..data.wire import unpack_batch
-from ..parallel.mesh import DataParallel
+from ..data.wire import dequantize, host_tensors, unpack_batch
+from ..parallel.mesh import DataParallel, optimizer_tensors
+from .graphs import Program
 from .image_pool import pool_draws, pool_update
+from .state import ScheduledAdam
 
 
 def build_pose_input(opt, joints: torch.Tensor,
@@ -77,6 +80,27 @@ def pose_from_batch(opt, b: Dict[str, torch.Tensor],
                             b.get("pose_img"))
 
 
+def _route(name: str, told: list, how: str) -> None:
+    """Print the route a closure takes, once."""
+    if not told:
+        told.append(how)
+        print(f"[{name}] {how}", file=sys.stderr, flush=True)
+
+
+def _module_device(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def _kind(program: Program) -> str:
+    return "stand-in" if program.stand_in else "CUDA graph"
+
+
+def _program(name: str, device: torch.device) -> Optional[Program]:
+    """The captured program of a closure on ``device``: on the card a CUDA
+    graph's, on the CPU none (the eager closure runs)."""
+    return Program(name, device) if device.type == "cuda" else None
+
+
 def make_forward_fn(opt, renderer, cluster_feats=None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Inference forward: (assets, joints[, laplace, pose_img, feat_image])
@@ -89,17 +113,21 @@ def make_forward_fn(opt, renderer, cluster_feats=None
     (B, 3, S, S), a real frame, is encoded as the train step encodes it
     (held-out eval); else cluster_feats (P+1, feat_num), the codes of
     --load_features; else zero codes.
+
+    On the card the forward is a captured program (``train/graphs.py``,
+    the counterpart of the JAX package's ``jax.jit(fwd)``): one CUDA graph
+    per (batch shape, inputs present), the assets held by the graph as
+    the closure's constants (other asset tensors drop the captures and
+    capture anew), the batch's inputs copied into static buffers, the
+    outputs cloned. On the CPU it runs eagerly. ``fwd.eager`` is the
+    eager forward on any device (the graph's plain version).
     """
+    dev = _module_device(renderer)
     codes = None
     if renderer.use_feat and cluster_feats is not None:
-        codes = torch.as_tensor(np.asarray(cluster_feats, np.float32))
+        codes = torch.as_tensor(np.asarray(cluster_feats, np.float32)).to(dev)
 
-    @torch.inference_mode()
-    def fwd(assets: Tuple[torch.Tensor, torch.Tensor, object],
-            joints: torch.Tensor, laplace: Optional[torch.Tensor] = None,
-            pose_img: Optional[torch.Tensor] = None,
-            feat_image: Optional[torch.Tensor] = None
-            ) -> Dict[str, torch.Tensor]:
+    def eager(assets, joints, laplace=None, pose_img=None, feat_image=None):
         static_tex, bg, tex_mask = assets
         pose = build_pose_input(opt, joints, laplace, pose_img)
         kw = {}
@@ -109,21 +137,80 @@ def make_forward_fn(opt, renderer, cluster_feats=None
             kw["cluster_feats"] = codes
         return renderer(pose, bg[None], static_tex[None], tex_mask, **kw)
 
+    program = _program("forward", dev)
+    told: list = []
+    held = [None]
+
+    @torch.inference_mode()
+    def fwd(assets: Tuple[torch.Tensor, torch.Tensor, object],
+            joints: torch.Tensor, laplace: Optional[torch.Tensor] = None,
+            pose_img: Optional[torch.Tensor] = None,
+            feat_image: Optional[torch.Tensor] = None
+            ) -> Dict[str, torch.Tensor]:
+        if program is None:
+            _route("forward", told, f"eager ({dev.type})")
+            return eager(assets, joints, laplace, pose_img, feat_image)
+        assets = tuple(assets)
+        ids = tuple(id(a) for a in assets)
+        if held[0] != ids:
+            program.clear()
+            held[0] = ids
+        inputs = {k: v for k, v in (
+            ("joints", joints), ("laplace", laplace), ("pose_img", pose_img),
+            ("feat_image", feat_image)) if v is not None}
+        out = program(ids, inputs, lambda st: lambda: eager(
+            assets, st["joints"], st.get("laplace"), st.get("pose_img"),
+            st.get("feat_image")),
+            state=lambda: list(renderer.buffers()), keep=assets)
+        _route("forward", told, f"graphed ({_kind(program)}, "
+               f"{program.captures} capture"
+               f"{'s' if program.captures > 1 else ''})")
+        return out
+
+    fwd.program = program
+    fwd.eager = torch.inference_mode()(eager)
     return fwd
+
+
+def ema_decay(step, decay: float):
+    """The effective decay min(decay, (1 + t) / (10 + t)), t = step + 1, in
+    float32: a numpy float32 for a Python step, a () float32 tensor on the
+    step's device for a tensor step (the same IEEE float32 operations, so
+    the same bits)."""
+    if torch.is_tensor(step):
+        t = (step + 1).to(torch.float32)
+        return torch.clamp((1.0 + t) / (10.0 + t),
+                           max=float(np.float32(decay)))
+    t = np.float32(step + 1)
+    return min(np.float32(decay),
+               (np.float32(1.0) + t) / (np.float32(10.0) + t))
 
 
 @torch.no_grad()
 def ema_blend(g_ema: Dict[str, torch.Tensor], renderer: torch.nn.Module,
-              step: int, decay: float) -> None:
+              step, decay: float) -> None:
     """Horizon-warmup EMA update of g_ema, in place: the effective decay
-    min(decay, (1 + t) / (10 + t)) with t = step + 1, where ``step`` is the
-    step count BEFORE this update (the JAX package's state.step); float32
-    as there."""
-    t = np.float32(step + 1)
-    d = float(min(np.float32(decay), (np.float32(1.0) + t) / (np.float32(10.0) + t)))
+    ``ema_decay(step, decay)``, where ``step`` is the step count BEFORE
+    this update (the JAX package's state.step): a Python number, or the
+    train state's step counter (``step_t``; on the card the captured step
+    reads it there, on the CPU its value is the number); float32 as
+    there."""
     e = [g_ema[k] for k, _ in renderer.named_parameters()]
     p = [v.detach() for _, v in renderer.named_parameters()]
-    torch._foreach_mul_(e, d)
+    d = ema_decay(step, decay)
+    if torch.is_tensor(d) and d.is_cuda:
+        # a captured step reads d on the device, and add's alpha must be a
+        # host number: e * d, then + p * (1 - d), the product rounded
+        # before the sum. On the CPU the step is a host number and the
+        # update keeps add's alpha form (e * d + (1 - d) * p, fused where
+        # the CPU fuses it), the arithmetic the CPU tests (the JAX parity
+        # cases, the data-parallel evaluation's 1e-6 bound) were set on;
+        # the two differ by one rounding an element.
+        torch._foreach_mul_(e, d)
+        torch._foreach_add_(e, torch._foreach_mul(p, 1.0 - d))
+        return
+    d = np.float32(d.item() if torch.is_tensor(d) else d)
+    torch._foreach_mul_(e, float(d))
     torch._foreach_add_(e, p, alpha=float(np.float32(1.0) - np.float32(d)))
 
 
@@ -188,6 +275,21 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     then takes its own rows), and the returned metrics are the ranks'
     mean: the global batch's losses, as the JAX step computes them on a
     mesh.
+
+    On the card the step is a captured program (``train/graphs.py``, the
+    counterpart of the JAX package's ``jax.jit(step, donate_argnums=(0,))``):
+    one CUDA graph chain per (batch signature, freeze state), the state's
+    tensors updated in place by every replay. What the eager step reads
+    on the host each step lives on the device or around the replay: the
+    EMA's decay comes from the device step counter ``state.step_t``; Adam
+    runs capturable with a device learning rate that ``ScheduledAdam``
+    fills from its schedule before the replay; the pool's draws come from
+    the state's generator before the replay, into static buffers; the
+    --niter_fix_global freeze is a Python branch, so the freeze boundary
+    captures a second graph. The data-parallel collectives are host
+    points between the graphs (gloo cannot be captured). A call with
+    ``mark`` runs the eager step (the caller asked for per-phase times),
+    and so does every call on the CPU; the same code runs either way.
     """
     dp, count = _parallel(dp)
     use_temporal = opt.lambda_Temp > 0
@@ -198,13 +300,52 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     detach_prev = use_temporal and opt.temporal_detach_prev and not real_prev
     symmetric = use_temporal and not detach_prev and not real_prev
     use_feat = opt.instance_feat or opt.label_feat
+    scheduled = [o for o in (g_opt, d_opt) if isinstance(o, ScheduledAdam)]
+    dev = _module_device(renderer)
+    program = _program("step", dev)
+    told: Dict[str, list] = {"eager": [], "graphed": []}
+    held = [None]
 
     def no_mark(name):
         pass
 
-    def step(state, batch, mark: Optional[Callable[[str], None]] = None):
-        mark = mark or no_mark
-        batch = unpack_batch(batch, state.static_tex.device)
+    def prepare(state, batch) -> Dict[str, torch.Tensor]:
+        """The host's part ahead of the device work: the learning rates,
+        the device step counter, the pool's draws (returned as inputs)."""
+        for o in scheduled:
+            o.prepare()
+        if state.step_t is None:
+            state.step_t = torch.zeros((), dtype=torch.int64,
+                                       device=state.device)
+        if state.step_t_at != state.step:
+            state.step_t.fill_(state.step)
+            state.step_t_at = state.step
+        if opt.pool_size <= 0:
+            return {}
+        rows = len(batch["joints"]) * (dp.world if dp.parallel else 1)
+        uni, perm, coin = pool_draws(state.pool_gen, rows, opt.pool_size)
+        draws = {"pool_uni": uni, "pool_coin": coin}
+        if perm is not None:
+            draws["pool_perm"] = perm
+        return draws
+
+    def finish(state) -> None:
+        for o in scheduled:
+            o.advance()
+        state.step += 1
+        state.step_t_at = state.step
+
+    def update(o) -> None:
+        if isinstance(o, ScheduledAdam):
+            o.update()
+        else:
+            o.step()
+
+    def body(state, raw: Dict[str, torch.Tensor], mark=no_mark):
+        """The device work of one step: from the uploaded wire batch and
+        the pool's draws to the metrics."""
+        batch = dequantize({k: v for k, v in raw.items()
+                            if not k.startswith("pool_")})
         pose = pose_from_batch(opt, batch)
         B = pose.shape[0]
         real = batch["image"]
@@ -293,9 +434,10 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         d_in_fake = torch.cat([pose, fake.detach()], dim=1)
         if opt.pool_size > 0:
             fresh = dp.gather_rows(d_in_fake)
-            draws = pool_draws(state.pool_gen, fresh.shape[0], opt.pool_size)
-            pooled, state.pool_n = pool_update(
-                state.pool_buf, state.pool_n, fresh, draws)
+            draws = (raw["pool_uni"], raw.get("pool_perm"), raw["pool_coin"])
+            pooled, pool_n = pool_update(state.pool_buf, state.pool_n, fresh,
+                                         draws)
+            state.pool_n.copy_(pool_n)
             d_in_fake = pooled[dp.rows(pooled.shape[0])]
         d_real = disc(torch.cat([pose, real], dim=1))
         d_fake = disc(d_in_fake)
@@ -307,17 +449,59 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         mark("grad_all_reduce")
 
         # ---- both updates, then the EMA
-        g_opt.step()
-        d_opt.step()
+        update(g_opt)
+        update(d_opt)
         if opt.ema_decay > 0 and state.g_ema is not None:
-            ema_blend(state.g_ema, renderer, state.step, opt.ema_decay)
-        state.step += 1
+            ema_blend(state.g_ema, renderer, state.step_t, opt.ema_decay)
+        state.step_t.add_(1)
         mark("update")
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["G_total"] = g_total.detach()
         metrics["D_total"] = d_total.detach()
         return dp.all_reduce_metrics(metrics)
 
+    def state_tensors(state) -> list:
+        """Every tensor a step updates in place (the capture's warm-up
+        saves and restores them)."""
+        out = [t for m in (renderer, disc) for t in
+               (*m.parameters(), *m.buffers())]
+        out += optimizer_tensors(g_opt) + optimizer_tensors(d_opt)
+        if state.g_ema is not None:
+            out += list(state.g_ema.values())
+        if state.pool_buf is not None:
+            out += [state.pool_buf, state.pool_n]
+        return out + [state.step_t]
+
+    def step(state, batch, mark: Optional[Callable[[str], None]] = None):
+        draws = prepare(state, batch)
+        if program is None or mark is not None:
+            _route("step", told["eager"], "eager (" + (
+                "per-phase marks" if program is not None else dev.type) + ")")
+            raw = {k: v.to(state.device, non_blocking=True)
+                   for k, v in host_tensors(batch).items()}
+            metrics = body(state, {**raw, **draws}, mark or no_mark)
+        else:
+            # what the graphs address: a new state, optimizer state, EMA,
+            # pool or assets drops the captures and captures anew
+            keep = (state, g_opt.state, d_opt.state, state.g_ema,
+                    state.pool_buf, state.pool_n, state.static_tex,
+                    state.bg, state.tex_mask, state.step_t)
+            ids = tuple(id(x) for x in keep)
+            if held[0] != ids:
+                program.clear()
+                held[0] = ids
+            key = (ids, tuple(o.freezing for o in scheduled))
+            metrics = program(
+                key, {**host_tensors(batch), **draws},
+                lambda st: lambda: body(state, st),
+                state=lambda: state_tensors(state), keep=keep)
+            _route("step", told["graphed"], f"graphed ({_kind(program)}, "
+                   f"{program.captures} capture"
+                   f"{'s' if program.captures > 1 else ''})")
+        finish(state)
+        return metrics
+
+    step.program = program
     return step
 
 

@@ -971,3 +971,140 @@ def test_native_batcher_on_the_card_host_matches_plain(cuda, tmp_path):
         want = nl.decode_image_plain(pixels, 512, mode)
         for item in got:
             np.testing.assert_array_equal(item, want)
+
+
+def test_graphed_step_matches_eager_on_the_card(cuda, capsys):
+    """make_train_step's graphed route (train/graphs.py) against its eager
+    route (a call with a mark) from one tiny state, cuDNN deterministic.
+    One SGD(1) step: the losses within 1e-5 relative and the changes of
+    G, D and the EMA (the gradients) within the parity tests' form (1e-5
+    of the largest change + 1e-4 of each tensor's). Then 4 steps with the
+    state's own Adam, the EMA and the pool: step 1's losses within 1e-5,
+    every graphed update (Adam, the EMA) equal to the eager update on the
+    graph's own gradients (two runs' gradients differ in the last bits:
+    texture_warp_bwd's float atomics, which Adam turns into different
+    steps), the pool's count and generator equal, each replay counting
+    the eager step's launches, one capture a batch shape."""
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.kernel_ab import \
+        graphed_update_err
+    from neural_human_video_rendering_tpu_torch.parallel.selfcheck import \
+        delta_ratio
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    opt = TrainOptions().parse(_TINY_TRAIN + ["--batchSize", "2",
+                                              "--pool_size", "4"], save=False)
+    syn = dsm.SyntheticDataset(opt, length=9, seed=opt.seed)
+    batches = [pack_batch(dsm.collate([syn[2 * i], syn[2 * i + 1]]))
+               for i in range(4)]
+
+    def state(start=None):
+        st = create_train_state(opt, syn.texture_atlas(), syn.background(),
+                                device=cuda)
+        if start is not None:
+            st.renderer.load_state_dict(start["G"])
+            st.disc.load_state_dict(start["D"])
+            st.g_ema = {k: v.clone() for k, v in start["EMA"].items()}
+            st.pool_gen.set_state(start["gen"])
+        return st
+
+    def snap(st):
+        return {"G": {k: v.clone() for k, v in st.renderer.state_dict().items()},
+                "D": {k: v.clone() for k, v in st.disc.state_dict().items()},
+                "EMA": {k: v.clone() for k, v in st.g_ema.items()},
+                "gen": st.pool_gen.get_state()}
+
+    eager_kw = {"mark": lambda n: None}
+    try:
+        # one SGD(1) step each route: the gradients
+        sgd, start = {}, None
+        for name in ("eager", "graphed"):
+            st = state(start)
+            start = start or snap(st)
+            step = make_train_step(
+                opt, st.renderer, st.disc, None,
+                torch.optim.SGD(st.renderer.parameters(), lr=1.0),
+                torch.optim.SGD(st.disc.parameters(), lr=1.0))
+            m = step(st, batches[0], **({} if name == "graphed" else eager_kw))
+            sgd[name] = ({k: float(v) for k, v in m.items()}, snap(st))
+        for k, v in sgd["eager"][0].items():
+            assert abs(sgd["graphed"][0][k] - v) <= 1e-5 * max(abs(v), 1e-12)
+        for tag in ("G", "D", "EMA"):
+            got, want = sgd["graphed"][1][tag], sgd["eager"][1][tag]
+            r = delta_ratio({k: (v - start[tag][k]).cpu() for k, v in got.items()},
+                            {k: (v - start[tag][k]).cpu() for k, v in want.items()},
+                            1e-5, 1e-4)
+            assert r["ratio"] <= 1.0, (tag, r)
+        # the state's Adam, the EMA and the pool: 4 steps each route
+        runs, states = {}, {}
+        for name in ("eager", "graphed"):
+            st = state(start)
+            step = make_train_step(opt, st.renderer, st.disc, None,
+                                   st.g_opt, st.d_opt)
+            tk.reset_launch_counts()
+            fk.reset_launch_counts()
+            losses, errs = [], []
+            for b in batches:
+                if name == "graphed":
+                    m, err = graphed_update_err(torch, st, step, b,
+                                                opt.ema_decay)
+                    errs.append(err)
+                else:
+                    m = step(st, b, **eager_kw)
+                losses.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs[name] = (losses, errs, _launches(),
+                          fk.flow_warp_fwd.launches)
+            states[name] = (st, step)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (e, _), (g, gstep) = states["eager"], states["graphed"]
+    assert gstep.program.captures == 1
+    assert "[step] graphed (CUDA graph" in capsys.readouterr().err
+    assert runs["graphed"][2:] == runs["eager"][2:] == ((0, 0, 4, 4), 4)
+    assert runs["graphed"][1] == [0.0] * 4, runs["graphed"][1]
+    first_e, first_g = runs["eager"][0][0], runs["graphed"][0][0]
+    assert sorted(first_e) == sorted(first_g)
+    for k, v in first_e.items():
+        assert abs(first_g[k] - v) <= 1e-5 * max(abs(v), 1e-12), k
+    assert int(e.pool_n) == int(g.pool_n) == 4
+    assert torch.equal(e.pool_gen.get_state(), g.pool_gen.get_state())
+    assert e.step == g.step == int(g.step_t) == 4
+
+
+def test_graphed_forward_matches_eager_on_the_card(cuda):
+    """make_forward_fn's graphed route against its eager forward at a tiny
+    config: the frames bit for bit at batch 3, then at batch 1 (its own
+    capture) and batch 3 again (a replay); one fused launch a replay."""
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_forward_fn
+    opt = TestOptions().parse(_TINY_TRAIN, save=False)
+    syn = dsm.SyntheticDataset(opt, length=3, seed=1)
+    renderer = init_params(renderer_from_options(opt), 0).to(cuda).eval()
+    fwd = make_forward_fn(opt, renderer)
+    assets = (torch.from_numpy(np.ascontiguousarray(
+        syn.texture_atlas().transpose(0, 3, 1, 2))).to(cuda),
+        torch.from_numpy(np.ascontiguousarray(
+            syn.background().transpose(2, 0, 1))).to(cuda), None)
+    j3 = torch.from_numpy(np.stack([syn[i]["joints"] for i in range(3)]))
+    for joints in (j3, j3[:1], j3.to(cuda)):
+        want = fwd.eager(assets, joints.to(cuda))
+        tk.reset_launch_counts()
+        got = fwd(assets, joints)
+        torch.cuda.synchronize()
+        assert _launches() == (0, 0, 1, 0)
+        for k in ("fake", "fg", "mask", "uv", "probs"):
+            assert torch.equal(got[k], want[k]), k
+    assert fwd.program.captures == 2

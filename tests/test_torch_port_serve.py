@@ -93,8 +93,8 @@ def test_serve_roundtrip(artifact, capsys):
                                    atol=1.5 / 127.5)
         both = _post(port, {"joints": joints.tolist()})
         assert both["frames"][1] == got["frames"][0]
-        # the handler records its PNG and JSON seconds after it has sent
-        # the answer: wait for its thread to do so
+        # the handler records its PNG and JSON seconds before it sends the
+        # answer (test_serve_timing_on_the_reply holds that without a wait)
         parts = {"forward_s", "transfer_s", "png_s", "json_s"}
         deadline = time.monotonic() + 30
         while set(httpd.model.timing) != parts and time.monotonic() < deadline:
@@ -106,6 +106,28 @@ def test_serve_roundtrip(artifact, capsys):
                 _post(port, bad)
             assert e.value.code == 400
             assert "error" in json.loads(e.value.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_serve_timing_on_the_reply(artifact):
+    """model.timing holds the whole split (forward, transfer, PNG and JSON
+    seconds) as soon as the answer is read: the handler records the two
+    encodes before it writes the body, so a reader needs no wait."""
+    path, joints, _ = artifact
+    httpd = srv.serve(path, port=0, device=torch.device("cpu"))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        parts = {"forward_s", "transfer_s", "png_s", "json_s"}
+        for n in (1, 2, 1):
+            got = _post(httpd.server_address[1],
+                        {"joints": joints[:n].tolist()})
+            timing = dict(httpd.model.timing)
+            assert len(got["frames"]) == n
+            assert set(timing) == parts, timing
+            assert all(v >= 0 for v in timing.values()), timing
     finally:
         httpd.shutdown()
         httpd.server_close()
