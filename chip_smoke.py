@@ -85,9 +85,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      backward, the flow warp) and per inference batch (the fused forward
      without w); the bilinear corpus oracle on the fused kernel (a 512 px
      frame of data/synthetic_video within 1e-5 of the warp of its own IUV);
-     make_demo_data at 512 px (16 frames bilinear, 8 with --corrupt 0.5)
+     make_demo_data at 512 px (8 frames bilinear, 8 with --corrupt 0.5)
      read back through FrameDataset; quality_run at FULL_FLAGS cut in depth
-     (16 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
+     (8 frames, 1 pre-epoch, 2 epochs), its val curve, served frames,
      parity JSON and stage 2's launches; evaluate on the card (identical
      dirs, and renders against the GT against the CPU: PSNR 1e-3 dB, SSIM
      1e-5, flicker 1e-5 relative, VGG distance and LPIPS 3e-2 relative);
@@ -122,9 +122,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      exported by export_serving at batch 8 with uint8 frames and the
      weights sidecar: the graph holds one nhvr_torch.texture_warp_topk_fwd
      node and no plain warp, the program is smaller than its sidecar; the
-     program served by serve.serve in process (a thread): /healthz, a
-     request of 8 and one of 1 each launching the fused forward once and
-     nothing else, the PNGs within 1 uint8 level of the live
+     program served (a CUDA graph) by serve.serve in process (a
+     thread): /healthz, a request of 8 and one of 1 each launching the
+     fused forward once and nothing else, the PNGs within 1 uint8 level of the live
      make_forward_fn forward; then by `python -m ...serve --port 0` as a
      fresh process, whose frames equal the in-process ones bit for bit;
      the --warp_block_parts 8 program with its weights baked in launches
@@ -151,15 +151,14 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      two ranks time-sharing cuda:0 through --gpu_ids 0,0 over gloo (NCCL
      refuses two ranks on one card): (a) the flagship widths in float32,
      SGD(1), one global batch of 2 on two ranks against the same two
-     ranks as threads of this process, each at its own shapes, both on
-     the eager route (graphed ranks overflow the shared card in cuDNN's
-     plan search: ROADMAP C15; phase 15 holds the graphs' gradients) (losses
-     1e-4 relative, the changes of G, D and the EMA within the parity
-     tests' form at 1e-5), the ranks' parameters, Adam moments and EMA
-     bit-equal
-     after 3 Adam steps; (b) run_train with the flagship recipe, 3 steps
-     on two ranks (loss keys, one metrics.jsonl writer, the checkpoints,
-     each rank's launches), resumed on one rank; (c) the same under
+     ranks as threads of this process, each at its own shapes, the ranks
+     graphed and the threads eager (two threads cannot capture at once)
+     (losses 1e-4 relative, the changes of G, D and the EMA within the
+     parity tests' form at 1e-5, each rank's num_ooms 0 and its peak
+     reserved printed), the ranks' parameters, Adam moments and EMA
+     bit-equal after 2 Adam steps; (b) run_train with the flagship
+     recipe, 3 steps on two ranks (loss keys, one metrics.jsonl writer,
+     the checkpoints, each rank's launches), resumed on one rank; (c) the same under
      torchrun at world 1 over NCCL; (d) run_inference of 16 frames at
      batch 8 on two ranks against one (1 uint8 level, each rank's fused
      forwards, one HTML); (e) profile_step at the flagship. parallel_path
@@ -206,19 +205,39 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      texture_warp_bwd's float atomics, amplified by Adam); (a3) step 1's
      gradients of G and D as the recipe trains (bf16, VGG, the pool),
      graphed against eager in phase 12's form at bf16's unit roundoff,
-     on 3 seeds' states and batches, beside a second eager run's (the
+     on 2 seeds' states and batches, beside a second eager run's (the
      floor); (b) 3 steps' launches each route, equal and the main
      path's; (e) a batch of 1 captures a second graph, and each capture's
      warm-up launched the step's kernels 3 times (kept out of the
      counters, printed). (c) Both routes at the
      recipe and at the bench's operating point, in this process: wall ms
-     a step (median of 20), device ms (profiler, CUDA events), the busy
+     a step (median of 10), device ms (profiler, CUDA events), the busy
      share, peak memory, capture seconds. (d) The graphed forward at
      batch 8 bit-equal to the eager forward, frames/s both ways, one
-     fused launch a batch (compiled_path has the details).
-The last lines are the kernels' JSON, the nvidia-smi line, and
-{"ok": true, "device": {...}}. Without a CUDA card, or without the
-package beside this script, it exits non-zero and prints no result.
+     fused launch a batch; (f) no capture caught an out-of-memory error
+     (compiled_path has the details).
+ 16. the compiled pretrains and server: make_pretrain_uv_step,
+     make_pretrain_tex_step and serve._Model capture CUDA graphs on the
+     card, so phases 7-13 run them. (a) Stage 1 at
+     launchers/pretrain_trans.sh's point (512 px, batch 6, the flagship's
+     TransG, bf16) and (b) the texture pretrain at
+     launchers/pretrain_tex.sh's (200 px, batch 2, TexG 64/2/5, the
+     LaplaceProj input, the texel mask), each route from one start with
+     cuDNN deterministic: one SGD(1) step in float32 (the losses within
+     1e-5 relative, the change in phase 12's form), then 3 Adam steps
+     (step 1's losses within 1e-5, every graphed update equal to the eager
+     update on its own gradients, the counts equal, one capture, no
+     kernel); (c) both routes timed in this process (step_times). (d)
+     Phase 11's two programs at batch 8 served by serve._Model graphed:
+     a request of 8 and of 1 bit-equal to the module's eager call, both
+     replaying the one capture, the fused forward once a request (top-k
+     and the forward with w given on the --warp_block_parts 8 program),
+     forward_s both ways. (e) No capture caught an out-of-memory error
+     (compiled_pretrain_path has the details).
+The last lines are the script's total and each phase's wall seconds,
+the kernels' JSON, the nvidia-smi line, and {"ok": true, "device":
+{...}}. Without a CUDA card, or without the package beside this script,
+it exits non-zero and prints no result.
 """
 
 import json
@@ -228,6 +247,8 @@ import shutil
 import subprocess
 import sys
 import time
+
+T0 = time.perf_counter()        # the script's start: its total wall time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -976,16 +997,10 @@ DANCE = "dance"
 
 def synthetic_laplace(torch, joints, size, channels):
     """(channels, size, size) float32 LaplaceProj stand-in in [-1, 1],
-    computed from a frame's joints: the limb-local channels at two
-    envelope widths and the joint heatmaps, cut to `channels`."""
-    from neural_human_video_rendering_tpu_torch.data.rasterize import (
-        joint_heatmaps, limb_coord_maps)
-    j = torch.from_numpy(joints[None].astype("float32"))
-    sig = size / 40.0
-    planes = torch.cat([limb_coord_maps(j, size, size, sigma=sig),
-                        limb_coord_maps(j, size, size, sigma=2 * sig),
-                        joint_heatmaps(j, size, size, sigma=sig) * 2 - 1], 1)
-    return planes[0, :channels].clamp(-1, 1).numpy()
+    computed from a frame's joints (profile_step.synthetic_laplace)."""
+    from neural_human_video_rendering_tpu_torch.profile_step import \
+        synthetic_laplace as laplace
+    return laplace(joints, size, channels)
 
 
 def write_launcher_corpus(root, n, size, tile=128):
@@ -1067,7 +1082,8 @@ def write_launcher_corpus(root, n, size, tile=128):
         save_image(os.path.join(p["LaplaceProj"], f"{name}.png"),
                    lap[:3].transpose(1, 2, 0))
         np.save(os.path.join(p["LaplaceProj78"], f"{name}.npy"),
-                lap.transpose(1, 2, 0).astype(np.float16))
+                torch.from_numpy(lap).permute(1, 2, 0).half().contiguous()
+                .numpy())      # numpy's strided float16 cast is ~10x slower
         skel = render_skeleton(torch.from_numpy(s["joints"][None]), size, size)
         save_image(os.path.join(p["openpose_img"], f"{name}.png"),
                    skel[0].permute(1, 2, 0).numpy())
@@ -1686,7 +1702,7 @@ def launchers_path(torch, smoke, tk, fk, repo, dev, smi):
     return launches["train_e2e"]
 
 
-QUALITY_FRAMES = 12
+QUALITY_FRAMES = 8
 CORRUPT_FRAMES = 8
 # the oracle's bound: the JAX package's (tests/test_synthetic_video.py)
 ORACLE_TOL = 1e-5
@@ -1720,12 +1736,13 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
     fused forward's two modes told apart by its wrapper's counters); (c) the bilinear corpus oracle on the fused kernel: a 512 px
     frame of data/synthetic_video rendered by texture_warp_planes on the
     card from its own IUV, atlas and bg, within 1e-5; (d) make_demo_data
-    at 512 px (16 frames bilinear; 8 frames with --corrupt 0.5), read back
-    through FrameDataset; (e) quality_run at FULL_FLAGS, cut in depth only
-    (16 frames, 1 pre-epoch, 2 epochs): its val curve, the served frames,
-    the parity JSON, and stage 2's launches from its log; (f) evaluate on
-    the card: identical dirs score perfectly, and the renders against the
-    GT agree with the same command on the CPU. Returns the launches per
+    at 512 px (QUALITY_FRAMES frames bilinear; 8 frames with --corrupt
+    0.5), read back through FrameDataset; (e) quality_run at FULL_FLAGS,
+    cut in depth only (QUALITY_FRAMES frames, 1 pre-epoch, 2 epochs): its
+    val curve, the served frames, the parity JSON, and stage 2's
+    launches from its log; (f) evaluate on the card: identical dirs score
+    perfectly, and the renders against the GT agree with the same command
+    on the CPU. Returns the launches per
     bench step and per inference batch."""
     import math
     import numpy as np
@@ -2612,7 +2629,8 @@ def bench_serve_path(smoke, repo, model, opt, gpu, joints, served, smi):
 def export_path(torch, smoke, tk, fk, repo, dev, smi):
     """Phase 11(a): the flagship exported at batch 8 (uint8, sidecar),
     served in process and by a fresh server process; the --warp_block_parts
-    program with its weights baked in, called once."""
+    program with its weights baked in, saved, loaded and called once. Both
+    program files stay for phase 16 (``programs``)."""
     import threading
 
     import numpy as np
@@ -2775,8 +2793,11 @@ def export_path(torch, smoke, tk, fk, repo, dev, smi):
     # then the forward with w given
     opt_bp = TestOptions().parse(flags + ["--warp_block_parts", "8"],
                                  save=False)
-    exported, ej, _ = es.build_exported(opt_bp, B, bake_weights=True,
-                                        out_uint8=True, device=dev)
+    model_bp = os.path.join(work, "flagship_bp.pt2")
+    es.save_artifact(opt_bp, B, model_bp, bake_weights=True, out_uint8=True,
+                     device=dev)
+    exported = torch.export.load(model_bp)
+    ej = torch.from_numpy(joints).to(dev)
     warp = sorted(str(n.target) for n in exported.graph.nodes
                   if "nhvr_torch" in str(n.target))
     smoke.require("block_parts program: topk_select and texture_warp_fwd "
@@ -2797,11 +2818,12 @@ def export_path(torch, smoke, tk, fk, repo, dev, smi):
                   frames_bp.dtype == torch.uint8
                   and float(frames_bp.float().std()) > 1.0)
     del exported, module, frames_bp
-    for f in (model, model + es.SIDECAR):
-        os.remove(f)
     torch.cuda.empty_cache()
     numbers["launches"] = {"request_8": launches[B], "request_1": launches[1],
                            "block_parts_batch": bp_launches}
+    # phase 16 serves both programs graphed, then removes them
+    numbers["programs"] = {"sidecar": model, "block_parts_baked": model_bp,
+                           "files": [model, model + es.SIDECAR, model_bp]}
     return numbers
 
 
@@ -2985,7 +3007,7 @@ def serving_path(torch, smoke, tk, fk, repo, dev, smi):
 
 
 # phase 12: data parallel over ranks (two ranks share the one card)
-PAR_ADAM = 3              # (a): Adam steps before the ranks' checksums
+PAR_ADAM = 2              # (a): Adam steps before the ranks' checksums
 PAR_FRAMES = 6            # (b): 3 steps an epoch at global batch 2
 PAR_NCCL_FRAMES = 6       # (c): 3 steps
 PAR_INFER = 16            # (d): two batches of 8
@@ -3052,9 +3074,10 @@ def parallel_parity(torch, smoke, work, dev):
     batch of 2: two ranks of one sample over gloo against the same two
     ranks run as threads of this process (selfcheck.thread_ranks: each
     rank's own shapes, so only the order of the final gradient sums
-    differs), both on make_train_step's eager route (ROADMAP C15), at
-    the parity tests' form (PAR_SCALE_TOL); then the ranks' parameters, Adam moments and
-    EMA bit-equal after PAR_ADAM Adam steps."""
+    differs), the ranks on make_train_step's graphed route and the threads
+    eager, at the parity tests' form (PAR_SCALE_TOL), each rank with no
+    caught out-of-memory error; then the ranks' parameters, Adam moments
+    and EMA bit-equal after PAR_ADAM Adam steps."""
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
     from neural_human_video_rendering_tpu_torch.data import dataset as dsm
     from neural_human_video_rendering_tpu_torch.parallel import selfcheck as sc
@@ -3068,15 +3091,23 @@ def parallel_parity(torch, smoke, work, dev):
     sc.thread_ranks(o2, batch, atlas, syn.background(), one_dir, PAR_ADAM,
                     2, dev)
     torch.cuda.empty_cache()
-    # the ranks take the eager route, as the threads must: two graphed
-    # ranks of the flagship on one card overflow its memory in cuDNN's
-    # plan search, whose caught out-of-memory errors pick other
-    # algorithms (ROADMAP C15; the ranks' allocator records are printed)
+    # the ranks take the route trainers run (a CUDA graph each); the
+    # threads stay eager (two threads cannot capture at once)
     _, out_a = fd_captured(launch, sc.rank_step, o2, batch, atlas,
                            syn.background(), two_dir, PAR_ADAM, where=work,
-                           batch=o2.batchSize, eager=True)
+                           batch=o2.batchSize)
     got = sc.compare(one_dir, two_dir, PAR_SCALE_TOL, PAR_TENSOR_TOL)
     print(f"[parallel] (a) {json.dumps(got)}", flush=True)
+    for r, alloc in enumerate(got["allocator"]):
+        alloc = alloc or {"num_ooms": None, "max_reserved_bytes": 0,
+                          "capture": None}       # None: not on a card
+        cap = alloc["capture"] or {}
+        print(f"[parallel] (a) rank {r}: num_ooms {alloc['num_ooms']} "
+              f"(capture {cap.get('num_ooms')}), peak reserved "
+              f"{alloc['max_reserved_bytes'] / 1e9:.2f} GB", flush=True)
+        smoke.require(f"(a) rank {r} graphed, no caught out-of-memory error",
+                      alloc["capture"] is not None
+                      and alloc["num_ooms"] == 0, json.dumps(alloc))
     smoke.require("(a) two ranks on cuda:0 over gloo",
                   "rank 1 of 2 on cuda:0 (gloo)" in out_a
                   and "NCCL refuses" in out_a)
@@ -3100,7 +3131,7 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     two processes time-sharing one card: no scaling number.
       (a) parallel_parity: two ranks of one sample against the same two
           ranks run as threads of this process, then the ranks bit-equal
-          after 3 Adam steps;
+          after PAR_ADAM Adam steps;
       (b) the flagship recipe (bf16) through run_train on a corpus of 6
           frames, 3 steps on two ranks: the loss keys, finite losses, one
           metrics.jsonl writer, the epoch's checkpoints, each rank's
@@ -3819,10 +3850,10 @@ def native_data_path(torch, smoke, tk, fk, repo, dev, smi):
 
 
 COMPILED_STEPS = 5           # (a): steps eager and graphed
-COMPILED_TIMED = 20          # (c): timed steps a route (after 3 warm-ups)
+COMPILED_TIMED = 10          # (c): timed steps a route (after 3 warm-ups)
 COMPILED_FWD_ITERS = 20      # (d): timed forwards a route
 COMPILED_LOSS_RTOL = 1e-5    # (a): each step's losses graphed vs eager
-COMPILED_GRAD_SEEDS = 3      # (a3): states and batches
+COMPILED_GRAD_SEEDS = 2      # (a3): states and batches
 # (a3): the bf16 recipe's step-1 gradients graphed vs eager, phase 12's
 # form (scale_tol * the module's largest gradient + tensor_tol * the
 # tensor's) at bf16's unit roundoff
@@ -3834,8 +3865,9 @@ def step_times(torch, smi, step, state, batch, eager, tag):
     clock to a synchronise, median of COMPILED_TIMED after 3 warm-ups,
     a capture included in the first), device ms a step (the profiler's
     kernel time, and CUDA events around a step), the busy share, peak
-    memory over the warm-ups and the timed steps, and the capture
-    seconds."""
+    memory over the warm-ups and the timed steps (allocated above the
+    state, and reserved), the capture seconds and the captures' caught
+    out-of-memory errors."""
     import statistics
     from neural_human_video_rendering_tpu_torch.kernel_ab import wall_ms
     kw = {"mark": lambda name: None} if eager else {}
@@ -3864,6 +3896,9 @@ def step_times(torch, smi, step, state, batch, eager, tag):
            "peak_mem_bytes_above_state": peak,
            "capture_s": (list(prog.capture_s) if prog is not None
                          and not eager else None),
+           "num_ooms": (prog.num_ooms if prog is not None and not eager
+                        else None),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
            "port_kernels_ms": trace["port_kernels_ms_per_call"],
            "card": smi}
     print(f"[compiled] (c) {tag} {json.dumps(out)}", flush=True)
@@ -3943,6 +3978,7 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         True, False
     sgd, start = {}, None
+    ooms = {}               # (f): each capture's caught out-of-memory errors
     for name in ("eager", "graphed"):
         st = create_train_state(o32, atlas, bg, device=dev)
         if start is None:
@@ -3957,6 +3993,7 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
         sgd[name] = {"losses": {k: float(v) for k, v in
                                 step(st, batches[0], **kw).items()},
                      "end": snapshot(st)}
+        ooms["(a1)"] = step.program.num_ooms
         del st, step
         torch.cuda.empty_cache()
     ratios = {m: delta_ratio(moved(sgd["graphed"], start, m),
@@ -4048,6 +4085,7 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
             step(st, b, **({} if name == "graphed"
                            else {"mark": lambda n: None}))
             by_seed[seed][name] = grads(st)
+            ooms[f"(a3) seed {seed} {name}"] = step.program.num_ooms
             del step
         del st
         torch.cuda.empty_cache()
@@ -4142,6 +4180,7 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
         np.isfinite(float(v)) for v in metrics.values()))
     out["e"] = {"captures": caps, "warmup_launches": warm,
                 "capture_s": list(graphed_step.program.capture_s)}
+    ooms["(a2), (b), (e)"] = graphed_step.program.num_ooms
     del graphed_state, graphed_step
     torch.cuda.empty_cache()
 
@@ -4163,6 +4202,8 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
                                    st.d_opt)
             res["eager" if eager else "graphed"] = step_times(
                 torch, smi, step, st, b, eager, tag)
+            if not eager:
+                ooms[f"(c) {tag}"] = step.program.num_ooms
             del step
         res["wall_ratio_graphed_over_eager"] = (
             res["graphed"]["wall_ms_median"] / res["eager"]["wall_ms_median"])
@@ -4213,10 +4254,275 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
                       json.dumps(counts))
     print(f"[compiled] (d) {json.dumps(fps)}", flush=True)
     out["d"] = {"max_abs": diffs, **fps}
+    ooms["(d)"] = fwd.program.num_ooms
+    print(f"[compiled] (f) caught out-of-memory errors by capture "
+          f"{json.dumps(ooms)}", flush=True)
+    smoke.require("(f) no capture of phase 15 caught an out-of-memory "
+                  "error", all(v == 0 for v in ooms.values()),
+                  json.dumps(ooms))
+    out["f"] = ooms
     del fwd, renderer
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t_phase
     print(f"[compiled] phase 15 {out['s']:.1f} s", flush=True)
+    return out
+
+
+# phase 16: the compiled pretrains and server
+PRE_STEPS = 3             # (a2), (b2): Adam steps a route
+PRE_UV = ["--batchSize", "6"]          # launchers/pretrain_trans.sh's batch
+# launchers/pretrain_tex.sh's point: 200 px, batch 2, TexG 64/2/5 over the
+# LaplaceProj input (--input_nc 81), the texel mask
+PRE_TEX = ("--loadSize 200 --batchSize 2 --ngf_global 64 "
+           "--n_downsample_global 2 --n_blocks_global 5 --use_mask_texture "
+           "--use_laplace --input_nc 81").split()
+SERVE_GRAPH_REQUESTS = 10  # (d): requests of 8 a route, timed
+
+
+def pretrain_parity(torch, smoke, tk, fk, kind, base, dev, smi):
+    """Phase 16 (a) / (b) for one pretrain step, each route from one
+    start with cuDNN's deterministic algorithms: (1) one SGD(1) step in
+    float32, the losses within COMPILED_LOSS_RTOL and the net's change
+    (its gradient) in phase 12's form; (2) PRE_STEPS steps of the run's
+    ScheduledAdam at the flags' dtype: step 1's losses within
+    COMPILED_LOSS_RTOL, every graphed update equal to the eager update on
+    the graph's own gradients (graphed_update_err), the step, update and
+    freeze counts equal, one capture, no kernel launched; then (c) both
+    routes timed (step_times) in this process."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.kernel_ab import \
+        graphed_update_err
+    from neural_human_video_rendering_tpu_torch.parallel.selfcheck import \
+        delta_ratio
+    from neural_human_video_rendering_tpu_torch.profile_step import \
+        pretrain_case
+    from neural_human_video_rendering_tpu_torch.train.state import (
+        PretrainState, make_optimizer)
+    tag = {"uv": "(a)", "tex": "(b)"}[kind]
+    eager_kw = {"mark": lambda n: None}
+    out = {}
+
+    def cpu(sd):
+        return {k: v.detach().float().cpu().clone() for k, v in sd.items()}
+
+    # ---- (1) the gradient: one SGD(1) step each route, float32
+    o32 = TrainOptions().parse(base + ["--dtype", "float32"], save=False)
+    net, make, batches = pretrain_case(o32, kind, dev, 1)
+    start = cpu(net.state_dict())
+    sgd = {}
+    for name in ("eager", "graphed"):
+        net.load_state_dict(start)
+        o = torch.optim.SGD(net.parameters(), lr=1.0)
+        st = PretrainState(step=0, net=net, optimizer=o, device=dev)
+        step = make(net, o)
+        m = step(st, batches[0], **({} if name == "graphed" else eager_kw))
+        end = cpu(net.state_dict())
+        sgd[name] = ({k: float(v) for k, v in m.items()},
+                     {k: v - start[k] for k, v in end.items()})
+        if name == "graphed":
+            out["sgd_capture"] = step.program.memory[-1]
+        del step, st, o
+        net.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    ratio = delta_ratio(sgd["graphed"][1], sgd["eager"][1], PAR_SCALE_TOL,
+                        PAR_TENSOR_TOL)
+    loss_rel = max(abs(sgd["graphed"][0][k] - v) / max(abs(v), 1e-12)
+                   for k, v in sgd["eager"][0].items())
+    print(f"[compiled16] {tag}1 {kind}: one SGD(1) step float32, graphed vs "
+          f"eager: losses max rel {loss_rel:.3e}, change (err/tol, phase "
+          f"12's form) {json.dumps(ratio)}", flush=True)
+    smoke.check(f"{tag}1 {kind}: the SGD step's losses graphed vs eager "
+                "(relative)", loss_rel, COMPILED_LOSS_RTOL)
+    smoke.check(f"{tag}1 {kind}: the change (gradient) graphed vs eager "
+                f"(err/tol, worst at {ratio['tensor']})", ratio["ratio"], 1.0)
+    out["a1"] = {"loss_max_rel": loss_rel, "ratio": ratio}
+    del net, make, batches, sgd, start
+    torch.cuda.empty_cache()
+
+    # ---- (2) the run's Adam, PRE_STEPS steps each route
+    o = TrainOptions().parse(base, save=False)
+    net, make, batches = pretrain_case(o, kind, dev, PRE_STEPS)
+    start = cpu(net.state_dict())
+    runs = {}
+    for name in ("eager", "graphed"):
+        net.load_state_dict(start)
+        st = PretrainState(step=0, net=net, device=dev,
+                           optimizer=make_optimizer(
+                               o, net.named_parameters(), len(batches)))
+        step = make(net, st.optimizer)
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        losses, errs = [], []
+        for b in batches:
+            if name == "graphed":
+                m, err = graphed_update_err(torch, st, step, b)
+                errs.append(err)
+            else:
+                m = step(st, b, **eager_kw)
+            losses.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        runs[name] = {"losses": losses, "update_err": errs,
+                      "launches": launch_counts(),
+                      "counts": (st.step, st.optimizer.count,
+                                 st.optimizer.freeze_count),
+                      "state": st, "step": step}
+    e, g = runs["eager"], runs["graphed"]
+    prog = g["step"].program
+    first = max(abs(g["losses"][0][k] - v) / max(abs(v), 1e-12)
+                for k, v in e["losses"][0].items())
+    print(f"[compiled16] {tag}2 {kind}: {PRE_STEPS} Adam steps ({o.dtype}): "
+          f"step-1 losses max rel {first:.3e}; the update on the graph's "
+          f"own gradients (max abs a step) {json.dumps(g['update_err'])}; "
+          f"losses eager {json.dumps(e['losses'])} graphed "
+          f"{json.dumps(g['losses'])}; capture {json.dumps(prog.memory)}",
+          flush=True)
+    smoke.check(f"{tag}2 {kind}: step 1's losses graphed vs eager "
+                "(relative)", first, COMPILED_LOSS_RTOL)
+    smoke.check(f"{tag}2 {kind}: every graphed update equals the eager "
+                "update on its gradients (max abs)", max(g["update_err"]),
+                0.0)
+    smoke.require(f"{tag}2 {kind}: step, update and freeze counts equal",
+                  e["counts"] == g["counts"] == (PRE_STEPS,) * 3,
+                  f"{e['counts']} / {g['counts']}")
+    smoke.require(f"{tag}2 {kind}: one capture", prog.captures == 1,
+                  str(prog.captures))
+    smoke.require(f"{tag}2 {kind}: no kernel launched", all(
+        v == 0 for r in (e, g) for v in r["launches"].values()),
+        json.dumps([e["launches"], g["launches"]]))
+    smoke.require(f"{tag}2 {kind}: finite losses", all(
+        np.isfinite(v) for r in (e, g) for ls in r["losses"]
+        for v in ls.values()))
+    out["a2"] = {"loss_rel_step1": first, "update_max_abs": g["update_err"],
+                 "capture": prog.memory}
+
+    # ---- (c) both routes timed in this process, on one packed batch
+    st = g["state"]
+    out["c"] = {}
+    for eager in (True, False):
+        step = make(net, st.optimizer) if eager else g["step"]
+        out["c"]["eager" if eager else "graphed"] = step_times(
+            torch, smi, step, st, batches[0], eager, f"16{tag} {kind}")
+    out["c"]["wall_ratio_graphed_over_eager"] = (
+        out["c"]["graphed"]["wall_ms_median"]
+        / out["c"]["eager"]["wall_ms_median"])
+    out["num_ooms"] = prog.num_ooms + (
+        out.get("sgd_capture") or {}).get("num_ooms", 0)
+    del runs, e, g, st, step, prog, net, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def served_graph(torch, smoke, tk, fk, path, want_launches, joints, dev,
+                 tag):
+    """Phase 16 (d) for one exported program: serve._Model on the card
+    graphs it at its batch; the frames of a request of 8 and of 1 equal
+    the module's eager call on the same padded joints, both replay the
+    one capture, and each request launches ``want_launches``; forward_s
+    graphed (the copy in, the replay, the clone out, a synchronise) and
+    eager (the upload, the module's call, a synchronise), medians of
+    SERVE_GRAPH_REQUESTS."""
+    import statistics
+
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch import serve as srv
+    model = srv._Model(path, dev)
+    B = model.batch
+    out = {"warmup_s": model.warmup_s, "route": model.route,
+           "capture": model.program.memory if model.program else None}
+    smoke.require(f"(d) {tag}: the program graphed at load",
+                  model.program is not None and model.program.captures == 1,
+                  model.route)
+    for n in (B, 1):
+        padded = np.concatenate([joints[:n]] + [joints[n - 1:n]] * (B - n))
+        want = model.forward(torch.from_numpy(padded).to(dev))[:n].cpu()
+        tk.reset_launch_counts()
+        fk.reset_launch_counts()
+        got = model.render(joints[:n])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        diff = np.abs(got.astype(np.int16) - want.numpy().astype(np.int16))
+        smoke.require(f"(d) {tag}: a request of {n} bit-equal to the eager "
+                      "module", int(diff.max()) == 0, f"max {int(diff.max())}")
+        smoke.require(f"(d) {tag}: a request of {n} launches "
+                      f"{json.dumps(want_launches)} on the replay",
+                      launches == {**{k: 0 for k in launches},
+                                   **want_launches}, json.dumps(launches))
+        out[f"launches_request_{n}"] = launches
+    smoke.require(f"(d) {tag}: both requests replay the one capture",
+                  model.program.captures == 1)
+    graphed = []
+    for _ in range(SERVE_GRAPH_REQUESTS):
+        model.render(joints[:B])
+        graphed.append(model.timing["forward_s"])
+    eager = []
+    for _ in range(SERVE_GRAPH_REQUESTS):
+        t0 = time.perf_counter()
+        model.forward(torch.from_numpy(joints[:B]).to(dev))
+        torch.cuda.synchronize()
+        eager.append(time.perf_counter() - t0)
+    out.update(forward_ms_graphed=statistics.median(graphed) * 1e3,
+               forward_ms_eager=statistics.median(eager) * 1e3,
+               num_ooms=model.program.num_ooms)
+    model.device_thread.shutdown()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def compiled_pretrain_path(torch, smoke, tk, fk, repo, dev, smi, programs):
+    """Phase 16: the compiled pretrains and server. (a) Stage 1 at
+    launchers/pretrain_trans.sh's point (512 px, batch 6, the flagship's
+    TransG 64/4/9, bf16) and (b) the texture pretrain at
+    launchers/pretrain_tex.sh's (200 px, batch 2, TexG 64/2/5, LaplaceProj
+    input, texel mask), each by pretrain_parity with its (c) times; (d)
+    the served programs phase 11 exported at batch 8 (the sidecar one:
+    the fused forward once a request; the --warp_block_parts 8 one, its
+    weights baked in: top-k and the forward with w given once each)
+    graphed by serve._Model (served_graph); (e) no capture of the phase
+    caught an out-of-memory error."""
+    import numpy as np
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    t_phase = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke", "compiled16")
+    ckpt = ["--checkpoints_dir", os.path.join(work, "ckpt"), "--name", "p16"]
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    out = {"card": smi}
+    try:
+        out["a"] = pretrain_parity(torch, smoke, tk, fk, "uv",
+                                   TRAIN + ckpt + PRE_UV, dev, smi)
+        out["b"] = pretrain_parity(torch, smoke, tk, fk, "tex",
+                                   TRAIN + ckpt + PRE_TEX, dev, smi)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    opt = TestOptions().parse(FLAGSHIP + ckpt, save=False)
+    ds = dsm.SyntheticDataset(opt, length=SERVE_BATCH)
+    joints = np.stack([ds[i]["joints"] for i in range(SERVE_BATCH)]).astype(
+        np.float32)
+    out["d"] = {
+        "sidecar": served_graph(torch, smoke, tk, fk, programs["sidecar"],
+                                {"texture_warp_topk_fwd": 1}, joints, dev,
+                                "sidecar program"),
+        "block_parts_baked": served_graph(
+            torch, smoke, tk, fk, programs["block_parts_baked"],
+            {"topk_select": 1, "texture_warp_fwd": 1}, joints, dev,
+            "--warp_block_parts 8 program, weights baked")}
+    for f in programs["files"]:
+        os.remove(f)
+    print(f"[compiled16] (d) {json.dumps(out['d'])}", flush=True)
+    ooms = {"(a) stage 1": out["a"]["num_ooms"],
+            "(b) texture": out["b"]["num_ooms"],
+            **{f"(d) {k}": v["num_ooms"] for k, v in out["d"].items()}}
+    print(f"[compiled16] (e) caught out-of-memory errors by capture "
+          f"{json.dumps(ooms)}", flush=True)
+    smoke.require("(e) no capture of phase 16 caught an out-of-memory error",
+                  all(v == 0 for v in ooms.values()), json.dumps(ooms))
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[compiled16] phase 16 {out['s']:.1f} s", flush=True)
     return out
 
 
@@ -4249,6 +4555,16 @@ def main() -> int:
         return 2
     smoke = Smoke()
     dev = torch.device("cuda", 0)
+    phase_s = {}
+    lap = [T0]
+
+    def done(phase):
+        """The wall seconds of the phase that ends here (printed now, and
+        with the total at the end)."""
+        now = time.perf_counter()
+        phase_s[phase] = now - lap[0]
+        lap[0] = now
+        print(f"[phase] {phase}: {phase_s[phase]:.1f} s", flush=True)
 
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(
@@ -4272,6 +4588,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
+    done("1 device")
     # ------------------------------------------ 2. kernel vs plain version
     B, P, S, T, K, EPS = 8, 24, 512, 64, 4, 1e-3
     tex, uv, probs = warp_inputs(torch, B, P, S, S, T, 0, dev)
@@ -4331,6 +4648,7 @@ def main() -> int:
     del img_o, flow_o
     del tex2, uv2, probs2, tex128, uv128, probs128, img, flow, out_k, out_p, cat
 
+    done("2 kernels")
     # ---------------------------------------------------------- 3. main path
     work = os.path.join(repo, "build", "chip_smoke")
     kp_dir = os.path.join(work, "keypoints")
@@ -4420,6 +4738,7 @@ def main() -> int:
                     float((outs["cuda"][key].cpu() - outs["cpu"][key]).abs().max()),
                     REF_TOL)
 
+    done("3 main path")
     # ------------------------------------------------------------ 4. numbers
     del out
     torch.cuda.synchronize()
@@ -4496,8 +4815,10 @@ def main() -> int:
     del tex, uv, probs, w_main, fwd, renderer, state_assets, rend2, fg_r, \
         u_r, v_r, w_r, g_r, rend8, fg8, u8, v8, w8
 
+    done("4 numbers")
     # ------------------------------------------------------ 5. train path
     train = train_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("5 train path")
 
     # -------------------------------------------------- 6. train numbers
     B2 = 2
@@ -4506,26 +4827,38 @@ def main() -> int:
     train_k = kernel_numbers(torch, tk, fk, tex, uv, probs, w_train, K, EPS,
                              tuple(REPLACES), flow=flow_inputs(torch, B2, S, 5, dev),
                              keep_w=True)
+    done("6 train numbers")
     # ------------------------------------------------------- 7. pipeline
     pipe = pipeline_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("7 pipeline")
     # -------------------------------------------- 8. the reference launchers
     launch_e2e = launchers_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("8 launchers")
     # ----------------------------------------------------------- 9. measure
     launch_bench = measure_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("9 measure")
     # ---------------------------------------------------------- 10. options
     options = options_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("10 options")
     # ------------------------------- 11. export, serve, JAX resume, import
     serving11 = serving_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("11 serving")
     # ------------------------------------------------------- 12. parallel
     parallel = parallel_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("12 parallel")
     # ---------------------------------------------------------- 13. tools
-    t13 = time.perf_counter()
     tools = tools_path(torch, smoke, tk, fk, repo, dev, smi)
-    print(f"[tools] phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
+    done("13 tools")
     # ------------------------------------------------------ 14. native data
     native14 = native_data_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("14 native data")
     # ------------------------------------------------- 15. the compiled step
     compiled = compiled_path(torch, smoke, tk, fk, repo, dev, smi)
+    done("15 compiled step")
+    # ------------------------------- 16. the compiled pretrains and server
+    compiled16 = compiled_pretrain_path(torch, smoke, tk, fk, repo, dev, smi,
+                                        serving11["programs"])
+    done("16 compiled pretrains and server")
     ab_launches = tools["ab"].get("launches", {})
     launches_tools = {
         "quality_profile (phase 9 g)": launch_bench.pop("quality_profile"),
@@ -4588,10 +4921,17 @@ def main() -> int:
         entry["launches_native_data"] = native14["stage2"]["launches"][name]
         entry["launches_compiled_3_steps"] = {
             k: v[name] for k, v in compiled["b"].items()}
+        entry["launches_served_program_graphed"] = {
+            f"{prog}, request of {n}": v[f"launches_request_{n}"][name]
+            for prog, v in compiled16["d"].items() for n in (SERVE_BATCH, 1)}
         entry["timing"] = ("ms, library_ms: device time, CUDA graph of 20 "
                            "calls replayed (warm L2 where the inputs fit); "
                            "host_us: host clock per call, no sync")
         kernels.append(entry)
+    done("the kernels' line")
+    print(json.dumps({"chip_smoke_s": {
+        "total": time.perf_counter() - T0, "phases": phase_s,
+        "card": smi}}), flush=True)
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)
         return 1

@@ -9,8 +9,6 @@ PyTorch.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .keypoints import COCO18_LIMBS, LIMB_COLORS
@@ -31,19 +29,12 @@ def _point_segment_dist2(px, py, ax, ay, bx, by):
     return dx * dx + dy * dy
 
 
-# Constants on the device, made once per device: a host copy inside a
-# captured step (train/graphs.py) would break its capture.
-@functools.lru_cache(maxsize=None)
-def _limb_colors(device: torch.device) -> torch.Tensor:
-    """LIMB_COLORS (L, 3) on ``device``."""
-    return torch.as_tensor(LIMB_COLORS, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _limb_index(device: torch.device):
-    """The limbs' two joints as int64 index tensors (L,) on ``device``."""
-    return (torch.tensor(_LIMBS_A, device=device),
-            torch.tensor(_LIMBS_B, device=device))
+# No tensor is made from host data here: a host copy inside a captured
+# step (train/graphs.py) breaks its capture, and a constant made while
+# torch.export traces the forward becomes a host-to-device copy inside the
+# exported program. The limbs' joints are taken by Python index and their
+# colours enter as Python numbers.
+_COLORS = [[float(c) for c in row] for row in LIMB_COLORS]
 
 
 def render_skeleton(joints: torch.Tensor, height: int, width: int,
@@ -61,23 +52,19 @@ def render_skeleton(joints: torch.Tensor, height: int, width: int,
     B, dev = joints.shape[0], joints.device
     py = torch.arange(height, dtype=torch.float32, device=dev).view(1, height, 1)
     px = torch.arange(width, dtype=torch.float32, device=dev).view(1, 1, width)
-    ia, ib = _limb_index(dev)
-    a = joints.index_select(1, ia)                            # (B, L, 3)
-    b = joints.index_select(1, ib)
-    colors = _limb_colors(dev)                                # (L, 3)
     best_d2 = torch.full((B, height, width), float("inf"), device=dev)
-    planes = torch.zeros((B, 3, height, width), device=dev)
-    for i in range(len(_LIMBS_A)):
-        ai = a[:, i].view(B, 3, 1, 1)
-        bi = b[:, i].view(B, 3, 1, 1)
+    planes = [torch.zeros((B, height, width), device=dev) for _ in range(3)]
+    for i, (ja, jb) in enumerate(zip(_LIMBS_A, _LIMBS_B)):
+        ai = joints[:, ja].view(B, 3, 1, 1)
+        bi = joints[:, jb].view(B, 3, 1, 1)
         d2 = _point_segment_dist2(px, py, ai[:, 0], ai[:, 1], bi[:, 0], bi[:, 1])
         valid = (ai[:, 2] > conf_thresh) & (bi[:, 2] > conf_thresh)
         d2 = torch.where(valid, d2, float("inf"))
         upd = d2 < best_d2
         best_d2 = torch.where(upd, d2, best_d2)
-        planes = torch.where(upd[:, None], colors[i].view(1, 3, 1, 1), planes)
+        planes = [torch.where(upd, c, p) for c, p in zip(_COLORS[i], planes)]
     hit = (best_d2 <= radius * radius)[:, None]
-    return torch.where(hit, planes, 0.0) * 2.0 - 1.0
+    return torch.where(hit, torch.stack(planes, 1), 0.0) * 2.0 - 1.0
 
 
 def joint_heatmaps(joints: torch.Tensor, height: int, width: int,
@@ -116,13 +103,10 @@ def limb_coord_maps(joints: torch.Tensor, height: int, width: int,
     B, dev = joints.shape[0], joints.device
     py = torch.arange(height, dtype=torch.float32, device=dev).view(1, height, 1)
     px = torch.arange(width, dtype=torch.float32, device=dev).view(1, 1, width)
-    ia, ib = _limb_index(dev)
-    a = joints.index_select(1, ia)                            # (B, L, 3)
-    b = joints.index_select(1, ib)
     chans = []
-    for i in range(len(_LIMBS_A)):
-        ai = a[:, i].view(B, 3, 1, 1)
-        bi = b[:, i].view(B, 3, 1, 1)
+    for ja, jb in zip(_LIMBS_A, _LIMBS_B):
+        ai = joints[:, ja].view(B, 3, 1, 1)
+        bi = joints[:, jb].view(B, 3, 1, 1)
         abx, aby = bi[:, 0] - ai[:, 0], bi[:, 1] - ai[:, 1]
         apx, apy = px - ai[:, 0], py - ai[:, 1]
         denom = torch.clamp(abx * abx + aby * aby, min=1e-6)

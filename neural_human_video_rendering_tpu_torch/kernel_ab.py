@@ -32,7 +32,13 @@ by a synchronise (host clock), first as make_train_step returns the step
 that), then eager (a call with a mark), then the phases of 10 more by
 CUDA events (make_train_step's marks, eager); it prints the median,
 quartiles and minimum of each route, the tree's route, and the phases'
-medians.
+medians. With --step --stage uv (or tex) it times a pretrain step the same
+way at chip_smoke phase 16's point (stage 1: 512 px, batch 6, the
+flagship's TransG, bf16; the texture pretrain: 200 px, batch 2, TexG
+64/2/5 over the LaplaceProj input): the step as make_pretrain_uv_step /
+make_pretrain_tex_step returns it (graphed on the card), then the eager
+closure (a call with a mark), from one start; a tree whose pretrain steps
+take no mark (before they were graphed) is timed on its one route.
 Run parent, change, change, parent in one command. Prints one JSON line;
 exits non-zero without a CUDA card.
 """
@@ -145,24 +151,29 @@ def wall_ms(torch, fn, warmups, iters):
     return times
 
 
-def graphed_update_err(torch, st, step, batch, decay):
-    """One graphed step of ``st``, then its update redone eagerly: the
-    pre-step parameters, Adam moments and counts and the EMA put back,
-    both optimizers' eager update (ScheduledAdam.update) and ema_blend run
-    on the gradients the graph left in .grad, and the result held
-    against the graph's. Returns (the step's metrics, the largest absolute
-    difference); the state is left as the graph left it. The gradients
-    of two runs differ (texture_warp_bwd's float atomics), so this is how
-    the captured update is held to the eager one exactly."""
+def graphed_update_err(torch, st, step, batch, decay=0.0):
+    """One graphed step of ``st`` (a stage-2 TrainState, or a
+    PretrainState of one net), then its update redone eagerly: the
+    pre-step parameters, Adam moments and counts and the EMA put back, the
+    optimizers' eager update (ScheduledAdam.update) and, for a stage-2
+    state with an EMA, ema_blend (``decay``) run on the gradients the
+    graph left in .grad, and the result held against the graph's. Returns
+    (the step's metrics, the largest absolute difference); the state is
+    left as the graph left it. The gradients of two runs differ
+    (texture_warp_bwd's float atomics), so this is how the captured update
+    is held to the eager one exactly."""
     from neural_human_video_rendering_tpu_torch.parallel.mesh import \
         optimizer_tensors
     from neural_human_video_rendering_tpu_torch.train.steps import ema_blend
-    opts = (st.g_opt, st.d_opt)
+    stage2 = hasattr(st, "g_opt")
+    opts = (st.g_opt, st.d_opt) if stage2 else (st.optimizer,)
+    ema = stage2 and st.g_ema is not None
 
     def tensors():
         return ([p for o in opts for grp in o.param_groups
-                 for p in grp["params"]] + optimizer_tensors(st.g_opt)
-                + optimizer_tensors(st.d_opt) + list(st.g_ema.values()))
+                 for p in grp["params"]]
+                + [t for o in opts for t in optimizer_tensors(o)]
+                + (list(st.g_ema.values()) if ema else []))
 
     before = tensors()
     saved = [t.detach().clone() for t in before]
@@ -181,7 +192,8 @@ def graphed_update_err(torch, st, step, batch, decay):
             o.freeze_count -= 1
             o.update()
             o.freeze_count += 1
-        ema_blend(st.g_ema, st.renderer, t_before, decay)
+        if ema:
+            ema_blend(st.g_ema, st.renderer, t_before, decay)
         err = max(float((t - w).abs().max()) for t, w in zip(after, got))
         for t, w in zip(after, got):
             t.copy_(w)
@@ -245,11 +257,52 @@ def step_times(torch, smoke, tree):
     return out
 
 
+def pretrain_step_times(torch, smoke, tree, stage):
+    """{median_ms, q1_ms, q3_ms, min_ms, route, eager} of a pretrain step
+    (``stage`` uv or tex) of the checkout at tree, on one packed batch at
+    chip_smoke phase 16's point (the module's docstring)."""
+    import inspect
+
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.ops import build
+    from neural_human_video_rendering_tpu_torch.profile_step import \
+        pretrain_case
+    from neural_human_video_rendering_tpu_torch.train.state import (
+        PretrainState, make_optimizer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    dev = torch.device("cuda", 0)
+    opt = TrainOptions().parse(smoke.TRAIN + (
+        smoke.PRE_UV if stage == "uv" else smoke.PRE_TEX) + [
+        "--checkpoints_dir", os.path.join(tree, "build", "step_ab"),
+        "--name", f"pretrain_{stage}_ab"], save=False)
+    net, make, batches = pretrain_case(opt, stage, dev, 1)
+    st = PretrainState(step=0, net=net, device=dev, optimizer=make_optimizer(
+        opt, net.named_parameters(), 1))
+    step = make(net, st.optimizer)
+
+    def timed(**kw):
+        s = sorted(wall_ms(torch, lambda: step(st, batches[0], **kw), 5, 30))
+        return {"median_ms": s[15], "q1_ms": s[7], "q3_ms": s[22],
+                "min_ms": s[0]}
+
+    out = timed()
+    out["route"] = ("graphed" if getattr(step, "program", None) is not None
+                    else "eager")
+    out["eager"] = (timed(mark=lambda name: None) if "mark" in
+                    inspect.signature(step).parameters else None)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT, help="root of the checkout timed")
     ap.add_argument("--step", action="store_true",
                     help="time the flagship stage-2 step, not the kernels")
+    ap.add_argument("--stage", default="e2e", choices=["e2e", "uv", "tex"],
+                    help="with --step: the stage-2 step (e2e) or a pretrain "
+                         "step")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the timed checkout's package, not this script's directory
@@ -271,8 +324,9 @@ def main() -> int:
         raise RuntimeError(f"imported {fk.__file__}, not from {tree}")
     out = {"tree": os.path.relpath(tree, ROOT)}
     if args.step:
-        out.update(step_times(torch, smoke, tree),
-                   card=torch.cuda.get_device_name(0))
+        out.update(step_times(torch, smoke, tree) if args.stage == "e2e"
+                   else pretrain_step_times(torch, smoke, tree, args.stage),
+                   stage=args.stage, card=torch.cuda.get_device_name(0))
         print(json.dumps(out), flush=True)
         return 0
     dev = torch.device("cuda", 0)

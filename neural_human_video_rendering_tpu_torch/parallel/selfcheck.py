@@ -13,12 +13,12 @@ shapes, with the same global count share, and sums the gradients in rank
 order and divides by the world once: the ranks' code with another
 transport (``ThreadRank``), so only the order of the final sums may
 differ. The threads take make_train_step's eager route (two threads'
-captures would run at once, which cuDNN refuses), and so do the ranks
-that compare with them (``eager``): two graphed ranks of the flagship on
-one card overflow its memory while cuDNN searches its plans, the
-allocator's caught out-of-memory errors send cuDNN to other algorithms,
-and those round differently from the reference's. Each rank records its
-allocator's caught out-of-memory count and peak reservation. A
+captures would run at once, which cuDNN refuses); the ranks take the
+route trainers run, a CUDA graph on the card. Each rank records its
+allocator's caught out-of-memory count and peak reservation, and its
+capture's record (``graphs.Program.memory``): where the card runs short,
+cuDNN catches the error and takes another algorithm, whose rounding
+differs from the reference's. A
 reference that takes the
 global batch in one pass runs its convolutions and reductions at other
 shapes, and their rounding flips the sign of L1 terms within ~1e-6 of 0,
@@ -166,11 +166,10 @@ def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
               bg: np.ndarray, out_dir: str, adam_steps: int,
-              dp: Optional[DataParallel] = None,
-              eager: bool = False) -> None:
+              dp: Optional[DataParallel] = None) -> None:
     """This rank's part of the check (the module docstring); writes
     {out_dir}/rank{r}.pt. The SGD step takes make_train_step's route (a
-    CUDA graph on the card) unless ``eager``; threads run it eagerly."""
+    CUDA graph on the card); threads run it eagerly."""
     dp = dp if dp is not None else DataParallel()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -184,13 +183,21 @@ def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
                            torch.optim.SGD(st.disc.parameters(), lr=1.0), dp)
     # threads of one process run the eager step: their captures would
     # run at once, which cuDNN refuses (CUDNN_STATUS_INTERNAL_ERROR)
-    kw = ({"mark": lambda name: None}
-          if eager or isinstance(dp, ThreadRank) else {})
+    kw = {"mark": lambda name: None} if isinstance(dp, ThreadRank) else {}
     losses = {k: float(v) for k, v in step(st, rows, **kw).items()}
     after = {"G": _cpu(st.renderer.state_dict()),
              "D": _cpu(st.disc.state_dict()), "EMA": _cpu(st.g_ema)}
     deltas = {m: {k: after[m][k] - before[m][k] for k in before[m]}
               for m in before}
+    capture = (step.program.memory[-1] if step.program is not None
+               and step.program.memory else None)
+    # the graph's pool goes before the eager Adam steps need the memory
+    # (the gradients the graph left live in it)
+    del step
+    st.renderer.zero_grad(set_to_none=True)
+    st.disc.zero_grad(set_to_none=True)
+    if dp.device.type == "cuda":
+        torch.cuda.empty_cache()
 
     # the same start again, with the state's own (unstepped) Adam
     st.renderer.load_state_dict(before["G"])
@@ -224,7 +231,7 @@ def rank_step(opt, batch: Dict[str, np.ndarray], atlas: np.ndarray,
         mem = torch.cuda.memory_stats(dp.device)
         alloc = {"num_ooms": mem.get("num_ooms", 0),
                  "max_reserved_bytes": torch.cuda.max_memory_reserved(
-                     dp.device)}
+                     dp.device), "capture": capture}
     os.makedirs(out_dir, exist_ok=True)
     torch.save({"rank": dp.rank, "world": dp.world, "losses": losses,
                 "allocator": alloc,
@@ -261,7 +268,8 @@ def compare(one_dir: str, ranks_dir: str, scale_tol: float = 1e-5,
     checksums are the same, each run's median phase ms of its Adam
     steps (synchronised at each phase's end: grad_all_reduce is the
     ranks' gradient average) and each rank's allocator record (caught
-    out-of-memory errors, peak reservation; None on the CPU)."""
+    out-of-memory errors, peak reservation, its capture's record; None on
+    the CPU)."""
     one = torch.load(os.path.join(one_dir, "rank0.pt"))
     ranks = [torch.load(os.path.join(ranks_dir, f)) for f in
              sorted(os.listdir(ranks_dir)) if f.startswith("rank")]

@@ -19,10 +19,12 @@ The table is the eager step's (a call with a mark) or the eager forward's:
 the trainers run the captured program on the card (train/graphs.py), whose
 kernels a CUDA graph replay launches with no Python stack of their own. On
 the card the tool then traces that route too and adds its device ms a
-step and busy share as ``graphed``.
+step and busy share as ``graphed``. ``--stage uv`` / ``tex`` profiles a
+pretrain step (``pretrain_case``) at the same flags instead of the
+stage-2 step.
 
     python -m neural_human_video_rendering_tpu_torch.profile_step \\
-        [--infer] [--steps 3] [--out DIR] [--gpu_ids 0]
+        [--infer | --stage uv|tex] [--steps 3] [--out DIR] [--gpu_ids 0]
     python -m neural_human_video_rendering_tpu_torch.profile_step --analyze DIR
 
 --analyze also reads the trainers' --profile_dir traces
@@ -63,17 +65,78 @@ def profile_options(a: argparse.Namespace):
         warp_dtype=a.warp_dtype, gpu_ids=a.gpu_ids)
 
 
-def run_trace(opt, out_dir: str, steps: int, infer: bool,
-              graphed: bool = False) -> str:
-    """Profile ``steps`` steps (or inference forwards) of ``opt`` on its
-    device after one warm-up; returns the trace's path. The eager step
-    (a call with a mark; the forward's eager closure) by default, whose
-    kernels the analysis attributes to lines; with ``graphed`` the
-    captured program make_train_step / make_forward_fn run on the card
-    (trace_graphed.json; its kernels are launched by a graph replay and
-    carry no Python stack of their own)."""
+def synthetic_laplace(joints, size: int, channels: int):
+    """(channels, size, size) float32 numpy LaplaceProj stand-in in
+    [-1, 1] from one frame's (18, 3) joints: the limb-local channels at
+    two envelope widths and the joint heatmaps, cut to ``channels``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from .data.rasterize import joint_heatmaps, limb_coord_maps
+    j = torch.from_numpy(joints[None].astype("float32"))
+    sig = size / 40.0
+    planes = torch.cat([limb_coord_maps(j, size, size, sigma=sig),
+                        limb_coord_maps(j, size, size, sigma=2 * sig),
+                        joint_heatmaps(j, size, size, sigma=sig) * 2 - 1], 1)
+    return planes[0, :channels].clamp(-1, 1).numpy()
+
+
+def pretrain_case(opt, stage: str, device, n: int = 1):
+    """(net, make(net, optimizer) -> step, n packed batches of
+    --batchSize) of a pretrain step at ``opt`` on ``device``: 'uv' TransG
+    on the synthetic DensePose pseudo-GT; 'tex' TexG against per-frame
+    part textures and a pose texture (with --use_laplace the LaplaceProj
+    stand-in), the atlas as static_tex and its texel mask. The nets are
+    initialised from --seed as the drivers initialise them."""
+    import numpy as np
+
+    from .data import dataset as dsm
+    from .data.wire import pack_batch
+    from .models.renderer import init_params, renderer_from_options
+    from .train import drivers
+    from .train.state import to_nchw
+    from .train.steps import make_pretrain_tex_step, make_pretrain_uv_step
+    B = opt.batchSize
+    syn = dsm.SyntheticDataset(opt, length=n * B, seed=opt.seed)
+    samples = [syn[i] for i in range(n * B)]
+    if stage == "uv":
+        net = init_params(renderer_from_options(opt).TransG, opt.seed)
+
+        def make(net, optimizer):
+            return make_pretrain_uv_step(opt, net, optimizer)
+    else:
+        atlas = syn.texture_atlas()
+        static = to_nchw(atlas, device)
+        mask = to_nchw(drivers._tex_mask(opt, atlas), device)
+        rng = np.random.default_rng(opt.seed)
+        for i, s in enumerate(samples):
+            s["part_texture"] = np.clip(atlas + 0.1 * np.sin(0.3 * i), -1,
+                                        1).astype(np.float32)
+            s["pose_texture"] = np.clip(
+                atlas + rng.normal(0, 0.1, atlas.shape), -1, 1).astype(
+                    np.float32)
+            if opt.use_laplace:
+                s["laplace"] = np.moveaxis(synthetic_laplace(
+                    s["joints"], opt.train_size, opt.laplace_nc_eff), 0, -1)
+        net = init_params(drivers.texg_from_options(opt), opt.seed)
+
+        def make(net, optimizer):
+            return make_pretrain_tex_step(opt, net, optimizer, static, mask)
+    batches = [pack_batch(dsm.collate(samples[i * B:(i + 1) * B]))
+               for i in range(n)]
+    return net.to(device).train(), make, batches
+
+
+def run_trace(opt, out_dir: str, steps: int, infer: bool,
+              graphed: bool = False, stage: str = "e2e") -> str:
+    """Profile ``steps`` steps (or inference forwards) of ``opt`` on its
+    device after one warm-up; returns the trace's path. The stage-2 step
+    (``stage`` e2e), or a pretrain step (uv, tex: ``pretrain_case``). The
+    eager step (a call with a mark; the forward's eager closure) by
+    default, whose kernels the analysis attributes to lines; with
+    ``graphed`` the captured program the steps and make_forward_fn run on
+    the card (trace_graphed.json; its kernels are launched by a graph
+    replay and carry no Python stack of their own)."""
+    import torch
 
     from .config import resolve_device
     from .data import dataset as dsm
@@ -81,7 +144,18 @@ def run_trace(opt, out_dir: str, steps: int, infer: bool,
     from .train.steps import make_forward_fn, make_train_step
 
     device = resolve_device(opt.gpu_ids)
-    cuda = device.type == "cuda"
+    kw = {} if graphed else {"mark": lambda name: None}
+    if stage != "e2e":
+        from .train.state import PretrainState, make_optimizer
+        net, make, batches = pretrain_case(opt, stage, device)
+        pst = PretrainState(step=0, net=net, device=device,
+                            optimizer=make_optimizer(
+                                opt, net.named_parameters(), 1))
+        pstep = make(net, pst.optimizer)
+
+        def one():
+            pstep(pst, batches[0], **kw)
+        return _trace(one, device, steps, out_dir, graphed)
     ds = dsm.SyntheticDataset(opt, length=opt.batchSize, seed=opt.seed)
     batch = dsm.collate([ds[i] for i in range(opt.batchSize)])
     st = create_train_state(opt, ds.texture_atlas(), ds.background(),
@@ -98,10 +172,18 @@ def run_trace(opt, out_dir: str, steps: int, infer: bool,
     else:
         step = make_train_step(opt, st.renderer, st.disc, st.vgg, st.g_opt,
                                st.d_opt)
-        kw = {} if graphed else {"mark": lambda name: None}
 
         def one():
             step(st, batch, **kw)
+    return _trace(one, device, steps, out_dir, graphed)
+
+
+def _trace(one, device, steps: int, out_dir: str, graphed: bool) -> str:
+    """``steps`` calls of ``one`` under the profiler after one warm-up,
+    each in a STEP_SPAN span ended by a synchronise; the trace's path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = device.type == "cuda"
 
     def sync():
         if cuda:
@@ -287,6 +369,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="build/profile_step")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--infer", action="store_true")
+    p.add_argument("--stage", default="e2e", choices=["e2e", "uv", "tex"],
+                   help="the stage-2 step (e2e) or a pretrain step")
     p.add_argument("--loadSize", type=int, default=512)
     p.add_argument("--netG", default="global", choices=["global", "local"])
     p.add_argument("--tex_tile", type=int, default=128)
@@ -304,18 +388,20 @@ def main(argv=None) -> int:
         path = a.analyze
     else:
         opt = profile_options(a)
-        path = run_trace(opt, a.out, a.steps, a.infer)
+        path = run_trace(opt, a.out, a.steps, a.infer, stage=a.stage)
     out = analyze(path, a.top)
     out["trace"] = path
     if not a.analyze:
         out["mode"] = "infer" if a.infer else "train"
+        out["stage"] = a.stage
         out["route"] = "eager"
         import torch
         card = a.gpu_ids.strip() and int(a.gpu_ids.split(",")[0]) >= 0
         out["device"] = torch.cuda.get_device_name(0) if card else "cpu"
         out["graphed"] = None
         if card:        # the route the trainers take, beside the table
-            g = analyze(run_trace(opt, a.out, a.steps, a.infer, True))
+            g = analyze(run_trace(opt, a.out, a.steps, a.infer, True,
+                                  a.stage))
             out["graphed"] = {
                 k: g[k] for k in ("events", "steps", "device_ms_per_step",
                                   "step_ms", "busy_share") if k in g}

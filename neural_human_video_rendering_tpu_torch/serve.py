@@ -32,7 +32,16 @@ registered before ``torch.export.load``: this module imports
 device once and passed on every call; without one the program holds its
 weights (--bake_weights). At start-up one warm-up call builds the CUDA
 kernels if they are not built yet and pays the first launch, so the first
-request does not; its seconds are printed. --port 0 binds a free port;
+request does not; its seconds are printed.
+
+On the card the program runs as a CUDA graph (``train/graphs.py``, the
+counterpart of the JAX server's compiled ``Exported.call``): the warm-up
+call captures it, on the device thread, at the compiled batch, and every
+request copies its padded joints into the graph's input and replays it,
+whatever its N. The kernels' launch counters count one program's
+launches a replay. On the CPU the module runs eagerly. The route is
+printed once (``[serve] graphed (CUDA graph, 1 capture)`` or ``[serve]
+eager (cpu)``). --port 0 binds a free port;
 the start-up line names the port bound. On SIGINT the server stops, prints
 its kernel launches (``[kernels] launches ...``) and exits 0 (1 after a
 device failure).
@@ -90,6 +99,9 @@ class _Model:
         self.failed: Optional[str] = None
         # seconds of the last request's parts (device forward, host copy)
         self.timing = {}
+        from .train import steps
+        self.program = steps._program("serve", self.device)
+        self.route = ""
         t0 = time.perf_counter()
         self.render(np.zeros(self.in_shape, np.float32))
         self.warmup_s = time.perf_counter() - t0
@@ -111,16 +123,35 @@ class _Model:
         with self.lock:
             return self.device_thread.submit(self._call, padded, n).result()
 
+    def forward(self, joints: torch.Tensor) -> torch.Tensor:
+        """The program's eager call on (batch, 18, 3) joints on the device
+        (the graph's plain version)."""
+        with torch.no_grad():
+            return (self.module(self.params, joints)
+                    if self.params is not None else self.module(joints))
+
     def _call(self, padded: np.ndarray, n: int) -> np.ndarray:
-        x = torch.from_numpy(padded).to(self.device)
+        x = torch.from_numpy(padded)
         with torch.no_grad():
             t0 = time.perf_counter()
-            out = (self.module(self.params, x) if self.params is not None
-                   else self.module(x))
+            if self.program is None:
+                out = self.forward(x.to(self.device))
+                how = f"eager ({self.device.type})"
+            else:
+                # one capture: the compiled batch, the sidecar held by it
+                key = (self.in_shape, id(self.params))
+                out = self.program(
+                    key, {"joints": x},
+                    lambda st: lambda: self.forward(st["joints"]),
+                    keep=(self.module, self.params))
+                how = self.program.route
             if out.is_cuda:
                 torch.cuda.synchronize(out.device)
             t1 = time.perf_counter()
             host = out[:n].cpu().numpy()
+        if not self.route:
+            self.route = how
+            print(f"[serve] {how}", file=sys.stderr, flush=True)
         self.timing = {"forward_s": t1 - t0,
                        "transfer_s": time.perf_counter() - t1}
         return host

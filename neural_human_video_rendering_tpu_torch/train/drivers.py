@@ -481,6 +481,20 @@ class _TexDataset:
         return s
 
 
+def texg_from_options(opt) -> TexG:
+    """The texture pretrain's TexG of the flags, on the meta device (its
+    driver initialises it from --seed)."""
+    with torch.device("meta"):
+        return TexG(opt.pose_nc, opt.n_parts, opt.tex_tile, opt.ngf_global,
+                    opt.n_downsample_global, opt.n_blocks_global,
+                    netG=opt.netG, n_local_enhancers=opt.n_local_enhancers,
+                    n_blocks_local=opt.n_blocks_local, stem_s2d=opt.stem_s2d,
+                    head_s2d=opt.head_s2d, pad_mode=opt.pad_mode,
+                    upsample_mode=opt.upsample_mode,
+                    dtype=torch.bfloat16 if opt.dtype == "bfloat16"
+                    else torch.float32)
+
+
 def run_pretrain_tex(opt, epochs: Optional[int] = None,
                      max_steps: Optional[int] = None,
                      dp: Optional[DataParallel] = None) -> PretrainState:
@@ -496,17 +510,8 @@ def run_pretrain_tex(opt, epochs: Optional[int] = None,
     device = dp.device
     static_tex = to_nchw(tex, device)
     tex_mask = to_nchw(_tex_mask(opt, tex), device)
-    with torch.device("meta"):
-        texg = TexG(opt.pose_nc, opt.n_parts, opt.tex_tile, opt.ngf_global,
-                    opt.n_downsample_global, opt.n_blocks_global,
-                    netG=opt.netG, n_local_enhancers=opt.n_local_enhancers,
-                    n_blocks_local=opt.n_blocks_local, stem_s2d=opt.stem_s2d,
-                    head_s2d=opt.head_s2d, pad_mode=opt.pad_mode,
-                    upsample_mode=opt.upsample_mode,
-                    dtype=torch.bfloat16 if opt.dtype == "bfloat16"
-                    else torch.float32)
     return _run_single_net(
-        opt, "TexG", _TexDataset(opt, base), texg,
+        opt, "TexG", _TexDataset(opt, base), texg_from_options(opt),
         lambda st, dp: make_pretrain_tex_step(opt, st.net, st.optimizer,
                                               static_tex, tex_mask, dp),
         epochs, max_steps, dp)

@@ -11,8 +11,14 @@ host out of the loop. What a signature's first call does:
     algorithms, the warp backward raises its shared-memory opt-in), with
     the state the closure updates saved before and restored after, so the
     warm-up leaves no trace: the first replay is the signature's first
-    step, as jit's first call is;
-  * the closure runs once more under capture. A host point inside it
+    step, as jit's first call is. The saved copy is kept in pinned host
+    memory, and the side stream's cached blocks are handed back to the
+    card after the warm-up (the capture allocates in a pool of its own,
+    which cannot reuse them), so a capture's peak stays near an eager
+    step's (the warm-up's gradients are dropped with them: a captured
+    closure sets its own);
+  * the closure runs once more under capture, in a private memory pool
+    of its own. A host point inside it
     (``utils/host_point.py``: a collective of the data-parallel ranks,
     which gloo cannot run inside a graph) ends the graph being captured,
     runs on the host and opens the next graph in the same memory pool, so
@@ -29,6 +35,19 @@ host out of the loop. What a signature's first call does:
 The outputs are cloned out of the graph's pool on every replay, so a
 caller may keep them, as it keeps jit's fresh arrays. A capture that
 fails raises, naming the call that broke it: there is no fallback.
+
+Each capture keeps the allocator's record (``Program.memory``): the bytes
+reserved at its start, after the state's copy, after the warm-up, after
+the release and after the capture, the bytes its pool holds, the peak
+reserved, and the out-of-memory errors the allocator raised and a caller
+caught (``num_ooms`` of ``torch.cuda.memory_stats``) across the warm-up
+and the capture. cuDNN catches such an error while it picks an algorithm
+and takes another, which rounds differently, so a nonzero count means the
+step's bits depended on the memory free; it is printed on the capture's
+line and nothing is refused. Each capture keeps a pool of its own, which
+holds the step's activations: sharing one across a program's signatures
+would save memory only at a second signature (a partial last batch, a
+freeze boundary), not at a program's peak.
 
 The CPU has no graphs: there the callers run the eager closure.
 ``StandIn`` is a capture that records nothing and replays by running the
@@ -97,6 +116,66 @@ def _where(e: BaseException) -> str:
     if not ours or ours[-1] is frames[-1]:
         return show(frames[-1])
     return f"{show(frames[-1])}, called from {show(ours[-1])}"
+
+
+def _allocator(device: torch.device) -> Dict[str, int]:
+    """The caching allocator's bytes reserved, peak reserved and caught
+    out-of-memory errors on ``device``."""
+    stats = torch.cuda.memory_stats(device)
+    return {"reserved": torch.cuda.memory_reserved(device),
+            "peak_reserved": torch.cuda.max_memory_reserved(device),
+            "num_ooms": int(stats.get("num_ooms", 0))}
+
+
+def _pool_bytes(device: torch.device, pool) -> Optional[int]:
+    """The bytes of the segments of a graph's private pool (None where
+    the snapshot does not name pools)."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return sum(s["total_size"] for s in segs if s.get("device") == index
+               and tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def _saved_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a state tensor that the warm-up cannot touch: in pinned
+    host memory for a card's tensor (the card's memory stays free for the
+    warm-up and the capture), a clone on the CPU."""
+    if not t.is_cuda:
+        return t.detach().clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t.detach(), non_blocking=True)
+    return host
+
+
+def _release(device: torch.device,
+             state: Callable[[], Sequence[torch.Tensor]]) -> None:
+    """Hand the warm-up's blocks back to the card: they belong to the side
+    stream, and the capture's pool cannot reuse them. The warm-up's
+    gradients go too (a captured closure sets its own)."""
+    for t in state():
+        if t.grad is not None:
+            t.grad = None
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+
+
+def capture_line(name: str, stand_in: bool, n: int, batch: Optional[int],
+                 segments: int, seconds: float,
+                 mem: Dict[str, Optional[int]]) -> str:
+    """The line a capture prints: ``[name] graphed (CUDA graph, capture n:
+    batch B, k segments, s s, num_ooms m, peak reserved g GB)``; a
+    stand-in's has no allocator record."""
+    kind = "stand-in" if stand_in else "CUDA graph"
+    head = f"batch {batch}, " if batch is not None else ""
+    alloc = ""
+    if "num_ooms" in mem:
+        alloc = (f", num_ooms {mem['num_ooms']}, peak reserved "
+                 f"{mem['peak_reserved'] / 1e9:.2f} GB")
+    return (f"[{name}] graphed ({kind}, capture {n}: {head}{segments} "
+            f"segment{'s' if segments > 1 else ''}, {seconds:.2f} s{alloc})")
 
 
 class _CudaCapture:
@@ -218,7 +297,8 @@ class Program:
     (what the graphs address: assets, the train state).
 
     ``name`` labels the line each capture prints on stderr: ``[name]
-    graphed (CUDA graph, capture n: ...)``. ``warmup_launches`` maps
+    graphed (CUDA graph, capture n: ...)``, with the capture's caught
+    out-of-memory errors and the peak reserved. ``warmup_launches`` maps
     each counter (``wrapper`` or ``wrapper.attribute``) to the launches
     the warm-up calls made on the card, which the counters leave out."""
 
@@ -234,6 +314,23 @@ class Program:
         self.captures = 0
         self.capture_s: List[float] = []
         self.warmup_launches: Dict[str, int] = {}
+        # each capture's allocator record (the module docstring); empty
+        # dicts for a stand-in
+        self.memory: List[Dict[str, Optional[int]]] = []
+
+    @property
+    def route(self) -> str:
+        """The route a caller prints: ``graphed (CUDA graph, n capture[s])``
+        (``stand-in`` for a stand-in)."""
+        kind = "stand-in" if self.stand_in else "CUDA graph"
+        n = self.captures
+        return f"graphed ({kind}, {n} capture{'s' if n > 1 else ''})"
+
+    @property
+    def num_ooms(self) -> int:
+        """Out-of-memory errors caught across every capture's warm-up and
+        capture (0 for a stand-in)."""
+        return sum(m.get("num_ooms", 0) for m in self.memory)
 
     def clear(self) -> None:
         """Drop every capture (their pools go with them)."""
@@ -259,21 +356,33 @@ class Program:
 
     def _capture(self, sig, inputs, make_closure, state, keep) -> _Entry:
         t0 = time.perf_counter()
+        cuda = not self.stand_in
+        mem: Dict[str, Optional[int]] = {}
+
+        def note(at: str) -> None:
+            if cuda:
+                mem[f"reserved_{at}"] = _allocator(self.device)["reserved"]
+
+        start = _allocator(self.device) if cuda else None
+        note("start")
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
                   for k, v in inputs.items()}
         for k, v in inputs.items():
             static[k].copy_(v)
         closure = make_closure(static)
         counts = _counts()
-        cuda = not self.stand_in
         stream = torch.cuda.Stream(self.device) if cuda else None
-        self._warm_up(closure, state, stream)
+        self._warm_up(closure, state, stream, lambda: note("after_copy"))
+        note("after_warmup")
         for (w, a), m, n in zip(kernel_counters(), _counts(), counts):
             if m != n:
                 name = w.__name__ + ("" if a == "launches" else "." + a[9:])
                 self.warmup_launches[name] = \
                     self.warmup_launches.get(name, 0) + m - n
         _set_counts(counts)
+        if cuda:
+            _release(self.device, state)
+            note("after_release")
         cap = StandIn(self.device) if self.stand_in \
             else _CudaCapture(self.device)
         try:
@@ -293,20 +402,26 @@ class Program:
         _set_counts(counts)
         self.captures += 1
         self.capture_s.append(time.perf_counter() - t0)
+        if cuda:
+            end = _allocator(self.device)
+            note("after_capture")
+            mem.update(pool_bytes=_pool_bytes(self.device, cap.pool),
+                       peak_reserved=end["peak_reserved"],
+                       num_ooms=end["num_ooms"] - start["num_ooms"])
+        self.memory.append(mem)
         lead = inputs.get("joints", next(iter(inputs.values()), None))
-        batch = f"batch {lead.shape[0]}, " if lead is not None else ""
-        kind = "stand-in" if self.stand_in else "CUDA graph"
-        print(f"[{self.name}] graphed ({kind}, capture {self.captures}: "
-              f"{batch}{cap.segments} segment"
-              f"{'s' if cap.segments > 1 else ''}, "
-              f"{self.capture_s[-1]:.2f} s)", file=sys.stderr, flush=True)
+        print(capture_line(self.name, self.stand_in, self.captures,
+                           None if lead is None else lead.shape[0],
+                           cap.segments, self.capture_s[-1], mem),
+              file=sys.stderr, flush=True)
         return _Entry(cap, static, outputs, launches, (closure, tuple(keep)))
 
-    def _warm_up(self, closure, state, stream) -> None:
+    def _warm_up(self, closure, state, stream, copied) -> None:
         """WARMUP calls of the closure on the side stream, leaving no trace
-        in the state."""
+        in the state; ``copied()`` runs once the state is saved."""
         if stream is None:
-            _preserving(state, lambda: [closure() for _ in range(WARMUP)])
+            _preserving(state, lambda: [closure() for _ in range(WARMUP)],
+                        copied)
             return
         current = torch.cuda.current_stream(self.device)
 
@@ -317,22 +432,29 @@ class Program:
                     closure()
             current.wait_stream(stream)
 
-        _preserving(state, calls)
+        _preserving(state, calls, copied)
         stream.wait_stream(current)
 
 
 def _preserving(state: Callable[[], Sequence[torch.Tensor]],
-                fn: Callable[[], Any]) -> None:
+                fn: Callable[[], Any],
+                copied: Callable[[], None] = lambda: None) -> None:
     """Run fn with the state's tensors as they were before it, after it: a
     tensor that appears during fn (an optimizer's lazily made moment or
-    step count, zero when made) is zeroed."""
+    step count, zero when made) is zeroed. The saved copy of a card's
+    tensor waits in pinned host memory (``_saved_copy``); ``copied()``
+    runs between the copy and fn."""
     before = list(state())
-    saved = [t.detach().clone() for t in before]
+    saved = [_saved_copy(t) for t in before]
+    copied()
     fn()
     with torch.no_grad():
         known = {id(t) for t in before}
         for t, s in zip(before, saved):
-            t.copy_(s)
+            t.copy_(s, non_blocking=True)
         for t in state():
             if id(t) not in known:
                 t.zero_()
+    if any(t.is_cuda for t in before):
+        # the host copies are read by the copies back: done before they go
+        torch.cuda.synchronize()

@@ -17,7 +17,7 @@ import torch
 
 from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
-from ..data.wire import dequantize, host_tensors, unpack_batch
+from ..data.wire import dequantize, host_tensors
 from ..parallel.mesh import DataParallel, optimizer_tensors
 from .graphs import Program
 from .image_pool import pool_draws, pool_update
@@ -91,10 +91,6 @@ def _module_device(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
-def _kind(program: Program) -> str:
-    return "stand-in" if program.stand_in else "CUDA graph"
-
-
 def _program(name: str, device: torch.device) -> Optional[Program]:
     """The captured program of a closure on ``device``: on the card a CUDA
     graph's, on the CPU none (the eager closure runs)."""
@@ -162,9 +158,7 @@ def make_forward_fn(opt, renderer, cluster_feats=None
             assets, st["joints"], st.get("laplace"), st.get("pose_img"),
             st.get("feat_image")),
             state=lambda: list(renderer.buffers()), keep=assets)
-        _route("forward", told, f"graphed ({_kind(program)}, "
-               f"{program.captures} capture"
-               f"{'s' if program.captures > 1 else ''})")
+        _route("forward", told, program.route)
         return out
 
     fwd.program = program
@@ -233,6 +227,19 @@ def _parallel(dp: Optional[DataParallel]):
     reducer without data parallel."""
     dp = dp if dp is not None else DataParallel()
     return dp, (dp.count_share if dp.parallel else None)
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def _update(optimizer) -> None:
+    """The optimizer's update inside a step's body: ScheduledAdam's
+    (prepare and advance run around the body), else a plain step."""
+    if isinstance(optimizer, ScheduledAdam):
+        optimizer.update()
+    else:
+        optimizer.step()
 
 
 def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
@@ -306,9 +313,6 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     told: Dict[str, list] = {"eager": [], "graphed": []}
     held = [None]
 
-    def no_mark(name):
-        pass
-
     def prepare(state, batch) -> Dict[str, torch.Tensor]:
         """The host's part ahead of the device work: the learning rates,
         the device step counter, the pool's draws (returned as inputs)."""
@@ -335,13 +339,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         state.step += 1
         state.step_t_at = state.step
 
-    def update(o) -> None:
-        if isinstance(o, ScheduledAdam):
-            o.update()
-        else:
-            o.step()
-
-    def body(state, raw: Dict[str, torch.Tensor], mark=no_mark):
+    def body(state, raw: Dict[str, torch.Tensor], mark=_no_mark):
         """The device work of one step: from the uploaded wire batch and
         the pool's draws to the metrics."""
         batch = dequantize({k: v for k, v in raw.items()
@@ -449,8 +447,8 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         mark("grad_all_reduce")
 
         # ---- both updates, then the EMA
-        update(g_opt)
-        update(d_opt)
+        _update(g_opt)
+        _update(d_opt)
         if opt.ema_decay > 0 and state.g_ema is not None:
             ema_blend(state.g_ema, renderer, state.step_t, opt.ema_decay)
         state.step_t.add_(1)
@@ -479,7 +477,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
                 "per-phase marks" if program is not None else dev.type) + ")")
             raw = {k: v.to(state.device, non_blocking=True)
                    for k, v in host_tensors(batch).items()}
-            metrics = body(state, {**raw, **draws}, mark or no_mark)
+            metrics = body(state, {**raw, **draws}, mark or _no_mark)
         else:
             # what the graphs address: a new state, optimizer state, EMA,
             # pool or assets drops the captures and captures anew
@@ -495,10 +493,69 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
                 key, {**host_tensors(batch), **draws},
                 lambda st: lambda: body(state, st),
                 state=lambda: state_tensors(state), keep=keep)
-            _route("step", told["graphed"], f"graphed ({_kind(program)}, "
-                   f"{program.captures} capture"
-                   f"{'s' if program.captures > 1 else ''})")
+            _route("step", told["graphed"], program.route)
         finish(state)
+        return metrics
+
+    step.program = program
+    return step
+
+
+def _single_net_step(name: str, net: torch.nn.Module, optimizer,
+                     body: Callable, keep: Tuple = ()) -> Callable:
+    """A pretrain step from its device ``body(raw, mark)`` (the uploaded
+    wire batch -> the metrics: dequantisation, forward, losses, backward,
+    the gradients' all-reduce and the optimizer's update), as
+    make_train_step builds the stage-2 step: ``prepare`` (ScheduledAdam's
+    learning rate) before it, ``finish`` (the update counts, the step
+    count) after it.
+
+    step(state, batch, mark=None) -> metrics, updating ``net``, the
+    optimizer and state.step in place. On the card the body is a captured
+    program (``train/graphs.py``, the counterpart of the JAX package's
+    ``jax.jit(step, donate_argnums=(0, 1))``): one CUDA graph chain per
+    (batch signature, freeze state), keyed by the net, the optimizer's
+    state and ``keep`` (assets the body reads), with the net's parameters
+    and buffers and the optimizer's tensors as the state a capture's
+    warm-up saves and restores. A call with ``mark`` runs the eager body
+    (the caller asked for per-phase times), and so does every call on the
+    CPU; the same code runs either way. A plain optimizer (not a
+    ScheduledAdam) steps inside the body."""
+    dev = _module_device(net)
+    program = _program(name, dev)
+    told: Dict[str, list] = {"eager": [], "graphed": []}
+    held = [None]
+    scheduled = isinstance(optimizer, ScheduledAdam)
+
+    def state_tensors() -> list:
+        return ([*net.parameters(), *net.buffers()]
+                + optimizer_tensors(optimizer))
+
+    def step(state, batch, mark: Optional[Callable[[str], None]] = None):
+        if scheduled:
+            optimizer.prepare()
+        if program is None or mark is not None:
+            _route(name, told["eager"], "eager (" + (
+                "per-phase marks" if program is not None else dev.type) + ")")
+            raw = {k: v.to(state.device, non_blocking=True)
+                   for k, v in host_tensors(batch).items()}
+            metrics = body(raw, mark or _no_mark)
+        else:
+            # what the graphs address: a new net, optimizer state (a
+            # resume) or asset drops the captures and captures anew
+            objs = (net, optimizer.state) + tuple(keep)
+            ids = tuple(id(x) for x in objs)
+            if held[0] != ids:
+                program.clear()
+                held[0] = ids
+            key = (ids, optimizer.freezing if scheduled else None)
+            metrics = program(key, host_tensors(batch),
+                              lambda st: lambda: body(st),
+                              state=state_tensors, keep=objs)
+            _route(name, told["graphed"], program.route)
+        if scheduled:
+            optimizer.advance()
+        state.step += 1
         return metrics
 
     step.program = program
@@ -514,19 +571,23 @@ def make_pretrain_uv_step(opt, transg, optimizer,
     heads' UV L1 and masked cross-entropy (MSUV, weighted lambda_MS
     against the same weights).
 
-    step(state, batch) -> metrics (UV, Prob[, UVgrad][, MSUV], total),
-    updating transg and state.step in place (state: a PretrainState).
-    Data parallel as make_train_step's."""
+    step(state, batch, mark=None) -> metrics (UV, Prob[, UVgrad][,
+    MSUV], total), updating transg and state.step in place (state: a
+    PretrainState); ``mark(name)`` at the end of each phase (inputs,
+    forward, losses, backward, grad_all_reduce, update). Captured on the
+    card (``_single_net_step``). Data parallel as make_train_step's."""
     dp, count = _parallel(dp)
     w_uv = opt.lambda_UV if opt.lambda_UV > 0 else 1000.0
     w_prob = opt.lambda_Prob if opt.lambda_Prob > 0 else 10.0
 
-    def step(state, batch):
-        b = unpack_batch(batch, state.device)
+    def body(raw, mark=_no_mark):
+        b = dequantize(raw)
         pose = pose_from_batch(opt, b)
+        mark("inputs")
         optimizer.zero_grad(set_to_none=True)
         tout = transg(pose)
         logits, uv = tout[0], tout[1]
+        mark("forward")
         losses = {"UV": w_uv * L.uv_loss(uv, b["dp_uv"], b["dp_parts"],
                                          count),
                   "Prob": w_prob * L.part_ce_loss(logits, b["dp_parts"],
@@ -541,15 +602,18 @@ def make_pretrain_uv_step(opt, transg, optimizer,
             losses["MSUV"] = opt.lambda_MS * (w_uv * ms_uv_l
                                               + w_prob * ms_ce_l)
         total = functools.reduce(torch.add, losses.values())
+        mark("losses")
         total.backward()
+        mark("backward")
         dp.all_reduce_grads(optimizer_params(optimizer))
-        optimizer.step()
-        state.step += 1
+        mark("grad_all_reduce")
+        _update(optimizer)
+        mark("update")
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
         return dp.all_reduce_metrics(metrics)
 
-    return step
+    return _single_net_step("pretrain_uv", transg, optimizer, body)
 
 
 def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
@@ -561,16 +625,20 @@ def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
     texture where the batch has one. static_tex (P, 3, T, T), tex_mask
     (P, 1, T, T) on the device.
 
-    step(state, batch) -> {"Tex_L1": loss}, updating texg and state.step
-    in place. Data parallel as make_train_step's (its means are plain)."""
+    step(state, batch, mark=None) -> {"Tex_L1": loss}, updating texg and
+    state.step in place; marks as make_pretrain_uv_step's. Captured on the
+    card, static_tex and tex_mask held by the capture. Data parallel as
+    make_train_step's (its means are plain)."""
     dp, _ = _parallel(dp)
 
-    def step(state, batch):
-        b = unpack_batch(batch, state.device)
+    def body(raw, mark=_no_mark):
+        b = dequantize(raw)
         pose = pose_from_batch(opt, b)
         gt = b["part_texture"].permute(0, 1, 4, 2, 3)     # (B, P, 3, T, T)
+        mark("inputs")
         optimizer.zero_grad(set_to_none=True)
         res = texg(pose)
+        mark("forward")
         if tex_mask is not None:
             res = res * tex_mask
         dyn = torch.clamp(static_tex[None] + res, -1.0, 1.0)
@@ -581,10 +649,14 @@ def make_pretrain_tex_step(opt, texg, optimizer, static_tex: torch.Tensor,
         if "pose_texture" in b:
             loss = loss + torch.abs(
                 dyn - b["pose_texture"].permute(0, 1, 4, 2, 3)).mean()
+        mark("losses")
         loss.backward()
+        mark("backward")
         dp.all_reduce_grads(optimizer_params(optimizer))
-        optimizer.step()
-        state.step += 1
+        mark("grad_all_reduce")
+        _update(optimizer)
+        mark("update")
         return dp.all_reduce_metrics({"Tex_L1": loss.detach()})
 
-    return step
+    return _single_net_step("pretrain_tex", texg, optimizer, body,
+                            keep=(static_tex, tex_mask))

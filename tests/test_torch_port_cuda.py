@@ -1108,3 +1108,162 @@ def test_graphed_forward_matches_eager_on_the_card(cuda):
         for k in ("fake", "fg", "mask", "uv", "probs"):
             assert torch.equal(got[k], want[k]), k
     assert fwd.program.captures == 2
+
+
+def _pretrain_case(kind, opt, dev):
+    """(net, make_step(net, optimizer), packed batches of 2) of a tiny
+    pretrain step of ``kind`` (uv: TransG; tex: TexG with part textures,
+    a pose texture, static_tex and tex_mask) on ``dev``."""
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.models.generators import TexG
+    from neural_human_video_rendering_tpu_torch.models.renderer import (
+        init_params, renderer_from_options)
+    from neural_human_video_rendering_tpu_torch.train.steps import (
+        make_pretrain_tex_step, make_pretrain_uv_step)
+    syn = dsm.SyntheticDataset(opt, length=6, seed=opt.seed)
+    samples = [syn[i] for i in range(6)]
+    if kind == "uv":
+        net = init_params(renderer_from_options(opt), 1).TransG.to(dev)
+
+        def make(n, o):
+            return make_pretrain_uv_step(opt, n, o)
+    else:
+        rng = np.random.default_rng(4)
+        static = np.clip(syn.texture_atlas() * 0.5, -1, 1).astype(np.float32)
+        for i, s in enumerate(samples):
+            s["part_texture"] = np.clip(static + 0.1 * np.sin(0.3 * i), -1,
+                                        1).astype(np.float32)
+            s["pose_texture"] = rng.uniform(-1, 1, static.shape).astype(
+                np.float32)
+        mask = (np.abs(static + 1.0).sum(-1, keepdims=True) > 0.05).astype(
+            np.float32)
+
+        def nchw(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.moveaxis(a, -1, -3))).to(dev)
+
+        torch.manual_seed(2)
+        net = TexG(opt.pose_nc, opt.n_parts, opt.tex_tile, opt.ngf_global,
+                   opt.n_downsample_global, opt.n_blocks_global, stem_s2d=2,
+                   head_s2d=2, pad_mode="same").to(dev)
+        tex_t, mask_t = nchw(static), nchw(mask)
+
+        def make(n, o):
+            return make_pretrain_tex_step(opt, n, o, tex_t, mask_t)
+    batches = [pack_batch(dsm.collate(samples[2 * i:2 * i + 2]))
+               for i in range(3)]
+    return net, make, batches
+
+
+@pytest.mark.parametrize("kind", ["uv", "tex"])
+def test_graphed_pretrain_step_matches_eager_on_the_card(cuda, kind, capsys):
+    """make_pretrain_uv_step / make_pretrain_tex_step's graphed route
+    against its eager route (a call with a mark) from one tiny start,
+    cuDNN deterministic. One SGD(1) step: the losses within 1e-5 relative
+    and the parameter changes (the gradients) within the parity tests'
+    form. Then 3 steps of the run's ScheduledAdam: step 1's losses within
+    1e-5, every graphed update equal to the eager update on the graph's
+    own gradients, the counts equal, one capture, no caught
+    out-of-memory error, no kernel launched."""
+    import copy
+
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.kernel_ab import \
+        graphed_update_err
+    from neural_human_video_rendering_tpu_torch.parallel.selfcheck import \
+        delta_ratio
+    from neural_human_video_rendering_tpu_torch.train.state import (
+        PretrainState, make_optimizer)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    opt = TrainOptions().parse(_TINY_TRAIN + ["--batchSize", "2", "--niter",
+                                              "1", "--niter_decay", "2"],
+                               save=False)
+    net0, make, batches = _pretrain_case(kind, opt, cuda)
+    start = {k: v.detach().clone() for k, v in net0.state_dict().items()}
+    eager_kw = {"mark": lambda n: None}
+    try:
+        sgd = {}
+        for name in ("eager", "graphed"):
+            net = copy.deepcopy(net0)
+            o = torch.optim.SGD(net.parameters(), lr=1.0)
+            st = PretrainState(step=0, net=net, optimizer=o, device=cuda)
+            step = make(net, o)
+            m = step(st, batches[0], **({} if name == "graphed" else eager_kw))
+            sgd[name] = ({k: float(v) for k, v in m.items()},
+                         {k: (v - start[k]).cpu()
+                          for k, v in net.state_dict().items()})
+        for k, v in sgd["eager"][0].items():
+            assert abs(sgd["graphed"][0][k] - v) <= 1e-5 * max(abs(v), 1e-12)
+        r = delta_ratio(sgd["graphed"][1], sgd["eager"][1], 1e-5, 1e-4)
+        assert r["ratio"] <= 1.0, r
+        runs = {}
+        for name in ("eager", "graphed"):
+            net = copy.deepcopy(net0)
+            o = make_optimizer(opt, net.named_parameters(), len(batches))
+            st = PretrainState(step=0, net=net, optimizer=o, device=cuda)
+            step = make(net, o)
+            tk.reset_launch_counts()
+            fk.reset_launch_counts()
+            losses, errs = [], []
+            for b in batches:
+                if name == "graphed":
+                    m, err = graphed_update_err(torch, st, step, b)
+                    errs.append(err)
+                else:
+                    m = step(st, b, **eager_kw)
+                losses.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs[name] = (losses, errs, st, step,
+                          _launches() + (fk.flow_warp_fwd.launches,))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (le, _, se, _, ne), (lg, eg, sg, gstep, ng) = runs["eager"], \
+        runs["graphed"]
+    name = f"pretrain_{kind}"
+    assert gstep.program.captures == 1 and gstep.program.num_ooms == 0
+    assert f"[{name}] graphed (CUDA graph" in capsys.readouterr().err
+    assert eg == [0.0] * 3, eg
+    assert ne == ng == (0, 0, 0, 0, 0)
+    for k, v in le[0].items():
+        assert abs(lg[0][k] - v) <= 1e-5 * max(abs(v), 1e-12), k
+    assert se.step == sg.step == 3
+    assert se.optimizer.count == sg.optimizer.count == 3
+    assert se.optimizer.freeze_count == sg.optimizer.freeze_count == 3
+
+
+def test_graphed_served_program_matches_eager_on_the_card(cuda, tmp_path,
+                                                          capsys):
+    """serve._Model on the card: the exported program graphed at its batch
+    (3; the sidecar held by the capture), a request of 1 and one of 3
+    replaying the one capture, their frames bit-equal to the module's
+    eager call on the same padded joints, one fused launch a request."""
+    from neural_human_video_rendering_tpu_torch import export_serving as es
+    from neural_human_video_rendering_tpu_torch import serve as srv
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    opt = TestOptions().parse((
+        "--loadSize 64 --tex_tile 16 --ngf 8 --ngf_global 8 "
+        "--n_blocks_translate 1 --n_downsample_translate 2 "
+        "--n_blocks_global 1 --n_downsample_global 1 --n_blocks_bg 1 "
+        "--n_downsample_bg 1 --pose_heatmaps --coord_conv --dtype float32 "
+        f"--gpu_ids 0 --checkpoints_dir {tmp_path}").split(), save=False)
+    path = str(tmp_path / "m.pt2")
+    es.save_artifact(opt, 3, path)
+    model = srv._Model(path, cuda)
+    assert model.program is not None and model.program.captures == 1
+    assert model.program.num_ooms == 0
+    ds = dsm.SyntheticDataset(opt, length=3)
+    joints = np.stack([ds[i]["joints"] for i in range(3)]).astype(np.float32)
+    for n in (1, 3):
+        padded = np.concatenate([joints[:n]] + [joints[n - 1:n]] * (3 - n))
+        want = model.forward(torch.from_numpy(padded).to(cuda))[:n].cpu()
+        tk.reset_launch_counts()
+        got = model.render(joints[:n])
+        assert _launches() == (0, 0, 1, 0)
+        np.testing.assert_array_equal(got, want.numpy())
+    assert model.program.captures == 1
+    assert "[serve] graphed (CUDA graph, 1 capture)" in capsys.readouterr().err

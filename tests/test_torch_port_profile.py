@@ -57,6 +57,25 @@ def test_cpu_trace_of_a_tiny_step(tmp_path, capsys):
     assert line["rows"] == out["rows"] and line["trace"] == str(tmp_path)
 
 
+@pytest.mark.parametrize("stage", ["uv", "tex"])
+def test_cpu_trace_of_a_tiny_pretrain_step(tmp_path, stage):
+    """--stage uv / tex: the pretrain step (profile_step.pretrain_case;
+    the texture step with the texel mask and the LaplaceProj stand-in)
+    traced and summed by line as the stage-2 step is."""
+    extra = (dict(use_mask_texture=True, use_laplace=True, input_nc=81)
+             if stage == "tex" else {})
+    opt = Options(**dict(STEP_FLAGS, **extra), gpu_ids="-1")
+    path = ps.run_trace(opt, str(tmp_path), steps=2, infer=False,
+                        stage=stage)
+    out = ps.analyze(path, top=1000)
+    assert out["events"] == "cpu ops" and out["steps"] == 2
+    _assert_rows(out)
+    frames = [r["frame"] for r in out["rows"]]
+    assert any("train/steps.py" in f for f in frames)
+    assert any("models/" in f and f.endswith("(backward)") for f in frames)
+    assert not any("ops/texture_warp" in f for f in frames)
+
+
 def test_trainer_profile_window_is_analyzable(tmp_path):
     prof = tmp_path / "prof"
     drivers.run_train(TrainOptions().parse(TINY + [
