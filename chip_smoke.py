@@ -234,6 +234,15 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      and the forward with w given on the --warp_block_parts 8 program),
      forward_s both ways. (e) No capture caught an out-of-memory error
      (compiled_pretrain_path has the details).
+ 17. the refusal of a caught out-of-memory error (train/graphs.py): a
+     float32 conv closure whose first cuDNN plan asks 9.20 GB of
+     workspace, at a shape no earlier phase runs, taken as a Program on
+     cuda:0 while a blocking tensor leaves 256 MB beyond its input and
+     output: graphs.CaughtOutOfMemory, naming the conv's line with a count
+     above 0, and nothing stored; the blocker freed, the same closure at
+     batch N + 1 captures with num_ooms 0 and replays bit-equal to its
+     eager call. Numbers: the check's seconds, the host cost of one
+     refuse_caught_ooms region (the eager step's check a call).
 The last lines are the script's total and each phase's wall seconds,
 the kernels' JSON, the nvidia-smi line, and {"ok": true, "device":
 {...}}. Without a CUDA card, or without the package beside this script,
@@ -4526,6 +4535,36 @@ def compiled_pretrain_path(torch, smoke, tk, fk, repo, dev, smi, programs):
     return out
 
 
+def caught_oom_path(torch, smoke, dev, smi):
+    """Phase 17: the refusal under a blocker and the clean capture after
+    it (graph_memory_probe.blocked_capture), and the check's host cost a
+    call (graph_memory_probe.region_us). Only this phase catches the
+    refusal, to require it."""
+    from neural_human_video_rendering_tpu_torch.parallel import \
+        graph_memory_probe as gmp
+    got = gmp.blocked_capture(torch, dev)
+    first = (got["refusal"] or "").split("\n")[0]
+    caught = re.search(r"refused: (\d+) out-of-memory", first)
+    print(f"[caught_oom] (a) under the blocker "
+          f"({got['free_left_bytes'] / 2**20:.1f} MiB left free): "
+          f"{got['refusal']}", flush=True)
+    smoke.require("(a) graphs.CaughtOutOfMemory under the blocker, naming "
+                  f"the conv's line ({got['conv_line']}), count above 0",
+                  caught is not None and int(caught.group(1)) > 0
+                  and got["conv_line"] in first, first)
+    smoke.require("(a) the refused capture is not stored",
+                  got["entries_after_refusal"] == 0)
+    smoke.require("(b) the blocker freed: batch N + 1 captures with "
+                  "num_ooms 0 and replays bit-equal to its eager call",
+                  got["clean_num_ooms"] == 0 and got["captures"] == 1
+                  and got["bit_equal"], json.dumps(
+                      {k: v for k, v in got.items() if k != "refusal"}))
+    got["region_us"] = gmp.region_us(torch, dev)
+    numbers = {k: v for k, v in got.items() if k != "refusal"}
+    print(f"[caught_oom] {json.dumps(numbers)} | {smi}", flush=True)
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4859,6 +4898,9 @@ def main() -> int:
     compiled16 = compiled_pretrain_path(torch, smoke, tk, fk, repo, dev, smi,
                                         serving11["programs"])
     done("16 compiled pretrains and server")
+    # ------------------------- 17. the refusal of a caught out-of-memory
+    caught_oom_path(torch, smoke, dev, smi)
+    done("17 caught out-of-memory refused")
     ab_launches = tools["ab"].get("launches", {})
     launches_tools = {
         "quality_profile (phase 9 g)": launch_bench.pop("quality_profile"),

@@ -215,14 +215,17 @@ def make_handler(model: _Model):
                 return self._json(400, {"error": str(e)})
             try:
                 frames = model.render(joints)
-            except Exception as e:   # the device failed: stop serving
+            except Exception as e:
+                # the device failed, or refused a program that caught an
+                # out-of-memory error (graphs.CaughtOutOfMemory): answer,
+                # stop serving and raise again (socketserver prints it)
                 model.failed = f"{type(e).__name__}: {e}"
                 print(f"[serve] render failed, stopping: {model.failed}",
                       file=sys.stderr, flush=True)
                 self._json(500, {"error": model.failed})
                 threading.Thread(target=self.server.shutdown,
                                  daemon=True).start()
-                return
+                raise
             # both encodes timed and recorded before the answer leaves, so
             # a client that reads model.timing on the reply finds them
             t0 = time.perf_counter()

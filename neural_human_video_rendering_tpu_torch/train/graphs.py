@@ -38,16 +38,33 @@ fails raises, naming the call that broke it: there is no fallback.
 
 Each capture keeps the allocator's record (``Program.memory``): the bytes
 reserved at its start, after the state's copy, after the warm-up, after
-the release and after the capture, the bytes its pool holds, the peak
-reserved, and the out-of-memory errors the allocator raised and a caller
-caught (``num_ooms`` of ``torch.cuda.memory_stats``) across the warm-up
-and the capture. cuDNN catches such an error while it picks an algorithm
-and takes another, which rounds differently, so a nonzero count means the
-step's bits depended on the memory free; it is printed on the capture's
-line and nothing is refused. Each capture keeps a pool of its own, which
-holds the step's activations: sharing one across a program's signatures
-would save memory only at a second signature (a partial last batch, a
-freeze boundary), not at a program's peak.
+the release and after the capture, the bytes its pool holds and the peak
+reserved. Each capture keeps a pool of its own, which holds the step's
+activations: sharing one across a program's signatures would save memory
+only at a second signature (a partial last batch, a freeze boundary), not
+at a program's peak.
+
+A caught out-of-memory error is refused. While it picks an algorithm,
+cuDNN catches an out-of-memory error on a plan's workspace and takes the
+next plan, which rounds differently, so a step that went on after one
+computes other bits than the same step on a free card. The warm-up and
+the capture run inside ``refuse_caught_ooms``: where the allocator's
+count of out-of-memory errors (``num_ooms``) rose and the closure still
+returned, it raises ``CaughtOutOfMemory``, naming the program, the ops'
+lines (an observer of the allocator's errors, attached once a process),
+the bytes asked and free and the allocator record; the capture is not
+stored and its pool goes. The JAX package's compiled step either fits or
+stops with RESOURCE_EXHAUSTED, and so does this one: nothing on the
+trainers' or the server's path catches the error. There is no second
+capture and no eager fallback: PyTorch keeps one cuDNN plan a shape for
+the process, the first that fitted, so a second capture after
+``torch.cuda.empty_cache()`` runs the fallback plan again and catches
+nothing (``graph_memory_probe --routes`` with 30 GB free on the H100:
+the same G err/tol 107 against the eager threads as the first capture's),
+and an eager step at that free memory caught an error of its own and
+read 0.094, not the free card's 6.3e-4. The eager closure beside a
+program (a call with ``mark``, ``train/steps.py``) runs every call inside
+the same check: a cached plan that stops fitting is searched again.
 
 The CPU has no graphs: there the callers run the eager closure.
 ``StandIn`` is a capture that records nothing and replays by running the
@@ -56,8 +73,10 @@ closure again, which lets the CPU tests drive a Program's bookkeeping.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
@@ -99,32 +118,176 @@ def _tree(x, fn):
     return fn(x) if torch.is_tensor(x) else x
 
 
+_HERE = os.path.abspath(__file__)
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
+
+
+def _show(f) -> str:
+    return f"{os.path.basename(f.filename)}:{f.lineno} ({f.line})"
+
+
+def _repo_frames(frames) -> list:
+    """The frames of this repository, this module's left out."""
+    return [f for f in frames if os.path.abspath(f.filename) != _HERE
+            and os.path.abspath(f.filename).startswith(_ROOT)]
+
+
 def _where(e: BaseException) -> str:
     """Where e was raised, this module's frames left out: the innermost
     frame, and the innermost of this repository's when it differs."""
-    here = os.path.abspath(__file__)
-    root = os.path.dirname(os.path.dirname(os.path.dirname(here)))
     frames = [f for f in traceback.extract_tb(e.__traceback__)
-              if os.path.abspath(f.filename) != here]
+              if os.path.abspath(f.filename) != _HERE]
     if not frames:
         return "?"
-
-    def show(f):
-        return f"{os.path.basename(f.filename)}:{f.lineno} ({f.line})"
-
-    ours = [f for f in frames if os.path.abspath(f.filename).startswith(root)]
+    ours = _repo_frames(frames)
     if not ours or ours[-1] is frames[-1]:
-        return show(frames[-1])
-    return f"{show(frames[-1])}, called from {show(ours[-1])}"
+        return _show(frames[-1])
+    return f"{_show(frames[-1])}, called from {_show(ours[-1])}"
+
+
+class CaughtOutOfMemory(RuntimeError):
+    """A region on the card raised an out-of-memory error that a caller
+    caught and went on from (the module docstring): refused, as a program
+    that does not fit is refused on the TPU."""
+
+
+def caught_ooms(device: torch.device) -> int:
+    """The out-of-memory errors the caching allocator has raised on
+    ``device`` so far (``num_ooms``); 0 on the CPU, whose allocator is not
+    read. ``refuse_caught_ooms`` reads the count here and only here."""
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.memory_stats_as_nested_dict(device)
+               .get("num_ooms", 0))
+
+
+# the out-of-memory errors the observer saw inside watched regions: one
+# dict each (device, bytes asked, bytes free, the op's line); the
+# observer is attached once a process and records only while a region
+# is watched (``_watchers`` counts them by thread)
+_sites: List[Dict[str, Any]] = []
+_watchers: Dict[int, int] = {}
+_watch_lock = threading.Lock()
+_observing: List[bool] = []
+
+
+def _op_line() -> str:
+    """The line of the op that asked for the memory: the innermost frame
+    of this repository in the allocating thread. A backward's ops run on
+    autograd's own thread, which has no such frame: then the autograd node
+    that ran and the line of the watched thread that called backward."""
+    ours = _repo_frames(traceback.extract_stack())
+    if ours:
+        return _show(ours[-1])
+    node = getattr(torch._C, "_current_autograd_node", lambda: None)()
+    node = type(node).__name__ if node is not None else "an autograd node"
+    frames = sys._current_frames()
+    callers = []
+    for t in list(_watchers):
+        theirs = _repo_frames(traceback.extract_stack(frames[t])) \
+            if t in frames else []
+        if theirs:
+            callers.append(_show(theirs[-1]))
+    return f"{node} in the backward of {' or '.join(callers) or '?'}"
+
+
+def _observed(device: int, asked: int, limit: int, free: int) -> None:
+    """The allocator's out-of-memory observer: it runs on every
+    out-of-memory error raised, caught by its caller or not. It must not
+    raise (the allocator would raise it from the op)."""
+    if not _watchers:
+        return
+    try:
+        where = _op_line()
+    except Exception as e:          # noqa: BLE001 - the op's line is a label
+        where = f"? ({type(e).__name__}: {e})"
+    _sites.append({"device": device, "asked": asked, "free": free,
+                   "where": where})
+
+
+def _observe() -> None:
+    """Attach the observer, once a process (it cannot be detached)."""
+    with _watch_lock:
+        if not _observing:
+            torch._C._cuda_attach_out_of_memory_observer(_observed)
+            _observing.append(True)
+
+
+def _gb(n: Optional[int]) -> str:
+    return "?" if n is None else f"{n / 1e9:.2f} GB"
+
+
+def _refusal(name: str, device: torch.device, what: str, caught: int,
+            sites: List[Dict[str, Any]],
+            record: Optional[Dict[str, Optional[int]]]) -> str:
+    """The message of a ``CaughtOutOfMemory``: its first line names the
+    program, the region and the op; then each error's bytes, the
+    allocator record and what to do."""
+    lines = sorted({s["where"] for s in sites}) or ["(the observer saw none)"]
+    out = [f"[{name}] refused: {caught} out-of-memory error"
+           f"{'s' if caught > 1 else ''} caught in {what} on {device}, at "
+           f"{'; '.join(lines)}"]
+    out += [f"  {s['where']}: asked {_gb(s['asked'])} with {_gb(s['free'])} "
+            f"free on the card" for s in sites]
+    if device.type == "cuda":
+        rec = dict(record or {})
+        rec.setdefault("reserved_now", torch.cuda.memory_reserved(device))
+        rec.setdefault("peak_reserved",
+                       torch.cuda.max_memory_reserved(device))
+        out.append("  allocator: " + ", ".join(
+            f"{k} {_gb(v)}" for k, v in rec.items() if k != "num_ooms"))
+    out.append(
+        "  cuDNN (or another caller) caught the error and went on with "
+        "another algorithm, which rounds differently: this run's arithmetic "
+        "would depend on the memory free. Free memory on the card (other "
+        "processes on it, tensors this process holds, "
+        "torch.cuda.empty_cache()) or lower the batch, and run again.")
+    return "\n".join(out)
+
+
+@contextlib.contextmanager
+def refuse_caught_ooms(name: str, device: torch.device, what: str,
+                       record: Optional[Dict[str, Optional[int]]] = None):
+    """Raise ``CaughtOutOfMemory`` after the region if the allocator's
+    count of out-of-memory errors (``caught_ooms``) rose inside it and
+    the region still returned: a caller caught the error and went on. Its
+    message (``_refusal``) names the program, ``what`` the region was, the
+    ops' lines with the bytes asked and free, and ``record`` (a capture's
+    allocator record so far). An error that leaves the region is not
+    replaced. On the CPU the count stays 0 and the region passes."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        _observe()
+    me = threading.get_ident()
+    with _watch_lock:
+        _watchers[me] = _watchers.get(me, 0) + 1
+        start = len(_sites)
+    before = caught_ooms(device)
+    try:
+        yield
+        caught = caught_ooms(device) - before
+    finally:
+        with _watch_lock:
+            sites = _sites[start:]
+            _watchers[me] -= 1
+            if not _watchers[me]:
+                del _watchers[me]
+            if not _watchers:
+                _sites.clear()
+    if caught > 0:
+        index = device.index if device.index is not None else (
+            torch.cuda.current_device() if device.type == "cuda" else None)
+        raise CaughtOutOfMemory(_refusal(
+            name, device, what, caught,
+            [s for s in sites if s["device"] == index], record))
 
 
 def _allocator(device: torch.device) -> Dict[str, int]:
     """The caching allocator's bytes reserved, peak reserved and caught
     out-of-memory errors on ``device``."""
-    stats = torch.cuda.memory_stats(device)
     return {"reserved": torch.cuda.memory_reserved(device),
             "peak_reserved": torch.cuda.max_memory_reserved(device),
-            "num_ooms": int(stats.get("num_ooms", 0))}
+            "num_ooms": caught_ooms(device)}
 
 
 def _pool_bytes(device: torch.device, pool) -> Optional[int]:
@@ -222,6 +385,11 @@ class _CudaCapture:
                     self.open = None
                 raise
 
+    def discard(self) -> None:
+        """Drop the graphs and outputs: the pool's blocks go back to the
+        allocator's cache."""
+        self.graphs, self.outputs = [], None
+
     def replay(self) -> None:
         for i, g in enumerate(self.graphs):
             g.replay()
@@ -253,6 +421,9 @@ class StandIn:
         with capturing(self):
             self.outputs = closure()
         self.closure = closure
+
+    def discard(self) -> None:
+        self.closure, self.outputs = None, None
 
     def replay(self) -> None:
         counts = _counts()
@@ -328,8 +499,9 @@ class Program:
 
     @property
     def num_ooms(self) -> int:
-        """Out-of-memory errors caught across every capture's warm-up and
-        capture (0 for a stand-in)."""
+        """Out-of-memory errors caught across every stored capture's
+        warm-up and capture: 0, since a capture that caught one is
+        refused (``refuse_caught_ooms``)."""
         return sum(m.get("num_ooms", 0) for m in self.memory)
 
     def clear(self) -> None:
@@ -372,41 +544,59 @@ class Program:
         closure = make_closure(static)
         counts = _counts()
         stream = torch.cuda.Stream(self.device) if cuda else None
-        self._warm_up(closure, state, stream, lambda: note("after_copy"))
+        n = self.captures + 1
+        try:
+            with refuse_caught_ooms(self.name, self.device,
+                                    f"the warm-up of capture {n}", mem):
+                self._warm_up(closure, state, stream,
+                              lambda: note("after_copy"))
+        finally:
+            for (w, a), m, c in zip(kernel_counters(), _counts(), counts):
+                if m != c:
+                    name = w.__name__ + ("" if a == "launches"
+                                         else "." + a[9:])
+                    self.warmup_launches[name] = \
+                        self.warmup_launches.get(name, 0) + m - c
+            _set_counts(counts)
         note("after_warmup")
-        for (w, a), m, n in zip(kernel_counters(), _counts(), counts):
-            if m != n:
-                name = w.__name__ + ("" if a == "launches" else "." + a[9:])
-                self.warmup_launches[name] = \
-                    self.warmup_launches.get(name, 0) + m - n
-        _set_counts(counts)
         if cuda:
             _release(self.device, state)
             note("after_release")
         cap = StandIn(self.device) if self.stand_in \
             else _CudaCapture(self.device)
         try:
-            if self.stand_in:      # it runs the closure: leave no trace
-                _preserving(state, lambda: cap.run(closure, stream))
-            else:
-                cap.run(closure, stream)
-            outputs = cap.outputs
-        except Exception as e:
-            raise RuntimeError(
-                f"[{self.name}] CUDA graph capture failed at {_where(e)}: "
-                f"{type(e).__name__}: {e}") from e
+            with refuse_caught_ooms(self.name, self.device,
+                                    f"capture {n}", mem):
+                try:
+                    if self.stand_in:  # it runs the closure: leave no trace
+                        _preserving(state, lambda: cap.run(closure, stream))
+                    else:
+                        cap.run(closure, stream)
+                        mem["pool_bytes"] = _pool_bytes(self.device, cap.pool)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"[{self.name}] CUDA graph capture failed at "
+                        f"{_where(e)}: {type(e).__name__}: {e}") from e
+        except CaughtOutOfMemory:
+            # not stored: its graphs, outputs and gradients go, and the
+            # pool's blocks with them
+            cap.discard()
+            _set_counts(counts)
+            if cuda:
+                _release(self.device, state)
+            raise
+        outputs = cap.outputs
         if cuda:
             torch.cuda.current_stream(self.device).wait_stream(stream)
-        launches = [(c, m - n) for c, m, n in
-                    zip(kernel_counters(), _counts(), counts) if m != n]
+        launches = [(c, m - k) for c, m, k in
+                    zip(kernel_counters(), _counts(), counts) if m != k]
         _set_counts(counts)
         self.captures += 1
         self.capture_s.append(time.perf_counter() - t0)
         if cuda:
             end = _allocator(self.device)
             note("after_capture")
-            mem.update(pool_bytes=_pool_bytes(self.device, cap.pool),
-                       peak_reserved=end["peak_reserved"],
+            mem.update(peak_reserved=end["peak_reserved"],
                        num_ooms=end["num_ooms"] - start["num_ooms"])
         self.memory.append(mem)
         lead = inputs.get("joints", next(iter(inputs.values()), None))

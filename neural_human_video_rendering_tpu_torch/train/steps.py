@@ -8,6 +8,7 @@ and texture pretrain steps (``make_pretrain_uv_step``,
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import sys
 from typing import Callable, Dict, Optional, Tuple
@@ -19,7 +20,7 @@ from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
 from ..data.wire import dequantize, host_tensors
 from ..parallel.mesh import DataParallel, optimizer_tensors
-from .graphs import Program
+from .graphs import Program, refuse_caught_ooms
 from .image_pool import pool_draws, pool_update
 from .state import ScheduledAdam
 
@@ -95,6 +96,17 @@ def _program(name: str, device: torch.device) -> Optional[Program]:
     """The captured program of a closure on ``device``: on the card a CUDA
     graph's, on the CPU none (the eager closure runs)."""
     return Program(name, device) if device.type == "cuda" else None
+
+
+def _eager_call(program: Optional[Program]):
+    """The guard of an eager call beside a program (a call with ``mark``
+    on the card): a call that caught an out-of-memory error is refused as
+    a capture is (``graphs.refuse_caught_ooms``), on every call, since a
+    cached cuDNN plan that stops fitting is searched again. None on the
+    CPU, where there is no program."""
+    if program is None:
+        return contextlib.nullcontext()
+    return refuse_caught_ooms(program.name, program.device, "an eager call")
 
 
 def make_forward_fn(opt, renderer, cluster_feats=None
@@ -296,7 +308,10 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     captures a second graph. The data-parallel collectives are host
     points between the graphs (gloo cannot be captured). A call with
     ``mark`` runs the eager step (the caller asked for per-phase times),
-    and so does every call on the CPU; the same code runs either way.
+    and so does every call on the CPU; the same code runs either way. On
+    the card a capture, or an eager call, in which a caller caught an
+    out-of-memory error and went on raises ``graphs.CaughtOutOfMemory``
+    (the step's arithmetic would depend on the memory free).
     """
     dp, count = _parallel(dp)
     use_temporal = opt.lambda_Temp > 0
@@ -475,9 +490,10 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         if program is None or mark is not None:
             _route("step", told["eager"], "eager (" + (
                 "per-phase marks" if program is not None else dev.type) + ")")
-            raw = {k: v.to(state.device, non_blocking=True)
-                   for k, v in host_tensors(batch).items()}
-            metrics = body(state, {**raw, **draws}, mark or _no_mark)
+            with _eager_call(program):
+                raw = {k: v.to(state.device, non_blocking=True)
+                       for k, v in host_tensors(batch).items()}
+                metrics = body(state, {**raw, **draws}, mark or _no_mark)
         else:
             # what the graphs address: a new state, optimizer state, EMA,
             # pool or assets drops the captures and captures anew
@@ -519,8 +535,10 @@ def _single_net_step(name: str, net: torch.nn.Module, optimizer,
     and buffers and the optimizer's tensors as the state a capture's
     warm-up saves and restores. A call with ``mark`` runs the eager body
     (the caller asked for per-phase times), and so does every call on the
-    CPU; the same code runs either way. A plain optimizer (not a
-    ScheduledAdam) steps inside the body."""
+    CPU; the same code runs either way. On the card both routes refuse a
+    caught out-of-memory error (``graphs.CaughtOutOfMemory``), as
+    make_train_step's do. A plain optimizer (not a ScheduledAdam) steps
+    inside the body."""
     dev = _module_device(net)
     program = _program(name, dev)
     told: Dict[str, list] = {"eager": [], "graphed": []}
@@ -537,9 +555,10 @@ def _single_net_step(name: str, net: torch.nn.Module, optimizer,
         if program is None or mark is not None:
             _route(name, told["eager"], "eager (" + (
                 "per-phase marks" if program is not None else dev.type) + ")")
-            raw = {k: v.to(state.device, non_blocking=True)
-                   for k, v in host_tensors(batch).items()}
-            metrics = body(raw, mark or _no_mark)
+            with _eager_call(program):
+                raw = {k: v.to(state.device, non_blocking=True)
+                       for k, v in host_tensors(batch).items()}
+                metrics = body(raw, mark or _no_mark)
         else:
             # what the graphs address: a new net, optimizer state (a
             # resume) or asset drops the captures and captures anew

@@ -1267,3 +1267,26 @@ def test_graphed_served_program_matches_eager_on_the_card(cuda, tmp_path,
         np.testing.assert_array_equal(got, want.numpy())
     assert model.program.captures == 1
     assert "[serve] graphed (CUDA graph, 1 capture)" in capsys.readouterr().err
+
+
+def test_a_capture_that_caught_an_out_of_memory_error_is_refused(cuda):
+    """A conv's Program (batch 8, 128 channels, 128^2, 5x5, float32) taken
+    while a blocking tensor leaves less free memory than cuDNN's first
+    plan asks as workspace (9.20 GB on the H100)
+    (graph_memory_probe.blocked_capture): graphs.CaughtOutOfMemory,
+    naming the conv's line, with a count above 0, and nothing stored; the
+    blocker freed, the same closure at a fresh shape captures with no
+    caught error and replays bit-equal to its eager call."""
+    import re
+
+    from neural_human_video_rendering_tpu_torch.parallel import \
+        graph_memory_probe as gmp
+    got = gmp.blocked_capture(torch, cuda)
+    first = (got["refusal"] or "").splitlines()[0] if got["refusal"] else ""
+    caught = re.search(r"refused: (\d+) out-of-memory error", first)
+    assert caught is not None and int(caught.group(1)) > 0, got
+    assert got["conv_line"] in first, first
+    assert "arithmetic would depend on the memory free" in got["refusal"]
+    assert got["entries_after_refusal"] == 0
+    assert got["clean_num_ooms"] == 0 and got["captures"] == 1
+    assert got["bit_equal"]
