@@ -1,0 +1,7 @@
+"""Seconds the rendering forward's CUDA-graph captures took (Program.capture_s, summed)."""
+
+from perfbench.harness import readers
+
+
+def read(r):
+    return readers.capture_s(r, "render")
