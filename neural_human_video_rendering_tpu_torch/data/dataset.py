@@ -25,6 +25,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils.image import read_image, resize
+from ..utils.spans import span
 from . import densepose as dp
 from . import keypoints as kp
 from . import laplace as lp
@@ -565,7 +566,10 @@ class BatchLoader:
     unless drop_last=False. Before each epoch the dataset's ``epoch`` (if
     it has one) is set, so FrameDataset's per-(seed, epoch, index)
     augmentation advances. ``transform`` runs on each collated batch in the
-    thread (wire.pack_batch).
+    thread (wire.pack_batch). Assembling batch ``b`` is the span
+    ``data.batch`` on that thread (``utils/spans.py``), which a
+    ``--profile_dir`` trace carries beside the trainer's
+    ``loop.next_batch``.
 
     ``shard=(index, count)``: rank ``index`` of ``count`` reads a disjoint
     1/count of every epoch: the epoch order (the same shuffle on every
@@ -621,9 +625,11 @@ class BatchLoader:
                 for b in range(len(self)):
                     if stop.is_set():
                         return
-                    batch = collate(fetch(order[b * self.bs:(b + 1) * self.bs]))
-                    if self.transform is not None:
-                        batch = self.transform(batch)
+                    with span("data.batch", b=b):
+                        batch = collate(
+                            fetch(order[b * self.bs:(b + 1) * self.bs]))
+                        if self.transform is not None:
+                            batch = self.transform(batch)
                     q.put(batch)
             except BaseException as e:          # surfaced in the consumer
                 q.put(e)

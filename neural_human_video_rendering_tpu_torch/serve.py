@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import itertools
 import json
 import os
 import sys
@@ -67,6 +68,7 @@ from .config import resolve_device
 from .ops import flow_warp_kernel  # noqa: F401  (registers nhvr_torch::)
 from .ops import texture_warp_kernel  # noqa: F401
 from .utils.image import _cv2, encode_png
+from .utils.spans import span
 
 SIDECAR = ".params"
 
@@ -99,6 +101,7 @@ class _Model:
         self.failed: Optional[str] = None
         # seconds of the last request's parts (device forward, host copy)
         self.timing = {}
+        self.requests = itertools.count()
         from .train import steps
         self.program = steps._program("serve", self.device)
         self.route = ""
@@ -111,17 +114,36 @@ class _Model:
     def render(self, joints: np.ndarray) -> np.ndarray:
         """(N, 18, 3) joints, N <= batch -> (N, S, S, 3) frames: uint8 for
         export_serving's default program, float in [-1, 1] for a
-        --raw_float one."""
+        --raw_float one.
+
+        Spans (``utils/spans.py``), each with the request's id ``rid``:
+        ``serve.request`` (with ``n`` and the compiled ``batch``) holds
+        ``serve.lock_wait`` (from asking for the lock to holding it) and,
+        on the device thread, ``serve.device``, which holds
+        ``serve.forward`` (the program's own spans inside) and
+        ``serve.transfer``."""
         n = joints.shape[0]
         if n > self.batch:
             raise ValueError(f"request batch {n} > compiled batch "
                              f"{self.batch}")
-        padded = np.zeros(self.in_shape, np.float32)
-        padded[:n] = joints
-        if n < self.batch:
-            padded[n:] = joints[-1]
-        with self.lock:
-            return self.device_thread.submit(self._call, padded, n).result()
+        rid = next(self.requests)
+        with span("serve.request", rid=rid, n=n, batch=self.batch):
+            padded = np.zeros(self.in_shape, np.float32)
+            padded[:n] = joints
+            if n < self.batch:
+                padded[n:] = joints[-1]
+            with span("serve.lock_wait", rid=rid):
+                self.lock.acquire()
+            try:
+                return self.device_thread.submit(
+                    self._device, rid, padded, n).result()
+            finally:
+                self.lock.release()
+
+    def _device(self, rid: int, padded: np.ndarray, n: int) -> np.ndarray:
+        """The device thread's part of request ``rid``."""
+        with span("serve.device", rid=rid):
+            return self._call(padded, n)
 
     def forward(self, joints: torch.Tensor) -> torch.Tensor:
         """The program's eager call on (batch, 18, 3) joints on the device
@@ -133,27 +155,27 @@ class _Model:
     def _call(self, padded: np.ndarray, n: int) -> np.ndarray:
         x = torch.from_numpy(padded)
         with torch.no_grad():
-            t0 = time.perf_counter()
-            if self.program is None:
-                out = self.forward(x.to(self.device))
-                how = f"eager ({self.device.type})"
-            else:
-                # one capture: the compiled batch, the sidecar held by it
-                key = (self.in_shape, id(self.params))
-                out = self.program(
-                    key, {"joints": x},
-                    lambda st: lambda: self.forward(st["joints"]),
-                    keep=(self.module, self.params))
-                how = self.program.route
-            if out.is_cuda:
-                torch.cuda.synchronize(out.device)
-            t1 = time.perf_counter()
-            host = out[:n].cpu().numpy()
+            with span("serve.forward") as forward:
+                if self.program is None:
+                    out = self.forward(x.to(self.device))
+                    how = f"eager ({self.device.type})"
+                else:
+                    # one capture: the compiled batch, the sidecar held by it
+                    key = (self.in_shape, id(self.params))
+                    out = self.program(
+                        key, {"joints": x},
+                        lambda st: lambda: self.forward(st["joints"]),
+                        keep=(self.module, self.params))
+                    how = self.program.route
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+            with span("serve.transfer") as transfer:
+                host = out[:n].cpu().numpy()
         if not self.route:
             self.route = how
             print(f"[serve] {how}", file=sys.stderr, flush=True)
-        self.timing = {"forward_s": t1 - t0,
-                       "transfer_s": time.perf_counter() - t1}
+        self.timing = {"forward_s": forward.seconds,
+                       "transfer_s": transfer.seconds}
         return host
 
 

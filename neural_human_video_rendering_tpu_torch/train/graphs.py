@@ -77,7 +77,6 @@ import contextlib
 import os
 import sys
 import threading
-import time
 import traceback
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 
@@ -86,6 +85,7 @@ import torch
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
 from ..utils.host_point import capturing, host_point  # noqa: F401
+from ..utils.spans import device_mark, span
 
 # calls of the closure on the side stream before a capture
 WARMUP = 3
@@ -471,7 +471,16 @@ class Program:
     graphed (CUDA graph, capture n: ...)``, with the capture's caught
     out-of-memory errors and the peak reserved. ``warmup_launches`` maps
     each counter (``wrapper`` or ``wrapper.attribute``) to the launches
-    the warm-up calls made on the card, which the counters leave out."""
+    the warm-up calls made on the card, which the counters leave out.
+
+    ``name`` also prefixes the program's spans (``utils/spans.py``): a
+    call is ``name.copy_in`` (the inputs into the static buffers),
+    ``name.replay`` (the graph chain's launch) and ``name.clone_out``; a
+    capture is ``name.capture``, whose seconds ``capture_s`` keeps. With
+    ``marks`` set (the stage-2 step's program), the device marks
+    ``name.replay.begin`` and ``name.replay.end`` lie on the card's
+    stream before the replay and after its last graph; a stand-in records
+    none."""
 
     def __init__(self, name: str, device: torch.device,
                  stand_in: bool = False):
@@ -483,6 +492,7 @@ class Program:
         self.stand_in = stand_in
         self.entries: Dict[Hashable, _Entry] = {}
         self.captures = 0
+        self.marks = False
         self.capture_s: List[float] = []
         self.warmup_launches: Dict[str, int] = {}
         # each capture's allocator record (the module docstring); empty
@@ -519,80 +529,92 @@ class Program:
         if entry is None:
             entry = self._capture(sig, inputs, make_closure, state, keep)
             self.entries[sig] = entry
-        for k, v in inputs.items():
-            entry.inputs[k].copy_(v, non_blocking=True)
-        entry.capture.replay()
-        for (w, a), n in entry.launches:
-            setattr(w, a, getattr(w, a) + n)
-        return _tree(entry.outputs, torch.clone)
+        name, marks = self.name, self.marks and not self.stand_in
+        with span(name + ".copy_in"):
+            for k, v in inputs.items():
+                entry.inputs[k].copy_(v, non_blocking=True)
+        with span(name + ".replay"):
+            if marks:
+                device_mark(name + ".replay.begin", self.device)
+            entry.capture.replay()
+            if marks:
+                device_mark(name + ".replay.end", self.device)
+            for (w, a), n in entry.launches:
+                setattr(w, a, getattr(w, a) + n)
+        with span(name + ".clone_out"):
+            return _tree(entry.outputs, torch.clone)
 
     def _capture(self, sig, inputs, make_closure, state, keep) -> _Entry:
-        t0 = time.perf_counter()
-        cuda = not self.stand_in
-        mem: Dict[str, Optional[int]] = {}
+        with span(self.name + ".capture", capture=self.captures + 1) as sp:
+            cuda = not self.stand_in
+            mem: Dict[str, Optional[int]] = {}
 
-        def note(at: str) -> None:
-            if cuda:
-                mem[f"reserved_{at}"] = _allocator(self.device)["reserved"]
+            def note(at: str) -> None:
+                if cuda:
+                    mem[f"reserved_{at}"] = \
+                        _allocator(self.device)["reserved"]
 
-        start = _allocator(self.device) if cuda else None
-        note("start")
-        static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                  for k, v in inputs.items()}
-        for k, v in inputs.items():
-            static[k].copy_(v)
-        closure = make_closure(static)
-        counts = _counts()
-        stream = torch.cuda.Stream(self.device) if cuda else None
-        n = self.captures + 1
-        try:
-            with refuse_caught_ooms(self.name, self.device,
-                                    f"the warm-up of capture {n}", mem):
-                self._warm_up(closure, state, stream,
-                              lambda: note("after_copy"))
-        finally:
-            for (w, a), m, c in zip(kernel_counters(), _counts(), counts):
-                if m != c:
-                    name = w.__name__ + ("" if a == "launches"
-                                         else "." + a[9:])
-                    self.warmup_launches[name] = \
-                        self.warmup_launches.get(name, 0) + m - c
-            _set_counts(counts)
-        note("after_warmup")
-        if cuda:
-            _release(self.device, state)
-            note("after_release")
-        cap = StandIn(self.device) if self.stand_in \
-            else _CudaCapture(self.device)
-        try:
-            with refuse_caught_ooms(self.name, self.device,
-                                    f"capture {n}", mem):
-                try:
-                    if self.stand_in:  # it runs the closure: leave no trace
-                        _preserving(state, lambda: cap.run(closure, stream))
-                    else:
-                        cap.run(closure, stream)
-                        mem["pool_bytes"] = _pool_bytes(self.device, cap.pool)
-                except Exception as e:
-                    raise RuntimeError(
-                        f"[{self.name}] CUDA graph capture failed at "
-                        f"{_where(e)}: {type(e).__name__}: {e}") from e
-        except CaughtOutOfMemory:
-            # not stored: its graphs, outputs and gradients go, and the
-            # pool's blocks with them
-            cap.discard()
-            _set_counts(counts)
+            start = _allocator(self.device) if cuda else None
+            note("start")
+            static = {k: torch.empty(v.shape, dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in inputs.items()}
+            for k, v in inputs.items():
+                static[k].copy_(v)
+            closure = make_closure(static)
+            counts = _counts()
+            stream = torch.cuda.Stream(self.device) if cuda else None
+            n = self.captures + 1
+            try:
+                with refuse_caught_ooms(self.name, self.device,
+                                        f"the warm-up of capture {n}", mem):
+                    self._warm_up(closure, state, stream,
+                                  lambda: note("after_copy"))
+            finally:
+                for (w, a), m, c in zip(kernel_counters(), _counts(), counts):
+                    if m != c:
+                        name = w.__name__ + ("" if a == "launches"
+                                             else "." + a[9:])
+                        self.warmup_launches[name] = \
+                            self.warmup_launches.get(name, 0) + m - c
+                _set_counts(counts)
+            note("after_warmup")
             if cuda:
                 _release(self.device, state)
-            raise
-        outputs = cap.outputs
-        if cuda:
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-        launches = [(c, m - k) for c, m, k in
-                    zip(kernel_counters(), _counts(), counts) if m != k]
-        _set_counts(counts)
+                note("after_release")
+            cap = StandIn(self.device) if self.stand_in \
+                else _CudaCapture(self.device)
+            try:
+                with refuse_caught_ooms(self.name, self.device,
+                                        f"capture {n}", mem):
+                    try:
+                        if self.stand_in:  # it runs the closure: no trace
+                            _preserving(state,
+                                        lambda: cap.run(closure, stream))
+                        else:
+                            cap.run(closure, stream)
+                            mem["pool_bytes"] = _pool_bytes(self.device,
+                                                            cap.pool)
+                    except Exception as e:
+                        raise RuntimeError(
+                            f"[{self.name}] CUDA graph capture failed at "
+                            f"{_where(e)}: {type(e).__name__}: {e}") from e
+            except CaughtOutOfMemory:
+                # not stored: its graphs, outputs and gradients go, and the
+                # pool's blocks with them
+                cap.discard()
+                _set_counts(counts)
+                if cuda:
+                    _release(self.device, state)
+                raise
+            outputs = cap.outputs
+            if cuda:
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+            launches = [(c, m - k) for c, m, k in
+                        zip(kernel_counters(), _counts(), counts) if m != k]
+            _set_counts(counts)
         self.captures += 1
-        self.capture_s.append(time.perf_counter() - t0)
+        self.capture_s.append(sp.seconds)
         if cuda:
             end = _allocator(self.device)
             note("after_capture")

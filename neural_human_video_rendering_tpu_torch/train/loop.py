@@ -10,7 +10,13 @@ Two debugging flags act here, for every stage:
   * --profile_dir: a torch.profiler window over this run's steps
     [profile_start, profile_start + profile_steps), written as a Chrome
     trace under --profile_dir (the JAX loop writes a jax.profiler trace of
-    the same window);
+    the same window). Besides the profiler's own events it carries the
+    port's spans (``utils/spans.py``): those of this thread as the
+    profiler's annotations (``loop.next_batch``, the wait for the
+    loader; ``step.prepare``; a captured program's ``<name>.copy_in``,
+    ``.replay`` and ``.clone_out``), those of other threads (the
+    loader's ``data.batch``) as events of category ``span`` on their own
+    thread's row;
   * --debug_nans: every step's losses are checked for NaN / inf (one
     device sync a step, so only with the flag); a non-finite loss raises
     FloatingPointError naming it.
@@ -23,14 +29,20 @@ for its processes).
 
 from __future__ import annotations
 
+import itertools
+import json
 import os
+import threading
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
 from ..parallel.mesh import DataParallel
+from ..utils import spans
 from ..utils.visualizer import Visualizer
+
+_END = object()
 
 
 def check_finite(metrics: Dict[str, torch.Tensor], step: int) -> None:
@@ -51,7 +63,10 @@ class ProfileWindow:
     (counted from 0), CPU and, on the card, CUDA activity, with Python
     stacks (``profile_step --analyze`` reads them), exported as
     {profile_dir}/steps_{first}-{last}{tag}.trace.json (tag: _rank{r} on
-    each rank of a data-parallel run)."""
+    each rank of a data-parallel run). The spans that other threads
+    recorded during the window are added to it (``spans.chrome_events``):
+    the profiler records annotations only on the thread that started
+    it."""
 
     def __init__(self, opt, cuda: bool, tag: str = ""):
         self.dir = opt.profile_dir
@@ -70,6 +85,8 @@ class ProfileWindow:
             self.prof = profile(activities=acts, with_stack=True)
             self.prof.start()
             self.first = total
+            self.since_ns = time.perf_counter_ns()
+            self.tid = threading.get_native_id()
 
     def after_step(self, total: int) -> None:
         if self.prof is not None and total >= self.stop_at:
@@ -86,8 +103,22 @@ class ProfileWindow:
             self.dir, f"steps_{self.first}-{total - 1}{self.tag}.trace.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
+        self._add_spans(path)
         print(f"[profile] trace of steps {self.first}-{total - 1} written "
               f"-> {path}", flush=True)
+
+    def _add_spans(self, path: str) -> None:
+        """Write the window's spans of other threads into the trace."""
+        recs = [r for r in spans.records()
+                if r.start_ns >= self.since_ns and r.tid != self.tid]
+        if not recs:
+            return
+        with open(path) as f:
+            trace = json.load(f)
+        trace["traceEvents"].extend(spans.chrome_events(
+            int(trace.get("baseTimeNanoseconds", 0)), recs))
+        with open(path, "w") as f:
+            json.dump(trace, f)
 
 
 def run_training(opt, loader, step_fn: Callable, state, epochs: int,
@@ -127,7 +158,11 @@ def run_training(opt, loader, step_fn: Callable, state, epochs: int,
             cut = False
             batches = iter(loader)
             try:
-                for it, batch in enumerate(batches):
+                for it in itertools.count():
+                    with spans.span("loop.next_batch"):
+                        batch = next(batches, _END)
+                    if batch is _END:
+                        break
                     if max_steps is not None and total >= max_steps:
                         cut = True
                         break

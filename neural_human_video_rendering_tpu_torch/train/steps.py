@@ -20,6 +20,7 @@ from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
 from ..data.wire import dequantize, host_tensors
 from ..parallel.mesh import DataParallel, optimizer_tensors
+from ..utils.spans import span
 from .graphs import Program, refuse_caught_ooms
 from .image_pool import pool_draws, pool_update
 from .state import ScheduledAdam
@@ -311,7 +312,9 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     and so does every call on the CPU; the same code runs either way. On
     the card a capture, or an eager call, in which a caller caught an
     out-of-memory error and went on raises ``graphs.CaughtOutOfMemory``
-    (the step's arithmetic would depend on the memory free).
+    (the step's arithmetic would depend on the memory free). The host's
+    part before the device work (the learning rates, the step counter,
+    the pool's draws) is the span ``step.prepare`` (``utils/spans.py``).
     """
     dp, count = _parallel(dp)
     use_temporal = opt.lambda_Temp > 0
@@ -325,6 +328,8 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     scheduled = [o for o in (g_opt, d_opt) if isinstance(o, ScheduledAdam)]
     dev = _module_device(renderer)
     program = _program("step", dev)
+    if program is not None:
+        program.marks = True   # read by replay_ms.train, replay_gap_ms.train
     told: Dict[str, list] = {"eager": [], "graphed": []}
     held = [None]
 
@@ -486,7 +491,8 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         return out + [state.step_t]
 
     def step(state, batch, mark: Optional[Callable[[str], None]] = None):
-        draws = prepare(state, batch)
+        with span("step.prepare"):
+            draws = prepare(state, batch)
         if program is None or mark is not None:
             _route("step", told["eager"], "eager (" + (
                 "per-phase marks" if program is not None else dev.type) + ")")
