@@ -16,14 +16,21 @@ API (the JAX server's):
   POST /render           body {"joints": [[[x, y, conf] * 18] * N]}, N <= B
                          -> {"frames": ["<base64 PNG>", ...]} (N entries)
 
-The program has a fixed batch B: a request of N < B frames is padded with
-its last frame's joints and the padding sliced off the answer. One lock
-serializes the device calls, which run on one long-lived thread (the HTTP
-server starts a thread per request, and a new thread rebuilds cuDNN's
-per-thread plan cache). A malformed body (or N > B) gets 400 with
-{"error"}; a failure of the device gets 500, and the server then stops and
-exits non-zero (a failed kernel build or launch raises: there is no
-fallback).
+The program has a fixed batch B, and requests that queue for the device
+share its replays: when the device frees, the next replay takes every
+request already queued, in arrival order, up to the first whose frames
+would not fit in the B slots beside those taken before it (no later
+request overtakes it). Their joints are packed into one batch, padded
+after the last frame with that frame's joints, and each request gets its
+own slice of the frames. Nothing waits to fill a batch: a request that
+finds the device idle is replayed at once, alone, and a request of B
+frames always rides alone. The replays run on one long-lived device
+thread (the HTTP server starts a thread per request, and a new thread
+rebuilds cuDNN's per-thread plan cache); a replay that fails raises its
+exception in every request it carried. A malformed body (or N > B) gets
+400 with {"error"}; a failure of the device gets 500, and the server then
+stops and exits non-zero (a failed kernel build or launch raises: there
+is no fallback).
 
 The program names the port's operators (``nhvr_torch::``), which must be
 registered before ``torch.export.load``: this module imports
@@ -37,12 +44,12 @@ request does not; its seconds are printed.
 On the card the program runs as a CUDA graph (``train/graphs.py``, the
 counterpart of the JAX server's compiled ``Exported.call``): the warm-up
 call captures it, on the device thread, at the compiled batch, and every
-request copies its padded joints into the graph's input and replays it,
-whatever its N. The kernels' launch counters count one program's
-launches a replay. On the CPU the module runs eagerly. The route is
-printed once (``[serve] graphed (CUDA graph, 1 capture)`` or ``[serve]
-eager (cpu)``). --port 0 binds a free port;
-the start-up line names the port bound. On SIGINT the server stops, prints
+replay copies its packed joints into the graph's input and replays it,
+whatever the frames it carries. The kernels' launch counters count one
+program's launches a replay. On the CPU the module runs eagerly. The
+route is printed once (``[serve] graphed (CUDA graph, 1 capture)`` or
+``[serve] eager (cpu)``). --port 0 binds a free port; the start-up line
+names the port bound. On SIGINT the server stops, prints
 its kernel launches (``[kernels] launches ...``) and exits 0 (1 after a
 device failure).
 """
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import itertools
 import json
 import os
@@ -95,11 +103,16 @@ class _Model:
         self.in_shape = tuple(nodes[sig.user_inputs[-1]].meta["val"].shape)
         self.batch = self.in_shape[0]
         self.out_shape = tuple(nodes[sig.user_outputs[0]].meta["val"].shape)
-        self.lock = threading.Lock()
+        # requests not yet taken up by a replay, in arrival order, and
+        # whether a replay is being packed or is on the device; both
+        # guarded by `queue`
+        self.queue = threading.Condition()
+        self.pending: "collections.deque[_Request]" = collections.deque()
+        self.busy = False
         self.device_thread = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="serve-device")
         self.failed: Optional[str] = None
-        # seconds of the last request's parts (device forward, host copy)
+        # seconds of the last replay's parts (device forward, host copy)
         self.timing = {}
         self.requests = itertools.count()
         from .train import steps
@@ -114,12 +127,18 @@ class _Model:
     def render(self, joints: np.ndarray) -> np.ndarray:
         """(N, 18, 3) joints, N <= batch -> (N, S, S, 3) frames: uint8 for
         export_serving's default program, float in [-1, 1] for a
-        --raw_float one.
+        --raw_float one. The request is queued for the device and rides
+        in the next replay that has room for it (the module docstring);
+        its frames are its slice of that replay's frames.
 
         Spans (``utils/spans.py``), each with the request's id ``rid``:
         ``serve.request`` (with ``n`` and the compiled ``batch``) holds
-        ``serve.lock_wait`` (from asking for the lock to holding it) and,
-        on the device thread, ``serve.device``, which holds
+        ``serve.lock_wait``, from asking for the device to the moment the
+        request's replay takes it up: for the request whose thread starts
+        the replay, when it holds the device; for one that rides along,
+        when it is taken into the batch. On the device thread,
+        ``serve.device`` (``rid`` the request's id where the replay serves
+        one request, the tuple of their ids where it serves several) holds
         ``serve.forward`` (the program's own spans inside) and
         ``serve.transfer``."""
         n = joints.shape[0]
@@ -128,20 +147,71 @@ class _Model:
                              f"{self.batch}")
         rid = next(self.requests)
         with span("serve.request", rid=rid, n=n, batch=self.batch):
-            padded = np.zeros(self.in_shape, np.float32)
-            padded[:n] = joints
-            if n < self.batch:
-                padded[n:] = joints[-1]
+            request = _Request(rid, joints)
             with span("serve.lock_wait", rid=rid):
-                self.lock.acquire()
-            try:
-                return self.device_thread.submit(
-                    self._device, rid, padded, n).result()
-            finally:
-                self.lock.release()
+                carried = self._take_up(request)
+            if carried:
+                self._replay(carried)
+            request.done.wait()
+            if request.error is not None:
+                raise request.error
+            return request.frames
 
-    def _device(self, rid: int, padded: np.ndarray, n: int) -> np.ndarray:
-        """The device thread's part of request ``rid``."""
+    def _take_up(self, request: "_Request") -> list:
+        """Queues `request` and waits until a replay takes it up. Returns
+        the requests of the replay this thread is to start (`request`
+        first) where `request` heads the queue when the device is free,
+        or [] where another request's replay has taken it."""
+        with self.queue:
+            self.pending.append(request)
+            while not request.taken:
+                if not self.busy and self.pending[0] is request:
+                    self.busy = True
+                    carried, frames = [], 0
+                    while (self.pending and frames + len(
+                            self.pending[0].joints) <= self.batch):
+                        head = self.pending.popleft()
+                        head.taken = True
+                        carried.append(head)
+                        frames += len(head.joints)
+                    self.queue.notify_all()     # the riders stop waiting
+                    return carried
+                self.queue.wait()
+            return []
+
+    def _replay(self, carried: list) -> None:
+        """One replay of the requests `carried` (its device call on the
+        device thread): hands each request its frames, or the replay's
+        exception (raised here too), and frees the device for the next
+        request in the queue."""
+        n = sum(len(r.joints) for r in carried)
+        padded = np.zeros(self.in_shape, np.float32)
+        padded[:n] = np.concatenate([r.joints for r in carried])
+        if n < self.batch:
+            padded[n:] = carried[-1].joints[-1]
+        rid = (carried[0].rid if len(carried) == 1
+               else tuple(r.rid for r in carried))
+        try:
+            out = self.device_thread.submit(self._device, rid, padded,
+                                            n).result()
+        except BaseException as e:   # every request it carried raises it
+            for r in carried:
+                r.error = e
+            raise
+        else:
+            at = 0
+            for r in carried:
+                r.frames = _part(out, at, at + len(r.joints))
+                at += len(r.joints)
+        finally:
+            with self.queue:
+                self.busy = False
+                self.queue.notify_all()
+            for r in carried:
+                r.done.set()
+
+    def _device(self, rid, padded: np.ndarray, n: int) -> np.ndarray:
+        """The device thread's part of the replay of request(s) ``rid``."""
         with span("serve.device", rid=rid):
             return self._call(padded, n)
 
@@ -153,6 +223,9 @@ class _Model:
                     if self.params is not None else self.module(joints))
 
     def _call(self, padded: np.ndarray, n: int) -> np.ndarray:
+        """The one device call of a replay: (batch, 18, 3) packed joints ->
+        the first `n` frames on the host. ``timing`` then holds the
+        replay's ``forward_s`` and ``transfer_s``."""
         x = torch.from_numpy(padded)
         with torch.no_grad():
             with span("serve.forward") as forward:
@@ -177,6 +250,31 @@ class _Model:
         self.timing = {"forward_s": forward.seconds,
                        "transfer_s": transfer.seconds}
         return host
+
+
+class _Request:
+    """One ``render`` call: its joints, whether a replay has taken it up,
+    and, once ``done`` is set, its frames or the replay's exception."""
+
+    __slots__ = ("rid", "joints", "taken", "done", "frames", "error")
+
+    def __init__(self, rid: int, joints: np.ndarray):
+        self.rid = rid
+        self.joints = joints
+        self.taken = False
+        self.done = threading.Event()
+        self.frames: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+
+
+def _part(frames: np.ndarray, start: int, stop: int) -> np.ndarray:
+    """Frames [start, stop) of a replay's answer. Where ``_call`` returned
+    an ndarray subclass with instance attributes (a wrapper of ``_call``
+    marks its array so), the part carries the same attributes."""
+    part = frames[start:stop]
+    if hasattr(frames, "__dict__"):
+        part.__dict__.update(frames.__dict__)
+    return part
 
 
 def _png_b64(frame: np.ndarray) -> str:

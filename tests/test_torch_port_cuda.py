@@ -2,7 +2,8 @@
 PyTorch version at small shapes, the launch counters, the wrappers'
 refusals, a backward through a tiny renderer on the card against the CPU,
 a checkpoint saved on the card read on the CPU, a stage-2 resume on the
-card, the image pool's colliding writes on the card against the CPU,
+card, the served program graphed (queued requests sharing a replay),
+the image pool's colliding writes on the card against the CPU,
 quality_profile's tile sweep through the fused kernel against the plain
 warp, a bench_trained_regime window's launches, and the native loader's
 worker pool against its plain version on the card's host. Marked
@@ -1267,6 +1268,75 @@ def test_graphed_served_program_matches_eager_on_the_card(cuda, tmp_path,
         np.testing.assert_array_equal(got, want.numpy())
     assert model.program.captures == 1
     assert "[serve] graphed (CUDA graph, 1 capture)" in capsys.readouterr().err
+
+
+def test_queued_requests_share_a_graphed_replay_on_the_card(cuda, tmp_path):
+    """serve._Model on the card at batch 3: while a one-frame request holds
+    the device, two one-frame requests queue from their own threads and
+    then ride in one replay of the one capture (serve.device's rid the
+    pair's ids), one fused warp launch a replay; each request's frames
+    bit-equal to its joints rendered alone."""
+    import threading
+    import time
+
+    from neural_human_video_rendering_tpu_torch import export_serving as es
+    from neural_human_video_rendering_tpu_torch import serve as srv
+    from neural_human_video_rendering_tpu_torch.config import TestOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.utils import spans
+    opt = TestOptions().parse((
+        "--loadSize 64 --tex_tile 16 --ngf 8 --ngf_global 8 "
+        "--n_blocks_translate 1 --n_downsample_translate 2 "
+        "--n_blocks_global 1 --n_downsample_global 1 --n_blocks_bg 1 "
+        "--n_downsample_bg 1 --pose_heatmaps --coord_conv --dtype float32 "
+        f"--gpu_ids 0 --checkpoints_dir {tmp_path}").split(), save=False)
+    path = str(tmp_path / "m.pt2")
+    es.save_artifact(opt, 3, path)
+    model = srv._Model(path, cuda)
+    ds = dsm.SyntheticDataset(opt, length=3)
+    joints = np.stack([ds[i]["joints"] for i in range(3)]).astype(np.float32)
+    call = model._call
+    holding, go = threading.Event(), threading.Event()
+
+    def gated(padded, n):              # the first request holds the device
+        if not go.is_set():
+            holding.set()
+            assert go.wait(60)
+        return call(padded, n)
+
+    model._call = gated
+    out = [None] * 3
+
+    def request(i):
+        out[i] = model.render(joints[i:i + 1])
+
+    spans.clear()
+    tk.reset_launch_counts()
+    threads = [threading.Thread(target=request, args=(0,))]
+    threads[0].start()
+    assert holding.wait(60)
+    with spans.recording():
+        for i in (1, 2):
+            threads.append(threading.Thread(target=request, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 60
+            while len(model.pending) < i:
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
+        go.set()
+        for t in threads:
+            t.join(120)
+            assert not t.is_alive()
+    assert _launches() == (0, 0, 2, 0)      # the holder's replay, the pair's
+    rids = sorted(r.attrs["rid"] for r in spans.records("serve.request"))
+    dev, = spans.records("serve.device")
+    assert dev.attrs["rid"] == tuple(rids)
+    spans.clear()
+    for i in range(3):
+        alone = model.render(joints[i:i + 1])
+        assert out[i].dtype == np.uint8 and out[i].shape == alone.shape
+        np.testing.assert_array_equal(out[i], alone)
+    assert model.program.captures == 1
 
 
 def test_a_capture_that_caught_an_out_of_memory_error_is_refused(cuda):

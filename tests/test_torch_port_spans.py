@@ -11,9 +11,15 @@ captured programs, the server and the training loop, on the CPU:
     ``clone_out`` under its name, and ``capture_s`` is its capture span's
     seconds;
   * two concurrent ``serve._Model.render`` calls: the second waits for
-    the lock while the first holds the device, each request's spans share
-    its id across the client and the device thread, ``timing`` holds the
+    the device while the first holds it, each request's spans share its
+    id across the client and the device thread, ``timing`` holds the
     forward and transfer spans' seconds;
+  * requests queued while the device is held share replays: in arrival
+    order up to the first that does not fit, ``serve.device``'s ``rid``
+    the tuple of their ids, each with its own frames (bit-equal to its
+    joints rendered alone, with the marks a wrapper of ``_call`` put on
+    the replay's array), a failed replay raised in each; a request to an
+    idle model replayed at once, alone; 24 concurrent clients;
   * the loop's ``loop.next_batch`` span, and ``ProfileWindow`` writing
     other threads' spans into its trace, the loader's ``data.batch`` among
     them;
@@ -324,6 +330,238 @@ def test_serve_spans_and_the_lock_wait(monkeypatch, served):
     assert inside == ["serve.copy_in", "serve.replay", "serve.clone_out"]
     fill = hb.reader("serve.batch_fill")({"kind": "serve"})
     assert fill == pytest.approx(100.0 * 4 / 8)
+
+
+def _stand_in_model(monkeypatch, path):
+    monkeypatch.setattr(
+        tsteps, "_program",
+        lambda name, device: graphs.Program(name, device, stand_in=True))
+    return srv._Model(path, torch.device("cpu"))
+
+
+def _wait_for(cond, what):
+    deadline = time.monotonic() + 30
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.001)
+
+
+def _queued_behind_a_held_device(model, holder, parts, after=None):
+    """Holds the device with a request of ``holder``'s joints, queues a
+    request of each joints in ``parts`` behind it in that order, then frees
+    the device; the replays after the holder's call ``after`` (default: the
+    model's ``_call``). Recording starts once the holder holds the device.
+    Returns each queued request's frames or exception, and the replays
+    recorded, each as the indices into ``parts`` of the requests it
+    served."""
+    call = model._call
+    after = after or call
+    holding, go = threading.Event(), threading.Event()
+
+    def gated(padded, n):
+        if not go.is_set():
+            holding.set()
+            assert go.wait(30)
+            return call(padded, n)
+        return after(padded, n)
+
+    model._call = gated
+    out = [None] * (len(parts) + 1)      # the holder's last
+
+    def request(i, joints):
+        try:
+            out[i] = model.render(joints)
+        except Exception as e:      # a failed replay's
+            out[i] = e
+
+    first = threading.Thread(target=request, args=(len(parts), holder))
+    first.start()
+    assert holding.wait(30)
+    threads = [first]
+    with spans.recording():
+        for i, joints in enumerate(parts):
+            threads.append(threading.Thread(target=request, args=(i, joints)))
+            threads[-1].start()
+            _wait_for(lambda: len(model.pending) == i + 1, "not queued")
+        go.set()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+    assert out[-1].shape[0] == len(holder)
+    rids = sorted(r.attrs["rid"] for r in spans.records("serve.request"))
+    index = {rid: i for i, rid in enumerate(rids)}
+    replays = []
+    for dev in spans.records("serve.device"):
+        rid = dev.attrs["rid"]
+        replays.append([index[r] for r in
+                        (rid if isinstance(rid, tuple) else (rid,))])
+    return out[:-1], replays
+
+
+def test_queued_requests_share_one_replay(monkeypatch, served):
+    """Three one-frame requests queued while the device is held ride in one
+    replay: its serve.device span carries their ids as a tuple,
+    serve.batch_fill reads their 3 frames over one batch of 4, each
+    request's lock wait ends when the replay takes it up (before its frames
+    come back), and each request's frames are bit-equal to its joints
+    rendered alone."""
+    path, joints = served
+    model = _stand_in_model(monkeypatch, path)
+    call = model._call
+    seen = []
+
+    def riders_taken(padded, n):   # the three waits closed before the replay
+        _wait_for(lambda: len(spans.records("serve.lock_wait")) == 3,
+                  "a rider's lock wait outlasted its take-up")
+        seen.append(n)
+        return call(padded, n)
+
+    parts = [joints[i:i + 1] for i in range(3)]
+    out, replays = _queued_behind_a_held_device(model, joints[3:], parts,
+                                                riders_taken)
+    assert replays == [[0, 1, 2]] and seen == [3]
+    dev, = spans.records("serve.device")
+    reqs = sorted(spans.records("serve.request"), key=lambda r: r.attrs["rid"])
+    assert dev.attrs["rid"] == tuple(r.attrs["rid"] for r in reqs)
+    assert hb.reader("serve.batch_fill")({"kind": "serve"}) == \
+        pytest.approx(100.0 * 3 / 4)
+    for wait in spans.records("serve.lock_wait"):
+        assert wait.end_ns <= dev.end_ns
+    for i, p in enumerate(parts):
+        assert out[i].dtype == np.uint8 and out[i].shape[0] == 1
+        np.testing.assert_array_equal(out[i], model.render(p))
+    assert not model.busy and not model.pending
+
+
+@pytest.mark.parametrize("sizes,replays", [
+    ((1, 3, 1), [[0, 1], [2]]),
+    ((2, 3, 1), [[0], [1, 2]]),        # the 1 does not overtake the 3
+    ((1, 4, 1), [[0], [1], [2]]),      # a request of the batch rides alone
+], ids=["1-3-1", "2-3-1", "1-4-1"])
+def test_queued_requests_replay_in_arrival_order(monkeypatch, served, sizes,
+                                                 replays):
+    """Batch 4: each replay takes the queued requests in arrival order and
+    stops at the first that does not fit; each request's frames are its
+    own joints rendered alone."""
+    path, joints = served
+    model = _stand_in_model(monkeypatch, path)
+    parts = [joints[4 - k:] for k in sizes]
+    out, got = _queued_behind_a_held_device(model, joints[:1], parts)
+    assert got == replays
+    for frames, p in zip(out, parts):
+        assert frames.shape[0] == len(p)
+        np.testing.assert_array_equal(frames, model.render(p))
+
+
+def test_a_request_to_an_idle_model_is_replayed_at_once_alone(monkeypatch,
+                                                              served):
+    path, joints = served
+    model = _stand_in_model(monkeypatch, path)
+    with spans.recording():
+        got = model.render(joints[:2])
+    req, = spans.records("serve.request")
+    wait, = spans.records("serve.lock_wait")
+    dev, = spans.records("serve.device")
+    assert dev.attrs["rid"] == req.attrs["rid"]          # an int, alone
+    assert wait.end_ns <= dev.start_ns and wait.seconds < 0.5
+    assert len(spans.records("serve.replay")) == 1 and got.shape[0] == 2
+    assert hb.reader("serve.batch_fill")({"kind": "serve"}) == \
+        pytest.approx(50.0)
+    assert not model.busy and not model.pending
+
+
+class _Marked(np.ndarray):
+    """Host frames marked by a wrapper of ``_call``."""
+
+
+def test_coalesced_parts_carry_the_marks_of_the_replays_array(monkeypatch,
+                                                              served):
+    """A ``_call`` wrapper returns an ndarray subclass with instance
+    attributes: every request of a shared replay gets its part with the
+    same attributes (those of its replay, not the class's defaults)."""
+    path, joints = served
+    model = _stand_in_model(monkeypatch, path)
+    call, calls = model._call, itertools.count()
+
+    def marking(padded, n):
+        out = call(padded, n).view(_Marked)
+        out.call = next(calls)
+        out.forward_s = model.timing["forward_s"]
+        return out
+
+    model._call = marking
+    parts = [joints[:1], joints[1:3], joints[3:]]
+    out, replays = _queued_behind_a_held_device(model, joints[:1], parts)
+    assert replays == [[0, 1, 2]]
+    for frames, p in zip(out, parts):
+        assert isinstance(frames, _Marked) and frames.shape[0] == len(p)
+        assert frames.call == 1 and frames.forward_s > 0
+        assert frames.forward_s == out[0].forward_s
+
+
+def test_a_failed_replay_raises_in_every_request_it_carried(monkeypatch,
+                                                            served):
+    path, joints = served
+    model = _stand_in_model(monkeypatch, path)
+    call = model._call
+
+    def broken(padded, n):
+        raise RuntimeError("texture_warp_topk_fwd launch failed")
+
+    parts = [joints[i:i + 1] for i in range(3)]
+    out, replays = _queued_behind_a_held_device(model, joints[3:], parts,
+                                                broken)
+    assert replays == [[0, 1, 2]]
+    assert all(isinstance(e, RuntimeError) for e in out)
+    assert out[0] is out[1] is out[2] and "launch failed" in str(out[0])
+    # the device is free again: the next request is served
+    assert not model.busy and not model.pending
+    model._call = call
+    assert model.render(joints[:1]).shape[0] == 1
+
+
+def test_concurrent_requests_get_their_own_frames(monkeypatch, served):
+    """24 client threads, 4 requests each of 1-4 frames, with a short
+    switch interval: every request gets its own joints' frames, every
+    request rides in exactly one replay, and no replay carries more frames
+    than the batch."""
+    path, joints = served
+    model = _stand_in_model(monkeypatch, path)
+    single = [model.render(joints[i:i + 1]) for i in range(4)]
+    rng = np.random.default_rng(5)
+    plans = [[(int(a), int(rng.integers(a + 1, 5)))
+              for a in rng.integers(0, 4, size=4)] for _ in range(24)]
+    wrong = []
+
+    def client(plan):
+        for a, b in plan:
+            got = model.render(joints[a:b])
+            if not np.array_equal(got, np.concatenate(single[a:b])):
+                wrong.append((a, b))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with spans.recording():
+            threads = [threading.Thread(target=client, args=(p,))
+                       for p in plans]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+                assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert wrong == []
+    n = {r.attrs["rid"]: r.attrs["n"] for r in spans.records("serve.request")}
+    served_rids = []
+    for dev in spans.records("serve.device"):
+        rid = dev.attrs["rid"]
+        rids = rid if isinstance(rid, tuple) else (rid,)
+        assert sum(n[r] for r in rids) <= 4
+        served_rids += rids
+    assert sorted(served_rids) == sorted(n) and len(n) == 24 * 4
+    assert not model.busy and not model.pending
 
 
 def test_loop_next_batch_spans(monkeypatch):
