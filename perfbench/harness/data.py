@@ -79,9 +79,9 @@ def generator_weights(G: torch.nn.Module, seed: int, device
     frames and losses of any two precisions then differ by about as
     much, and the float8 control by hardly more than the program."""
     w = make_weights(G, seed, device, "G")
-    tex_g = G.TexG.GlobalGenerator_0
-    w[f"TexG.GlobalGenerator_0.{tex_g.order[-1]}.Conv_0.weight"].mul_(
-        TEXG_HEAD_SCALE)
+    head = G.TexG.backbone.head.Conv_0.weight
+    name = next(n for n, p in G.named_parameters() if p is head)
+    w[name].mul_(TEXG_HEAD_SCALE)
     return w
 
 

@@ -1,10 +1,11 @@
 """The renderer, the discriminator and the VGG loss network in plain
 PyTorch, float32, NCHW.
 
-A frozen copy of the port's model arithmetic for the two configurations
-the benchmark runs (the global generator, pose render plus heatmaps and
-coord conv, s2d stems and heads, no feature encoder, no UV refinement, no
-deep supervision). Module names follow the port's, so one state_dict
+A frozen copy of the port's model arithmetic for the configurations the
+benchmark runs (the global generator or, under netG "local", pix2pixHD's
+LocalEnhancer of ``local.py``; pose render plus heatmaps and coord conv,
+s2d stems and heads, no feature encoder, no UV refinement, no deep
+supervision). Module names follow the port's, so one state_dict
 loads into either. Every convolution takes its operands through
 ``Conv.operand``, and every activation the program keeps in its compute
 dtype passes ``act``: float32 as they are, or (``set_precision``) the
@@ -156,15 +157,20 @@ class Upsample(nn.Module, _Operands):
 
 class GlobalGenerator(nn.Module, _Operands):
     """pix2pixHD's global generator with an s2d stem and a pixel-shuffle
-    head; submodules named by class and creation order."""
+    head; submodules named by class and creation order. return_features
+    leaves out the head (and the pixel shuffle) and returns the decoder's
+    (B, ngf, H, W) features, as the LocalEnhancer's trunk."""
 
     def __init__(self, in_nc: int, out_nc: int, ngf: int, n_down: int,
                  n_blocks: int, final_tanh: bool, pad_mode: str,
-                 stem_s2d: int, head_s2d: int):
+                 stem_s2d: int, head_s2d: int,
+                 return_features: bool = False):
         super().__init__()
         self.s = min(stem_s2d.bit_length() - 1, n_down)
-        self.h = min(head_s2d.bit_length() - 1, n_down)
+        self.h = 0 if return_features else min(head_s2d.bit_length() - 1,
+                                                n_down)
         self.final_tanh = final_tanh
+        self.return_features = return_features
         self.order: List[str] = []
         counts: Dict[str, int] = {}
 
@@ -190,8 +196,14 @@ class GlobalGenerator(nn.Module, _Operands):
             else:
                 add(ConvNormRelu(ch, feats, 3, pad_mode=pad_mode))
             ch = feats
-        add(ConvNormRelu(ch, out_nc * 4 ** self.h, 7, use_norm=False,
-                         use_relu=False, pad_mode=pad_mode))
+        if not return_features:
+            add(ConvNormRelu(ch, out_nc * 4 ** self.h, 7, use_norm=False,
+                             use_relu=False, pad_mode=pad_mode))
+
+    @property
+    def head(self) -> nn.Module:
+        """The output convolution."""
+        return getattr(self, self.order[-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.act(x.float())
@@ -199,33 +211,62 @@ class GlobalGenerator(nn.Module, _Operands):
             x = space_to_depth(x, 2 ** self.s)
         for name in self.order:
             x = getattr(self, name)(x)
+        if self.return_features:
+            return x
         if self.h:
             x = depth_to_space(x, 2 ** self.h)
         return torch.tanh(x) if self.final_tanh else x
 
 
-class TransG(nn.Module):
-    def __init__(self, in_nc: int, n_parts: int, ngf: int, n_down: int,
-                 n_blocks: int, **kw):
+def make_backbone(cfg, in_nc: int, out_nc: int, ngf: int, n_down: int,
+                  n_blocks: int, final_tanh: bool) -> nn.Module:
+    """The generator that cfg.netG names, as the port's make_backbone
+    builds it: "local" has no pixel-shuffle head."""
+    kw = dict(pad_mode=cfg.pad_mode, stem_s2d=cfg.stem_s2d)
+    if cfg.netG == "local":
+        from .local import LocalEnhancer   # local.py builds on this module
+        return LocalEnhancer(in_nc, out_nc, ngf, n_down, n_blocks,
+                             cfg.n_local_enhancers, cfg.n_blocks_local,
+                             final_tanh, **kw)
+    return GlobalGenerator(in_nc, out_nc, ngf, n_down, n_blocks, final_tanh,
+                           head_s2d=cfg.head_s2d, **kw)
+
+
+class _Backbone(nn.Module):
+    """Holds its backbone under flax's name for it, ``GlobalGenerator_0``
+    or ``LocalEnhancer_0``, as the port's generators do."""
+
+    def _set_backbone(self, module: nn.Module) -> None:
+        self.backbone_name = f"{type(module).__name__}_0"
+        self.add_module(self.backbone_name, module)
+
+    @property
+    def backbone(self) -> nn.Module:
+        return getattr(self, self.backbone_name)
+
+
+class TransG(_Backbone):
+    def __init__(self, cfg, in_nc: int, n_parts: int, ngf: int, n_down: int,
+                 n_blocks: int):
         super().__init__()
         self.n_parts = n_parts
-        self.GlobalGenerator_0 = GlobalGenerator(
-            in_nc, 1 + 3 * n_parts, ngf, n_down, n_blocks, False, **kw)
+        self._set_backbone(make_backbone(cfg, in_nc, 1 + 3 * n_parts, ngf,
+                                         n_down, n_blocks, False))
 
     def forward(self, pose: torch.Tensor):
-        raw = self.GlobalGenerator_0(pose)
+        raw = self.backbone(pose)
         B, _, H, W = raw.shape
         uv = 0.5 * (torch.tanh(raw[:, 1 + self.n_parts:]) + 1.0)
         return raw[:, :1 + self.n_parts], uv.view(B, self.n_parts, 2, H, W)
 
 
-class TexG(nn.Module):
-    def __init__(self, in_nc: int, n_parts: int, tile: int, ngf: int,
-                 n_down: int, n_blocks: int, **kw):
+class TexG(_Backbone):
+    def __init__(self, cfg, in_nc: int, n_parts: int, tile: int, ngf: int,
+                 n_down: int, n_blocks: int):
         super().__init__()
         self.n_parts, self.tile = n_parts, tile
-        self.GlobalGenerator_0 = GlobalGenerator(
-            in_nc, n_parts * 3, ngf, n_down, n_blocks, True, **kw)
+        self._set_backbone(make_backbone(cfg, in_nc, n_parts * 3, ngf,
+                                         n_down, n_blocks, True))
 
     def forward(self, pose: torch.Tensor) -> torch.Tensor:
         B, _, H, W = pose.shape
@@ -233,7 +274,7 @@ class TexG(nn.Module):
             pose = F.interpolate(pose, size=(self.tile, self.tile),
                                  mode="bilinear", align_corners=False,
                                  antialias=True)
-        out = self.GlobalGenerator_0(pose)
+        out = self.backbone(pose)
         return out.view(B, self.n_parts, 3, self.tile, self.tile)
 
 
@@ -254,14 +295,12 @@ class Renderer(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        kw = dict(pad_mode=cfg.pad_mode, stem_s2d=cfg.stem_s2d,
-                  head_s2d=cfg.head_s2d)
         P = cfg.n_parts
-        self.TransG = TransG(cfg.pose_nc, P, cfg.ngf,
+        self.TransG = TransG(cfg, cfg.pose_nc, P, cfg.ngf,
                              cfg.n_downsample_translate,
-                             cfg.n_blocks_translate, **kw)
-        self.TexG = TexG(cfg.pose_nc, P, cfg.tex_tile, cfg.ngf_global,
-                         cfg.n_downsample_global, cfg.n_blocks_global, **kw)
+                             cfg.n_blocks_translate)
+        self.TexG = TexG(cfg, cfg.pose_nc, P, cfg.tex_tile, cfg.ngf_global,
+                         cfg.n_downsample_global, cfg.n_blocks_global)
         self.BGNet = BGNet(cfg.n_downsample_bg, cfg.n_blocks_bg, cfg.bg_s2d,
                            cfg.pad_mode)
         self.warp = dict(k=cfg.warp_topk, eps=cfg.warp_eps,

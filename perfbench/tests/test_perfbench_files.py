@@ -11,6 +11,8 @@ import sys
 
 from perfbench.harness import bench as hb
 
+from .conftest import TINY
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 CELL_KEYS = {"name", "config", "traffic", "chips", "why"}
@@ -77,13 +79,16 @@ def test_benchmark_json_keeps_to_the_contract():
 def test_a_new_cell_is_new_files_and_entries(tmp_path):
     """A copy of the benchmark gains a configuration, a traffic mix, a
     limit file and a metric by adding files and entries only; the copy's
-    loaders find all four."""
+    loaders find all four. The configuration names the other generator
+    (netG "local"), which the reference builds and draws weights for."""
     root = tmp_path / "checkout"
     shutil.copytree(hb.BENCH, root / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     spec = hb.benchmark()
     cfg = json.loads((hb.ROOT / spec["configs"][0]["file"]).read_text())
-    cfg["flags"]["tex_tile"] = 32
+    cfg["flags"].update(TINY, tex_tile=32, netG="local",
+                        n_local_enhancers=1, n_blocks_local=3,
+                        niter_fix_global=0)
     (root / "perfbench/configs/dummy.json").write_text(json.dumps(cfg))
     (root / "perfbench/traffic/dummy_mix.json").write_text(json.dumps(
         {"kind": "train", "pool": 4, "first_steps": 3, "trace_from": 1,
@@ -110,11 +115,20 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
         "      hb.traffic(w['traffic'])['pool'],\n"
         "      hb.limits(w['name'])['loss_gap']['limit'],\n"
         "      hb.reader('dummy_metric')({'dummy': 7}),\n"
-        "      [m['name'] for m in hb.metrics_of(s, w['name'], 'per_layer')])\n")
+        "      [m['name'] for m in hb.metrics_of(s, w['name'], 'per_layer')])\n"
+        "from perfbench.harness import data\n"
+        "from perfbench.reference import nets\n"
+        "from perfbench.reference.config import reference_config\n"
+        "cfg = reference_config(hb.configuration(s, w['config'])['flags'])\n"
+        "G = nets.build(cfg, 'meta', vgg=False)['G']\n"
+        "wts = data.generator_weights(G, 5, 'cpu')\n"
+        "print(G.TransG.backbone_name, G.TexG.backbone_name,\n"
+        "      sum('enh1_block2' in k for k in wts))\n")
     out = subprocess.run([sys.executable, "-c", probe], cwd=root,
                          capture_output=True, text=True, check=True).stdout
     assert out.split()[:4] == ["32", "4", "1.0", "7"]
     assert "'dummy_metric'" in out
+    assert out.split()[-3:] == ["LocalEnhancer_0", "LocalEnhancer_0", "8"]
 
 
 def test_a_checkout_of_the_benchmark_alone_refuses_to_run(tmp_path):

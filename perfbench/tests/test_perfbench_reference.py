@@ -8,6 +8,7 @@ import time
 import pytest
 import torch
 
+from perfbench.harness import bench as hb
 from perfbench.harness import compare, data
 from perfbench.harness.bench import Run
 from perfbench.kinds import render, train
@@ -17,11 +18,10 @@ from .conftest import tiny_flags
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 99
+CONFIGS = [c["name"] for c in hb.benchmark()["configs"]]
 
 
-@pytest.mark.parametrize("config", ["flagship512", "ref512"])
-def test_frames_match_the_port(config):
-    flags = tiny_flags(config)
+def frames_match(flags: dict) -> None:
     cfg = reference_config(flags)
     run = Run("t", SEED, 0.0, False, flags, {}, {}, CPU, 0.0)
     tex, bg = data.assets(SEED, cfg.size, cfg.tex_tile, 24, CPU)
@@ -36,10 +36,8 @@ def test_frames_match_the_port(config):
     assert (a.int() - b.int()).abs().max() <= 1
 
 
-@pytest.mark.parametrize("config", ["flagship512", "ref512"])
-def test_first_steps_match_the_port(config):
-    flags = tiny_flags(config)
-    flags["no_vgg_loss"] = True     # the port's VGG is bfloat16 always
+def first_steps_match(flags: dict) -> None:
+    flags = dict(flags, no_vgg_loss=True)  # the port's VGG is bf16 always
     cfg = reference_config(flags)
     run = Run("t", SEED, 0.0, False, flags, {}, {}, CPU, time.perf_counter())
     batches = data.train_batches(SEED, 3, 2, cfg.size, CPU)
@@ -58,3 +56,13 @@ def test_first_steps_match_the_port(config):
     # the EMA's leaves are held too, under their own names
     if cfg.ema_decay > 0:
         assert any(k.startswith("E.") for k in ref[2])
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_frames_match_the_port(config):
+    frames_match(tiny_flags(config))
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_first_steps_match_the_port(config):
+    first_steps_match(tiny_flags(config))
