@@ -20,6 +20,8 @@ from .. import losses as L
 from ..data.rasterize import joint_heatmaps, limb_coord_maps, render_skeleton
 from ..data.wire import dequantize, host_tensors
 from ..parallel.mesh import DataParallel, optimizer_tensors
+from ..utils import spans
+from ..utils.host_point import host_point
 from ..utils.spans import span
 from .graphs import Program, refuse_caught_ooms
 from .image_pool import pool_draws, pool_update
@@ -307,7 +309,12 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     the state's generator before the replay, into static buffers; the
     --niter_fix_global freeze is a Python branch, so the freeze boundary
     captures a second graph. The data-parallel collectives are host
-    points between the graphs (gloo cannot be captured). A call with
+    points between the graphs (gloo cannot be captured), and so are the
+    device marks ``step.g_forward.end`` (after the renderer's forward) and
+    ``step.g_backward.end`` (after G's backward), which split the chain
+    into the generator's forward, its losses and backward, and D's step
+    with both updates (read by the benchmark's ``g_forward_ms.train``,
+    ``g_backward_ms.train`` and ``d_update_ms.train``). A call with
     ``mark`` runs the eager step (the caller asked for per-phase times),
     and so does every call on the CPU; the same code runs either way. On
     the card a capture, or an eager call, in which a caller caught an
@@ -409,6 +416,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
             cur = renderer(pose, bg, tex, tex_mask, **kw1, **flip_kw)
         fake = cur["fake"]
         mark("g_forward")
+        host_point(lambda: spans.device_mark("step.g_forward.end", dev))
         d_fake = disc(torch.cat([pose, fake], dim=1))
         losses = {"G_GAN": L.lsgan_loss_g(d_fake, use_lsgan)}
         if use_fm:
@@ -446,6 +454,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         mark("g_losses")
         g_total.backward()
         mark("g_backward")
+        host_point(lambda: spans.device_mark("step.g_backward.end", dev))
 
         # ---- D: the fake detached (through the pool), the old parameters
         disc.requires_grad_(True)

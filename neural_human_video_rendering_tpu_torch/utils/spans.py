@@ -161,8 +161,10 @@ def clear() -> None:
 
 def device_mark(name: str, device=None) -> None:
     """While tracing, a timing CUDA event on ``device``'s current stream
-    (default: the current device's); nothing otherwise."""
-    if not tracing():
+    (default: the current device's); nothing otherwise, nor for a device
+    that is not a CUDA device (the step marks its phases on the CPU too)."""
+    if not tracing() or (device is not None
+                         and torch.device(device).type != "cuda"):
         return
     event = torch.cuda.Event(enable_timing=True)
     event.record(torch.cuda.current_stream(device))

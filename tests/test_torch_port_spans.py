@@ -23,7 +23,9 @@ captured programs, the server and the training loop, on the CPU:
   * the loop's ``loop.next_batch`` span, and ``ProfileWindow`` writing
     other threads' spans into its trace, the loader's ``data.batch`` among
     them;
-  * the benchmark's four readers of the recorder, on planted records;
+  * the benchmark's readers of the recorder, on planted records: the
+    replay, the gap between replays, the step's three phases between its
+    replay's marks, the lock wait and the batch fill;
     ``serve.batch_fill`` counts the slots of the replays it sees.
 The device marks of a graph replay are read on the card by the benchmark
 (``perfbench``'s ``replay_ms.train`` and ``replay_gap_ms.train``).
@@ -677,6 +679,41 @@ def test_readers_on_planted_records():
     assert got == pytest.approx(19.05)
     fill = hb.reader("serve.batch_fill")({"kind": "serve"})
     assert fill == pytest.approx(100.0 * (16 + 4 * 8) / (20 * 8))
+
+
+PHASES = {"g_forward_ms.train": ("step.replay.begin", "step.g_forward.end"),
+          "g_backward_ms.train": ("step.g_forward.end",
+                                  "step.g_backward.end"),
+          "d_update_ms.train": ("step.g_backward.end", "step.replay.end")}
+
+
+@pytest.mark.parametrize("metric", sorted(PHASES))
+def test_phase_readers_on_planted_marks(metric):
+    """The step's three phases between its replay's marks: each reader
+    takes the median of its own interval, the three add up to the replay,
+    and a program without the phase marks (the replay's alone) reads
+    None."""
+    read = hb.reader(metric)
+    _plant([("step.replay.begin", 0.0), ("step.replay.end", 60.0)])
+    assert read({"kind": "train"}) is None
+    spans.clear()
+    marks, t, want = [], 0.0, {m: [] for m in PHASES}
+    for fwd, bwd, upd, gap in [(20.0, 35.0, 9.0, 3.0), (21.0, 36.5, 8.0, 2.0),
+                               (19.5, 34.0, 10.0, 4.0)]:
+        marks += [("step.replay.begin", t), ("step.g_forward.end", t + fwd),
+                  ("step.g_backward.end", t + fwd + bwd),
+                  ("step.replay.end", t + fwd + bwd + upd)]
+        for m, v in (("g_forward_ms.train", fwd),
+                     ("g_backward_ms.train", bwd),
+                     ("d_update_ms.train", upd)):
+            want[m].append(v)
+        t += fwd + bwd + upd + gap
+    _plant(marks)
+    assert read({"kind": "render"}) is None
+    assert read({"kind": "train"}) == statistics.median(want[metric])
+    replays = spans.device_intervals("step.replay.begin", "step.replay.end")
+    for i, total in enumerate(replays):
+        assert sum(want[m][i] for m in PHASES) == total
 
 
 def test_batch_fill_counts_the_slots_replayed():
