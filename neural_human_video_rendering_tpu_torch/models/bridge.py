@@ -8,10 +8,12 @@ and the VGG's ``conv7`` map the same way. Kernels change layout on the way:
   * Conv (flax ``Conv_{i}`` and the VGG's ``conv{i}``): HWIO -> OIHW;
   * ConvTranspose: flax (kh, kw, in, out) -> torch (in, out, kh, kw) with
     both spatial axes flipped (flax's transposed conv does not flip the
-    kernel; torch's does).
-Biases copy as they are. The input is the tree as nested dicts of numpy
-arrays (``jax.tree.map(np.asarray, params)``, or a checkpoint file read by
-``utils/flax_msgpack``), so this module needs no JAX.
+    kernel; torch's does);
+and come out channels_last, the layout the port's convs hold their
+weights in (``models/layers.py``). Biases copy as they are. The input is
+the tree as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
+params)``, or a checkpoint file read by ``utils/flax_msgpack``), so this
+module needs no JAX.
 
 A whole checkpoint file of the JAX package becomes the state_dict of the
 module of its label: ``G`` / ``G_ema`` (the renderer tree,
@@ -52,15 +54,17 @@ def leaf_from_jax(path: str, arr: np.ndarray):
     parent, leaf = path.rsplit(".", 1)
     kind = parent.rsplit(".", 1)[-1]
     if leaf == "bias":
-        t = arr
-    elif leaf == "kernel" and kind.startswith("ConvTranspose_"):
+        return f"{parent}.bias", torch.from_numpy(
+            np.array(arr, dtype=np.float32, order="C"))
+    if leaf == "kernel" and kind.startswith("ConvTranspose_"):
         t = np.flip(arr, (0, 1)).transpose(2, 3, 0, 1)
     elif leaf == "kernel" and _is_conv(kind):
         t = arr.transpose(3, 2, 0, 1)
     else:
         raise KeyError(f"no torch counterpart for flax parameter {path}")
-    return (f"{parent}.{'weight' if leaf == 'kernel' else 'bias'}",
-            torch.from_numpy(np.array(t, dtype=np.float32, order="C")))
+    return f"{parent}.weight", torch.from_numpy(
+        np.array(t, dtype=np.float32, order="C")).contiguous(
+            memory_format=torch.channels_last)
 
 
 def flax_layout(key: str, shape) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:

@@ -1,4 +1,5 @@
-"""Multiscale PatchGAN discriminators in NCHW: the port of the JAX
+"""Multiscale PatchGAN discriminators (NCHW shapes, NHWC convs:
+``layers.py``): the port of the JAX
 package's ``models/discriminator.py``.
 
 pix2pixHD ``MultiscaleDiscriminator`` semantics: num_D PatchGANs on an
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, InstanceNorm, space_to_depth
+from .layers import Conv, InstanceNorm, conv_input, space_to_depth
 
 
 class NLayerDiscriminator(nn.Module):
@@ -61,7 +62,7 @@ class NLayerDiscriminator(nn.Module):
         self.norm = InstanceNorm()
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = x.to(self.dtype)
+        x = conv_input(x, self.dtype)
         if self.s2d > 1:
             x = F.pad(space_to_depth(x, self.s2d), self.stem_pad)
         x = F.leaky_relu(self.Conv_0(x), 0.2)

@@ -1,6 +1,6 @@
-"""Generator networks in NCHW: GlobalGenerator trunk, pix2pixHD's
-LocalEnhancer (--netG local), TransG, TexG, BGNet and the feature encoder
-E.
+"""Generator networks (NCHW shapes, NHWC convs: ``layers.py``):
+GlobalGenerator trunk, pix2pixHD's LocalEnhancer (--netG local), TransG,
+TexG, BGNet and the feature encoder E.
 
 Port of the JAX package's ``models/generators.py``, every option
 included: the ``ms_uv`` aux heads of GlobalGenerator, LocalEnhancer and
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import (ConvNormRelu, ResnetBlock, Upsample, depth_to_space,
-                     space_to_depth)
+                     conv_input, nchw_float, space_to_depth)
 
 
 class GlobalGenerator(nn.Module):
@@ -98,20 +98,20 @@ class GlobalGenerator(nn.Module):
                              use_relu=False, pad_mode=pad_mode))
 
     def forward(self, x: torch.Tensor):
-        x = x.to(self.dtype)
+        x = conv_input(x, self.dtype)
         if self.s:
             x = space_to_depth(x, 2 ** self.s)
         aux = []
         for name in self.order:
             if name.startswith("aux_head"):
-                aux.append(getattr(self, name)(x).float())
+                aux.append(nchw_float(getattr(self, name)(x)))
             else:
                 x = getattr(self, name)(x)
         if self.return_features:
             return x
         if self.h:
             x = depth_to_space(x, 2 ** self.h)
-        x = x.float()
+        x = nchw_float(x)
         out = torch.tanh(x) if self.final_tanh else x
         return (out, tuple(aux)) if self.aux_heads else out
 
@@ -157,7 +157,7 @@ class LocalEnhancer(nn.Module):
                                  use_relu=False, pad_mode=pad_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
+        x = conv_input(x, self.dtype)
         pyramid = [x]
         for _ in range(self.n):
             pyramid.append(F.avg_pool2d(pyramid[-1], 3, 2, 1,
@@ -170,7 +170,7 @@ class LocalEnhancer(nn.Module):
             for b in range(self.n_blocks_local):
                 feat = getattr(self, f"enh{level}_block{b}")(feat)
             feat = getattr(self, f"enh{level}_up")(feat)
-        out = self.head(feat).float()
+        out = nchw_float(self.head(feat))
         return torch.tanh(out) if self.final_tanh else out
 
 
@@ -282,7 +282,7 @@ class TransG(_Backbone):
                 raise ValueError(f"TransG was built with refine_f "
                                  f"{self.refine_f}; height {pose.shape[2]} "
                                  f"needs {f}")
-            x = torch.cat([pose, raw], dim=1).to(self.dtype)
+            x = conv_input(torch.cat([pose, raw], dim=1), self.dtype)
             if f > 1:
                 x = space_to_depth(x, f)
             x = self.refine_stem(x)
@@ -291,7 +291,7 @@ class TransG(_Backbone):
             delta = self.refine_head(x)
             if f > 1:
                 delta = depth_to_space(delta, f)
-            raw = raw + delta.float()
+            raw = raw + nchw_float(delta)
         logits, uv = self._split_iuv(raw)
         if self.ms_uv > 0:
             return logits, uv, tuple(self._split_iuv(a) for a in aux_raw)
@@ -400,10 +400,10 @@ class FeatEncoder(nn.Module):
             pad_mode=pad_mode))
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        x = img.to(self.dtype)
+        x = conv_input(img, self.dtype)
         for i in range(self.n + 1):
             x = getattr(self, f"ConvNormRelu_{i}")(x)
         for i in range(self.n):
             x = getattr(self, f"Upsample_{i}")(x)
         x = getattr(self, f"ConvNormRelu_{self.n + 1}")(x)
-        return torch.tanh(x.float())
+        return torch.tanh(nchw_float(x))

@@ -182,8 +182,12 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
                      else m.weight.shape[1])
             fan_in = in_ch * m.weight.shape[2] * m.weight.shape[3]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            # drawn in logical order, then copied into the weight's
+            # layout (channels_last): the same numbers in any layout
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=gen)
             with torch.no_grad():
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=gen)
+                m.weight.copy_(w)
                 m.bias.zero_()
     return model

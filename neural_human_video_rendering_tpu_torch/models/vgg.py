@@ -1,4 +1,5 @@
-"""VGG19 feature extractor for the perceptual loss, in NCHW: the port of
+"""VGG19 feature extractor for the perceptual loss (NCHW shapes, NHWC
+convs: ``layers.py``): the port of
 the JAX package's ``models/vgg.py``.
 
 The pix2pixHD tap points (relu1_1, relu2_1, relu3_1, relu4_1, relu5_1)
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, space_to_depth
+from .layers import Conv, conv_input, space_to_depth
 
 # convs per block for VGG19; taps after the first conv+relu of each block
 _CFG = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
@@ -64,7 +65,7 @@ class VGG19Features(nn.Module):
                 torch.tensor(v, device=x.device).view(1, 3, 1, 1)
                 for v in ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)))
         mean, std = self._norm[x.device]
-        x = ((x - mean) / std).to(self.dtype)
+        x = conv_input((x - mean) / std, self.dtype)
         x = space_to_depth(x, 2)
         taps = []
         x = F.relu(self.conv0(x))

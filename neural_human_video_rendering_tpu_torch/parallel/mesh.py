@@ -32,7 +32,6 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..utils.host_point import host_point
 
@@ -50,6 +49,16 @@ def tensor_checksum(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
         s = t.view(_INT_VIEW[t.element_size()]).long().sum() * (i + 1)
         total = s if total is None else total + s
     return total if total is not None else torch.zeros((), dtype=torch.int64)
+
+
+def _memory_order(t: torch.Tensor) -> torch.Tensor:
+    """t, or its NHWC view where t is channels_last (a conv's gradient:
+    ``models/layers.py``): a view whose logical order is t's memory
+    order, so a bucket's copies in and out transpose nothing."""
+    if t.dim() == 4 and not t.is_contiguous() \
+            and t.is_contiguous(memory_format=torch.channels_last):
+        return t.permute(0, 2, 3, 1)
+    return t
 
 
 def module_tensors(module: torch.nn.Module) -> List[torch.Tensor]:
@@ -143,11 +152,12 @@ class DataParallel:
             if p.grad is not None:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
-            flat = _flatten_dense_tensors(grads)
+            views = [_memory_order(g) for g in grads]
+            flat = torch.cat([v.reshape(-1) for v in views])
             self._reduce(flat)
             flat.div_(self.world)
-            for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
-                g.copy_(r)
+            for v, r in zip(views, flat.split([v.numel() for v in views])):
+                v.copy_(r.view(v.shape))
 
     def all_reduce_metrics(self, metrics: Mapping[str, torch.Tensor]
                            ) -> Dict[str, torch.Tensor]:

@@ -78,10 +78,12 @@ import os
 import sys
 import threading
 import traceback
-from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
+from ..models.layers import conv_counts
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
 from ..utils.host_point import capturing, host_point  # noqa: F401
@@ -327,18 +329,23 @@ def _release(device: torch.device,
 
 def capture_line(name: str, stand_in: bool, n: int, batch: Optional[int],
                  segments: int, seconds: float,
-                 mem: Dict[str, Optional[int]]) -> str:
+                 mem: Dict[str, Optional[int]],
+                 convs: Tuple[int, int] = (0, 0)) -> str:
     """The line a capture prints: ``[name] graphed (CUDA graph, capture n:
-    batch B, k segments, s s, num_ooms m, peak reserved g GB)``; a
-    stand-in's has no allocator record."""
+    batch B, k segments, s s, nhwc a/c, num_ooms m, peak reserved g GB)``,
+    ``nhwc a/c`` where the capture ran c convs, a of them on NHWC operands
+    (``models/layers.conv_counts``); a stand-in's has no allocator
+    record."""
     kind = "stand-in" if stand_in else "CUDA graph"
     head = f"batch {batch}, " if batch is not None else ""
+    layout = f", nhwc {convs[0]}/{convs[1]}" if convs[1] else ""
     alloc = ""
     if "num_ooms" in mem:
         alloc = (f", num_ooms {mem['num_ooms']}, peak reserved "
                  f"{mem['peak_reserved'] / 1e9:.2f} GB")
     return (f"[{name}] graphed ({kind}, capture {n}: {head}{segments} "
-            f"segment{'s' if segments > 1 else ''}, {seconds:.2f} s{alloc})")
+            f"segment{'s' if segments > 1 else ''}, {seconds:.2f} s{layout}"
+            f"{alloc})")
 
 
 class _CudaCapture:
@@ -476,7 +483,10 @@ class Program:
     ``name`` also prefixes the program's spans (``utils/spans.py``): a
     call is ``name.copy_in`` (the inputs into the static buffers),
     ``name.replay`` (the graph chain's launch) and ``name.clone_out``; a
-    capture is ``name.capture``, whose seconds ``capture_s`` keeps. With
+    capture is ``name.capture``, whose seconds ``capture_s`` keeps.
+    ``convs`` keeps, for each capture, the conv calls it recorded that
+    found their input and weight NHWC, and all its conv calls
+    (``models/layers.conv_counts``; the capture line prints them). With
     ``marks`` set (the stage-2 step's program), the device marks
     ``name.replay.begin`` and ``name.replay.end`` lie on the card's
     stream before the replay and after its last graph; a stand-in records
@@ -494,6 +504,7 @@ class Program:
         self.captures = 0
         self.marks = False
         self.capture_s: List[float] = []
+        self.convs: List[Tuple[int, int]] = []
         self.warmup_launches: Dict[str, int] = {}
         # each capture's allocator record (the module docstring); empty
         # dicts for a stand-in
@@ -588,6 +599,7 @@ class Program:
                 with refuse_caught_ooms(self.name, self.device,
                                         f"capture {n}", mem):
                     try:
+                        convs = conv_counts()
                         if self.stand_in:  # it runs the closure: no trace
                             _preserving(state,
                                         lambda: cap.run(closure, stream))
@@ -595,6 +607,8 @@ class Program:
                             cap.run(closure, stream)
                             mem["pool_bytes"] = _pool_bytes(self.device,
                                                             cap.pool)
+                        convs = tuple(b - a for a, b in
+                                      zip(convs, conv_counts()))
                     except Exception as e:
                         raise RuntimeError(
                             f"[{self.name}] CUDA graph capture failed at "
@@ -615,6 +629,7 @@ class Program:
             _set_counts(counts)
         self.captures += 1
         self.capture_s.append(sp.seconds)
+        self.convs.append(convs)
         if cuda:
             end = _allocator(self.device)
             note("after_capture")
@@ -624,7 +639,7 @@ class Program:
         lead = inputs.get("joints", next(iter(inputs.values()), None))
         print(capture_line(self.name, self.stand_in, self.captures,
                            None if lead is None else lead.shape[0],
-                           cap.segments, self.capture_s[-1], mem),
+                           cap.segments, self.capture_s[-1], mem, convs),
               file=sys.stderr, flush=True)
         return _Entry(cap, static, outputs, launches, (closure, tuple(keep)))
 

@@ -186,6 +186,14 @@ class ScheduledAdam(torch.optim.Adam):
             dict(g, capturable=self.lr_t is not None)
             for g in state_dict["param_groups"]]
         super().load_state_dict(state_dict)
+        # each moment in its parameter's layout (a file may hold another:
+        # one saved before the convs' weights went channels_last), so the
+        # foreach update keeps its fused route
+        for p, st in self.state.items():
+            for k, v in st.items():
+                if (torch.is_tensor(v) and v.shape == p.shape
+                        and v.stride() != p.stride()):
+                    st[k] = torch.empty_like(p, dtype=v.dtype).copy_(v)
         if self.lr_t is not None:
             for group in self.param_groups:
                 group["lr"] = self.lr_t

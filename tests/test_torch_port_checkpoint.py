@@ -468,3 +468,108 @@ def test_dedup_metrics_matches_jax(tmp_path, case):
     assert got["port"] == got["jax"]
     assert got["port"][0] == {"full_restart": 10, "resume": 5, "clean": 0,
                               "step_reset": 1}[case]
+
+
+def _nchw_copy(obj):
+    """A saved object with every tensor made NCHW-contiguous: the files of
+    the port before its conv weights were held channels_last."""
+    if isinstance(obj, dict):
+        return {k: _nchw_copy(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_nchw_copy(v) for v in obj]
+    return obj.contiguous() if isinstance(obj, torch.Tensor) else obj
+
+
+def _is_cl(t):
+    return t.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_nchw_saved_run_resumes_into_channels_last_models(tmp_path):
+    """A run dir whose every file holds NCHW tensors (G, G_ema, D and both
+    Adam states) resumes with --continue_train into the channels_last
+    models exactly as 2 epochs straight: weights, moments, EMA and losses
+    equal; the resumed weights and moments channels_last. Then a
+    channels_last save loads into an NCHW model, values equal and the
+    model's layout kept."""
+    base = TINY + ["--checkpoints_dir", str(tmp_path), "--no_vgg_loss",
+                   "--lambda_L2", "500", "--lambda_UV", "1000",
+                   "--lambda_Prob", "10", "--lambda_Temp", "500",
+                   "--temporal_prev", "real", "--use_densepose_loss",
+                   "--batchSize", "8", "--niter", "2", "--niter_decay", "1",
+                   "--print_freq", "100", "--save_latest_freq", "0"]
+    straight = drivers.run_train(TrainOptions().parse(base + ["--name", "a"]),
+                                 epochs=2)
+    drivers.run_train(TrainOptions().parse(base + ["--name", "b"]), epochs=1)
+    run = str(tmp_path / "b")
+    saved = sorted(f for f in os.listdir(run) if f.endswith(".pth"))
+    assert "latest_state.pth" in saved and "1_net_G.pth" in saved
+    cl = 0
+    for f in saved:
+        path = os.path.join(run, f)
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        cl += sum(1 for v in (blob.values() if f != "latest_state.pth"
+                              else blob["g_opt"]["state"][0].values())
+                  if isinstance(v, torch.Tensor) and v.dim() == 4
+                  and not v.is_contiguous() and _is_cl(v))
+        torch.save(_nchw_copy(blob), path)
+    assert cl > 0                           # the port saves channels_last
+    resumed = drivers.run_train(TrainOptions().parse(
+        base + ["--name", "b", "--continue_train"]), epochs=2)
+    a, b = _state_tensors(straight), _state_tensors(resumed)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    for k in straight.metrics:
+        assert torch.equal(straight.metrics[k], resumed.metrics[k]), k
+    convs = [p for m in (resumed.renderer, resumed.disc)
+             for p in m.parameters() if p.dim() == 4]
+    assert convs and all(_is_cl(p) for p in convs)
+    for o in (resumed.g_opt, resumed.d_opt):
+        for p, s in o.state.items():
+            assert s["exp_avg"].stride() == s["exp_avg_sq"].stride() \
+                == p.stride()
+    assert all(_is_cl(t) for t in resumed.g_ema.values() if t.dim() == 4)
+    # a channels_last save into an NCHW model
+    opt = TrainOptions().parse(TINY, save=False)
+    nchw = init_params(renderer_from_options(opt), 5)
+    for p in nchw.parameters():
+        p.data = p.data.contiguous()
+    ckpt.load_net_into(nchw, os.path.join(str(tmp_path), "a"), "G", 2)
+    for k, v in nchw.state_dict().items():
+        assert v.is_contiguous(), k
+        assert torch.equal(v, straight.renderer.state_dict()[k]), k
+
+
+def test_jax_and_torch_imports_give_channels_last_weights(jax_run, tmp_path):
+    """params_from_jax lays every conv kernel out channels_last (values
+    the flax kernel's permutation), and a pix2pixHD .pth imported by
+    import_torch_checkpoint lands in channels_last weights."""
+    from neural_human_video_rendering_tpu_torch import \
+        import_torch_checkpoint as itc
+    from neural_human_video_rendering_tpu_torch.utils import \
+        torch_import as ti
+    sd = params_from_jax(jax.tree.map(np.asarray, jax_run["g"]))
+    kernels = {k: v for k, v in sd.items() if v.dim() == 4}
+    assert kernels and all(_is_cl(v) and not v.is_contiguous()
+                           for v in kernels.values())
+    k = "TransG.GlobalGenerator_0.ConvNormRelu_0.Conv_0.weight"
+    flax = np.asarray(jax_run["g"]["TransG"]["GlobalGenerator_0"][
+        "ConvNormRelu_0"]["Conv_0"]["kernel"])
+    np.testing.assert_array_equal(kernels[k].numpy(),
+                                  flax.transpose(3, 2, 0, 1))
+    opt = TrainOptions().parse(TINY, save=False)
+    gg = itc.parity_options(opt)
+    net = getattr(init_params(renderer_from_options(gg), 0), "BGNet")
+    g = net.GlobalGenerator_0
+    ref = ti.pix2pixhd_global_generator(
+        3, 3, g.ConvNormRelu_0.Conv_0.weight.shape[0],
+        sum(n.startswith("Upsample_") for n in g.order),
+        sum(n.startswith("ResnetBlock_") for n in g.order))
+    path = str(tmp_path / "bg.pth")
+    torch.save(ref.state_dict(), path)
+    imported = itc.import_checkpoint(path, "BGNet", opt)
+    weights = [p for p in imported.parameters() if p.dim() == 4]
+    assert weights and all(_is_cl(p) and not p.is_contiguous()
+                           for p in weights)
+    assert torch.equal(imported.GlobalGenerator_0.ConvNormRelu_0.Conv_0.weight,
+                       ref.state_dict()["1.weight"])

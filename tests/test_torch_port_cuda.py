@@ -1111,6 +1111,154 @@ def test_graphed_forward_matches_eager_on_the_card(cuda):
     assert fwd.program.captures == 2
 
 
+_SMALL_FLAGSHIP = ("--loadSize 64 --tex_tile 16 --ngf 16 --ngf_global 16 "
+                   "--ndf 16 --n_layers_D 3 --n_blocks_translate 1 "
+                   "--n_downsample_translate 2 --n_blocks_global 1 "
+                   "--n_downsample_global 1 --n_blocks_bg 1 "
+                   "--n_downsample_bg 2 --stem_s2d 2 --head_s2d 2 "
+                   "--bg_s2d 4 --pad_mode same --dtype bfloat16 "
+                   "--pose_heatmaps --coord_conv --no_flip --ema_decay 0.999 "
+                   "--lambda_L2 500 --lambda_UV 1000 --lambda_Prob 10 "
+                   "--lambda_Temp 500 --lambda_Mask 1 --use_densepose_loss "
+                   "--temporal_prev real --batchSize 2 --gpu_ids 0").split()
+
+
+def test_graphed_step_runs_its_convs_in_nhwc_on_the_card(cuda):
+    """A small flagship-shaped stage-2 step (the recipe's flags at small
+    widths: bf16, s2d stems and heads, pad same, D and VGG) graphed: every
+    conv of the capture found its input and weight NHWC (the capture's
+    counter); one replay under the profiler runs the warp kernels once
+    each and no cuDNN layout change (nchwToNhwc / nhwcToNchw) but those
+    cuDNN makes inside a conv to one output channel (D's logits), at most
+    3 a call (its forward and both gradients; 7 in NCHW); and one SGD(1)
+    step's losses and changes of G and D hold the eager route's (a call
+    with a mark) in hazard 11's bf16 form, 2^-8 of the largest change +
+    2^-8 of each tensor's, cuDNN deterministic."""
+    from torch.profiler import ProfilerActivity, profile
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.data import dataset as dsm
+    from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
+    from neural_human_video_rendering_tpu_torch.parallel.selfcheck import \
+        delta_ratio
+    from neural_human_video_rendering_tpu_torch.train.graphs import WARMUP
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        create_train_state
+    from neural_human_video_rendering_tpu_torch.train.steps import \
+        make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    opt = TrainOptions().parse(_SMALL_FLAGSHIP, save=False)
+    syn = dsm.SyntheticDataset(opt, length=6, seed=opt.seed)
+    batches = [pack_batch(dsm.collate([syn[2 * i], syn[2 * i + 1]]))
+               for i in range(2)]
+    runs, start = {}, None
+    try:
+        for name in ("eager", "graphed"):
+            st = create_train_state(opt, syn.texture_atlas(),
+                                    syn.background(), device=cuda)
+            if start is None:
+                start = {"G": {k: v.clone() for k, v in
+                               st.renderer.state_dict().items()},
+                         "D": {k: v.clone() for k, v in
+                               st.disc.state_dict().items()}}
+            conv_w = [p for m in (st.renderer, st.disc, st.vgg)
+                      for p in m.parameters() if p.dim() == 4]
+            assert all(p.is_contiguous(memory_format=torch.channels_last)
+                       for p in conv_w)
+            step = make_train_step(
+                opt, st.renderer, st.disc, st.vgg,
+                torch.optim.SGD(st.renderer.parameters(), lr=1.0),
+                torch.optim.SGD(st.disc.parameters(), lr=1.0))
+            to_one = [0]
+            hooks = [m_.register_forward_pre_hook(
+                lambda *_: to_one.__setitem__(0, to_one[0] + 1))
+                for m_ in st.disc.modules()
+                if getattr(m_, "out_channels", 0) == 1]
+            m = step(st, batches[0], **({} if name == "graphed" else
+                                        {"mark": lambda n: None}))
+            for h in hooks:
+                h.remove()
+            runs[name] = ({k: float(v) for k, v in m.items()},
+                          {"G": {k: (v - start["G"][k]).cpu() for k, v in
+                                 st.renderer.state_dict().items()},
+                           "D": {k: (v - start["D"][k]).cpu() for k, v in
+                                 st.disc.state_dict().items()}})
+            if name == "graphed":
+                nhwc, calls = step.program.convs[-1]
+                assert calls > 0 and nhwc == calls, step.program.convs
+                torch.cuda.synchronize()
+                tk.reset_launch_counts()
+                fk.reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    step(st, batches[1])
+                    torch.cuda.synchronize()
+                kernels = {e.key for e in prof.key_averages()}
+                assert any("conv" in k.lower() or "gemm" in k.lower()
+                           or "xmma" in k.lower() for k in kernels), kernels
+                moved = sum(e.count for e in prof.key_averages()
+                            if "nchwToNhwc" in e.key or "nhwcToNchw" in e.key)
+                # the capture ran the step's body WARMUP + 1 times
+                per_step = to_one[0] // (WARMUP + 1)
+                assert per_step > 0 and moved <= 3 * per_step, (
+                    moved, to_one[0])
+                assert _launches() == (0, 0, 1, 1)
+                assert fk.flow_warp_fwd.launches == 1
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for k, v in runs["eager"][0].items():
+        assert abs(runs["graphed"][0][k] - v) <= 2 ** -8 * max(abs(v), 1e-12)
+    for tag in ("G", "D"):
+        r = delta_ratio(runs["graphed"][1][tag], runs["eager"][1][tag],
+                        2 ** -8, 2 ** -8)
+        assert r["ratio"] <= 1.0, (tag, r)
+    # the capturable Adam's moments (zeros_like) follow the weights' layout
+    adam = st.g_opt
+    for p in adam.param_groups[0]["params"]:
+        p.grad = torch.ones_like(p)
+    adam.step()
+    for p in adam.param_groups[0]["params"]:
+        s_ = adam.state[p]
+        assert s_["exp_avg"].stride() == s_["exp_avg_sq"].stride() \
+            == p.grad.stride() == p.stride()
+
+
+def test_reflect_and_resize_keep_the_convs_nhwc_on_the_card(cuda):
+    """TransG with reflection padding, nearest-resize upsampling, the
+    refine stack and the aux heads, bf16 on the card: every conv of a
+    forward found its input and weight NHWC, and its forward and backward
+    run no cuDNN layout change; its outputs NCHW float32."""
+    from torch.profiler import ProfilerActivity, profile
+    from neural_human_video_rendering_tpu_torch.models import layers
+    from neural_human_video_rendering_tpu_torch.models.generators import \
+        TransG
+    from neural_human_video_rendering_tpu_torch.models.renderer import \
+        init_params
+    with torch.device("meta"):
+        net = TransG(23, 4, 16, 2, 1, uv_refine=1, uv_refine_ngf=16,
+                     ms_uv=1, pad_mode="reflect", upsample_mode="resize",
+                     dtype=torch.bfloat16)
+    net = init_params(net, 0).to(cuda)
+    x = torch.randn(2, 23, 64, 64, device=cuda)
+    before = layers.conv_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, uv, aux = net(x)
+        (logits.sum() + uv.sum() + sum(a.sum() + b.sum() for a, b in aux)
+         ).backward()
+        torch.cuda.synchronize()
+    nhwc, calls = (b - a for a, b in zip(before, layers.conv_counts()))
+    convs = sum(isinstance(m, (layers.Conv, layers.ConvTranspose))
+                for m in net.modules())
+    assert nhwc == calls == convs, (nhwc, calls, convs)
+    kernels = {e.key for e in prof.key_averages()}
+    moved = sorted(k for k in kernels if "nchwToNhwc" in k
+                   or "nhwcToNchw" in k)
+    assert not moved, moved
+    assert logits.dtype == uv.dtype == torch.float32
+    assert logits.stride(-1) == 1 and uv.stride(-1) == 1
+
+
 def _pretrain_case(kind, opt, dev):
     """(net, make_step(net, optimizer), packed batches of 2) of a tiny
     pretrain step of ``kind`` (uv: TransG; tex: TexG with part textures,
