@@ -53,10 +53,9 @@ from .config import Options, _add_flags, resolve_device
 from .data import dataset as dsm
 from .infer.test_driver import assets_to_device
 from .models.renderer import init_params, renderer_from_options
+from .serve import SIDECAR
 from .train.steps import build_pose_input
 from .utils import checkpoint as ckpt
-
-SIDECAR = ".params"
 
 
 def quantize(frames: torch.Tensor) -> torch.Tensor:

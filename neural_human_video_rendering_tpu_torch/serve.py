@@ -75,6 +75,7 @@ import torch
 from .config import resolve_device
 from .ops import flow_warp_kernel  # noqa: F401  (registers nhvr_torch::)
 from .ops import texture_warp_kernel  # noqa: F401
+from .train.graphs import Dispatch
 from .utils.image import _cv2, encode_png
 from .utils.spans import span
 
@@ -115,9 +116,8 @@ class _Model:
         # seconds of the last replay's parts (device forward, host copy)
         self.timing = {}
         self.requests = itertools.count()
-        from .train import steps
-        self.program = steps._program("serve", self.device)
-        self.route = ""
+        self.dispatch = Dispatch("serve", self.device)
+        self.program = self.dispatch.program
         t0 = time.perf_counter()
         self.render(np.zeros(self.in_shape, np.float32))
         self.warmup_s = time.perf_counter() - t0
@@ -215,6 +215,11 @@ class _Model:
         with span("serve.device", rid=rid):
             return self._call(padded, n)
 
+    @property
+    def route(self) -> str:
+        """The route printed at the warm-up call."""
+        return self.dispatch.route
+
     def forward(self, joints: torch.Tensor) -> torch.Tensor:
         """The program's eager call on (batch, 18, 3) joints on the device
         (the graph's plain version)."""
@@ -229,24 +234,15 @@ class _Model:
         x = torch.from_numpy(padded)
         with torch.no_grad():
             with span("serve.forward") as forward:
-                if self.program is None:
-                    out = self.forward(x.to(self.device))
-                    how = f"eager ({self.device.type})"
-                else:
-                    # one capture: the compiled batch, the sidecar held by it
-                    key = (self.in_shape, id(self.params))
-                    out = self.program(
-                        key, {"joints": x},
-                        lambda st: lambda: self.forward(st["joints"]),
-                        keep=(self.module, self.params))
-                    how = self.program.route
+                # one capture: the compiled batch, the sidecar held by it
+                out = self.dispatch(
+                    lambda: self.forward(x.to(self.device)),
+                    (self.module, self.params), self.in_shape, {"joints": x},
+                    lambda st: lambda: self.forward(st["joints"]))
                 if out.is_cuda:
                     torch.cuda.synchronize(out.device)
             with span("serve.transfer") as transfer:
                 host = out[:n].cpu().numpy()
-        if not self.route:
-            self.route = how
-            print(f"[serve] {how}", file=sys.stderr, flush=True)
         self.timing = {"forward_s": forward.seconds,
                        "transfer_s": transfer.seconds}
         return host

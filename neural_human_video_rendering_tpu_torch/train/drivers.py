@@ -269,18 +269,6 @@ def _visuals_fn(opt, device):
     return visuals_fn
 
 
-def train_state_tensors(st) -> list:
-    """Everything a stage-2 rank must hold bit-equal to the others: G, D,
-    both optimizers' states, the EMA and the pool."""
-    out = (module_tensors(st.renderer) + module_tensors(st.disc)
-           + optimizer_tensors(st.g_opt) + optimizer_tensors(st.d_opt))
-    if st.g_ema is not None:
-        out += list(st.g_ema.values())
-    if st.pool_buf is not None:
-        out += [st.pool_buf, st.pool_n]
-    return out
-
-
 def run_train(opt, epochs: Optional[int] = None,
               max_steps: Optional[int] = None,
               dp: Optional[DataParallel] = None):
@@ -325,7 +313,7 @@ def run_train(opt, epochs: Optional[int] = None,
         path = ckpt.load_transg_into(state.renderer, opt.load_pretrain_TransG,
                                      opt.which_epoch_TransG)
         print(f"[ckpt] loaded pretrained TransG from {path}", flush=True)
-    dp.check("the stage-2 state at the start", train_state_tensors(state))
+    dp.check("the stage-2 state at the start", state.tensors())
 
     step = make_train_step(opt, state.renderer, state.disc, state.vgg,
                            state.g_opt, state.d_opt, dp)
@@ -335,7 +323,7 @@ def run_train(opt, epochs: Optional[int] = None,
                                                           completed),
         _visuals_fn(opt, device), _eval_fn(opt, dp),
         start_epoch=state.start_epoch, max_steps=max_steps, dp=dp)
-    dp.check("the stage-2 state at the end", train_state_tensors(state))
+    dp.check("the stage-2 state at the end", state.tensors())
     who = f"{dp} " if dp.parallel else ""
     print(f"[kernels] {who}launches since the counters' reset: "
           f"{json.dumps(kernel_launches())}", flush=True)

@@ -63,12 +63,17 @@ nothing (``graph_memory_probe --routes`` with 30 GB free on the H100:
 the same G err/tol 107 against the eager threads as the first capture's),
 and an eager step at that free memory caught an error of its own and
 read 0.094, not the free card's 6.3e-4. The eager closure beside a
-program (a call with ``mark``, ``train/steps.py``) runs every call inside
-the same check: a cached plan that stops fitting is searched again.
+program (a step called with ``mark``, ``train/steps.py``) runs every call
+inside the same check: a cached plan that stops fitting is searched again.
 
-The CPU has no graphs: there the callers run the eager closure.
+The callers (the forward and the steps of ``train/steps.py``, the server
+of ``serve.py``) reach their program through one ``Dispatch``: it takes
+the eager route or the program's, drops the captures when the objects
+the graphs address change and prints each route once. The CPU has no
+graphs: there ``program_for`` gives none and the eager closure runs.
 ``StandIn`` is a capture that records nothing and replays by running the
-closure again, which lets the CPU tests drive a Program's bookkeeping.
+closure again, which lets the CPU tests drive a Program's bookkeeping
+(they patch ``program_for`` to hand out stand-ins).
 """
 
 from __future__ import annotations
@@ -661,6 +666,64 @@ class Program:
 
         _preserving(state, calls, copied)
         stream.wait_stream(current)
+
+
+def program_for(name: str, device: torch.device) -> Optional[Program]:
+    """The captured program of a closure on ``device``: on the card a CUDA
+    graph's, on the CPU none (the eager closure runs)."""
+    return Program(name, device) if device.type == "cuda" else None
+
+
+class Dispatch:
+    """One closure's route (the module docstring): ``program`` is
+    ``program_for(name, device)``, None where the closure runs eagerly.
+
+    dispatch(eager, keep, key, inputs, make_closure, state=tuple,
+    eagerly=False) -> outputs: ``eager()`` where there is no program or
+    the caller asks for it (``eagerly``, a step called with ``mark``;
+    beside a program it runs inside ``refuse_caught_ooms``), else the
+    program's call of signature (the ids of ``keep``, ``key``) with
+    ``inputs``, ``make_closure`` and ``state`` as ``Program`` takes them.
+    ``keep`` lists the objects the graphs address: when their ids change,
+    every capture goes. Each route is printed once, ``[name] eager
+    (cpu)``, ``[name] eager (per-phase marks)`` or ``[name]`` and the
+    program's ``route``; ``route`` keeps the first printed."""
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self.device = torch.device(device)
+        self.program = program_for(name, self.device)
+        self.route = ""
+        self._told: set = set()
+        self._held: Optional[tuple] = None
+
+    def __call__(self, eager: Callable[[], Any], keep: Sequence[Any],
+                 key: Hashable, inputs: Dict[str, torch.Tensor],
+                 make_closure: Callable[[Dict[str, torch.Tensor]],
+                                        Callable[[], Any]],
+                 state: Callable[[], Sequence[torch.Tensor]] = tuple,
+                 eagerly: bool = False) -> Any:
+        program = self.program
+        if program is None:
+            self._tell("eager", f"eager ({self.device.type})")
+            return eager()
+        if eagerly:
+            self._tell("eager", "eager (per-phase marks)")
+            with refuse_caught_ooms(self.name, self.device, "an eager call"):
+                return eager()
+        ids = tuple(id(x) for x in keep)
+        if self._held != ids:
+            program.clear()
+            self._held = ids
+        out = program((ids, key), inputs, make_closure, state, keep)
+        self._tell("graphed", program.route)
+        return out
+
+    def _tell(self, kind: str, how: str) -> None:
+        if kind not in self._told:
+            self._told.add(kind)
+            self.route = self.route or how
+            print(f"[{self.name}] {how}", file=sys.stderr, flush=True)
 
 
 def _preserving(state: Callable[[], Sequence[torch.Tensor]],

@@ -21,7 +21,7 @@ import torch
 from ..config import resolve_device
 from ..models.discriminator import discriminator_from_options
 from ..models.renderer import init_params, renderer_from_options
-from ..parallel.mesh import DataParallel, module_tensors
+from ..parallel.mesh import DataParallel, module_tensors, optimizer_tensors
 
 
 @dataclasses.dataclass
@@ -56,6 +56,19 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return self.static_tex.device
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the state that a step updates: G's and D's
+        parameters and buffers, both optimizers' tensors, the EMA and the
+        pool. The data-parallel ranks hold them bit-equal (``dp.check``);
+        a capture's warm-up saves and restores them (``train/steps.py``)."""
+        out = (module_tensors(self.renderer) + module_tensors(self.disc)
+               + optimizer_tensors(self.g_opt) + optimizer_tensors(self.d_opt))
+        if self.g_ema is not None:
+            out += list(self.g_ema.values())
+        if self.pool_buf is not None:
+            out += [self.pool_buf, self.pool_n]
+        return out
 
 
 @dataclasses.dataclass

@@ -8,9 +8,7 @@ and texture pretrain steps (``make_pretrain_uv_step``,
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import sys
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -23,7 +21,7 @@ from ..parallel.mesh import DataParallel, optimizer_tensors
 from ..utils import spans
 from ..utils.host_point import host_point
 from ..utils.spans import span
-from .graphs import Program, refuse_caught_ooms
+from .graphs import Dispatch
 from .image_pool import pool_draws, pool_update
 from .state import ScheduledAdam
 
@@ -84,32 +82,8 @@ def pose_from_batch(opt, b: Dict[str, torch.Tensor],
                             b.get("pose_img"))
 
 
-def _route(name: str, told: list, how: str) -> None:
-    """Print the route a closure takes, once."""
-    if not told:
-        told.append(how)
-        print(f"[{name}] {how}", file=sys.stderr, flush=True)
-
-
 def _module_device(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
-
-
-def _program(name: str, device: torch.device) -> Optional[Program]:
-    """The captured program of a closure on ``device``: on the card a CUDA
-    graph's, on the CPU none (the eager closure runs)."""
-    return Program(name, device) if device.type == "cuda" else None
-
-
-def _eager_call(program: Optional[Program]):
-    """The guard of an eager call beside a program (a call with ``mark``
-    on the card): a call that caught an out-of-memory error is refused as
-    a capture is (``graphs.refuse_caught_ooms``), on every call, since a
-    cached cuDNN plan that stops fitting is searched again. None on the
-    CPU, where there is no program."""
-    if program is None:
-        return contextlib.nullcontext()
-    return refuse_caught_ooms(program.name, program.device, "an eager call")
 
 
 def make_forward_fn(opt, renderer, cluster_feats=None
@@ -148,9 +122,7 @@ def make_forward_fn(opt, renderer, cluster_feats=None
             kw["cluster_feats"] = codes
         return renderer(pose, bg[None], static_tex[None], tex_mask, **kw)
 
-    program = _program("forward", dev)
-    told: list = []
-    held = [None]
+    dispatch = Dispatch("forward", dev)
 
     @torch.inference_mode()
     def fwd(assets: Tuple[torch.Tensor, torch.Tensor, object],
@@ -158,25 +130,18 @@ def make_forward_fn(opt, renderer, cluster_feats=None
             pose_img: Optional[torch.Tensor] = None,
             feat_image: Optional[torch.Tensor] = None
             ) -> Dict[str, torch.Tensor]:
-        if program is None:
-            _route("forward", told, f"eager ({dev.type})")
-            return eager(assets, joints, laplace, pose_img, feat_image)
         assets = tuple(assets)
-        ids = tuple(id(a) for a in assets)
-        if held[0] != ids:
-            program.clear()
-            held[0] = ids
         inputs = {k: v for k, v in (
             ("joints", joints), ("laplace", laplace), ("pose_img", pose_img),
             ("feat_image", feat_image)) if v is not None}
-        out = program(ids, inputs, lambda st: lambda: eager(
-            assets, st["joints"], st.get("laplace"), st.get("pose_img"),
-            st.get("feat_image")),
-            state=lambda: list(renderer.buffers()), keep=assets)
-        _route("forward", told, program.route)
-        return out
+        return dispatch(
+            lambda: eager(assets, joints, laplace, pose_img, feat_image),
+            assets, None, inputs, lambda st: lambda: eager(
+                assets, st["joints"], st.get("laplace"), st.get("pose_img"),
+                st.get("feat_image")),
+            state=lambda: list(renderer.buffers()))
 
-    fwd.program = program
+    fwd.program = dispatch.program
     fwd.eager = torch.inference_mode()(eager)
     return fwd
 
@@ -314,14 +279,11 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     ``step.g_backward.end`` (after G's backward), which split the chain
     into the generator's forward, its losses and backward, and D's step
     with both updates (read by the benchmark's ``g_forward_ms.train``,
-    ``g_backward_ms.train`` and ``d_update_ms.train``). A call with
-    ``mark`` runs the eager step (the caller asked for per-phase times),
-    and so does every call on the CPU; the same code runs either way. On
-    the card a capture, or an eager call, in which a caller caught an
-    out-of-memory error and went on raises ``graphs.CaughtOutOfMemory``
-    (the step's arithmetic would depend on the memory free). The host's
-    part before the device work (the learning rates, the step counter,
-    the pool's draws) is the span ``step.prepare`` (``utils/spans.py``).
+    ``g_backward_ms.train`` and ``d_update_ms.train``). The eager route
+    (every call on the CPU, a call with ``mark`` on the card: the same
+    code), the refusal of a caught out-of-memory error and the span
+    ``step.prepare`` (the learning rates, the step counter, the pool's
+    draws) are the shell's (``_step_shell``).
     """
     dp, count = _parallel(dp)
     use_temporal = opt.lambda_Temp > 0
@@ -332,19 +294,11 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     detach_prev = use_temporal and opt.temporal_detach_prev and not real_prev
     symmetric = use_temporal and not detach_prev and not real_prev
     use_feat = opt.instance_feat or opt.label_feat
-    scheduled = [o for o in (g_opt, d_opt) if isinstance(o, ScheduledAdam)]
     dev = _module_device(renderer)
-    program = _program("step", dev)
-    if program is not None:
-        program.marks = True   # read by replay_ms.train, replay_gap_ms.train
-    told: Dict[str, list] = {"eager": [], "graphed": []}
-    held = [None]
 
     def prepare(state, batch) -> Dict[str, torch.Tensor]:
-        """The host's part ahead of the device work: the learning rates,
-        the device step counter, the pool's draws (returned as inputs)."""
-        for o in scheduled:
-            o.prepare()
+        """The device step counter and the pool's draws (returned as
+        inputs)."""
         if state.step_t is None:
             state.step_t = torch.zeros((), dtype=torch.int64,
                                        device=state.device)
@@ -359,12 +313,6 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         if perm is not None:
             draws["pool_perm"] = perm
         return draws
-
-    def finish(state) -> None:
-        for o in scheduled:
-            o.advance()
-        state.step += 1
-        state.step_t_at = state.step
 
     def body(state, raw: Dict[str, torch.Tensor], mark=_no_mark):
         """The device work of one step: from the uploaded wire batch and
@@ -487,48 +435,74 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         metrics["D_total"] = d_total.detach()
         return dp.all_reduce_metrics(metrics)
 
-    def state_tensors(state) -> list:
-        """Every tensor a step updates in place (the capture's warm-up
-        saves and restores them)."""
-        out = [t for m in (renderer, disc) for t in
-               (*m.parameters(), *m.buffers())]
-        out += optimizer_tensors(g_opt) + optimizer_tensors(d_opt)
-        if state.g_ema is not None:
-            out += list(state.g_ema.values())
-        if state.pool_buf is not None:
-            out += [state.pool_buf, state.pool_n]
-        return out + [state.step_t]
+    def finish(state) -> None:
+        state.step_t_at = state.step
+
+    def held(state) -> tuple:
+        """What the graphs address: a new state, optimizer state, EMA, pool
+        or assets drops the captures and captures anew."""
+        return (state, g_opt.state, d_opt.state, state.g_ema, state.pool_buf,
+                state.pool_n, state.static_tex, state.bg, state.tex_mask,
+                state.step_t)
+
+    # the warm-up saves the state's tensors: the step's optimizers are the
+    # state's, or hold none (plain SGD)
+    step = _step_shell("step", dev, (g_opt, d_opt), body, held,
+                       lambda state: state.tensors() + [state.step_t],
+                       prepare, finish)
+    if step.program is not None:
+        # read by replay_ms.train, replay_gap_ms.train
+        step.program.marks = True
+    return step
+
+
+def _step_shell(name: str, dev: torch.device, optimizers, body: Callable,
+                held: Callable, tensors: Callable,
+                prepare: Callable = lambda state, batch: {},
+                finish: Callable = lambda state: None) -> Callable:
+    """The stage-2 step's and the pretrains' shell around their device
+    ``body(state, raw, mark)`` (the uploaded wire batch and ``prepare``'s
+    inputs -> the metrics). step(state, batch, mark=None) -> metrics:
+      1. the span ``<name>.prepare``: ScheduledAdam's learning rates, then
+         ``prepare(state, batch)``'s device inputs;
+      2. the body through one ``graphs.Dispatch`` of ``name``: eagerly on
+         the batch uploaded where there is no program (the CPU) or
+         ``mark`` is given (the caller asked for per-phase times), else
+         replayed on the host batch copied in, one capture per (the
+         objects ``held(state)`` lists, the freeze state, the batch's
+         signature), with ``tensors(state)`` the state a capture's
+         warm-up saves and restores. On the card a capture, or an eager
+         call, in which a caller caught an out-of-memory error and went
+         on raises ``graphs.CaughtOutOfMemory`` (the arithmetic would
+         depend on the memory free);
+      3. the update counts, the step count, then ``finish(state)``."""
+    scheduled = [o for o in optimizers if isinstance(o, ScheduledAdam)]
+    dispatch = Dispatch(name, dev)
 
     def step(state, batch, mark: Optional[Callable[[str], None]] = None):
-        with span("step.prepare"):
+        with span(name + ".prepare"):
+            for o in scheduled:
+                o.prepare()
             draws = prepare(state, batch)
-        if program is None or mark is not None:
-            _route("step", told["eager"], "eager (" + (
-                "per-phase marks" if program is not None else dev.type) + ")")
-            with _eager_call(program):
-                raw = {k: v.to(state.device, non_blocking=True)
-                       for k, v in host_tensors(batch).items()}
-                metrics = body(state, {**raw, **draws}, mark or _no_mark)
-        else:
-            # what the graphs address: a new state, optimizer state, EMA,
-            # pool or assets drops the captures and captures anew
-            keep = (state, g_opt.state, d_opt.state, state.g_ema,
-                    state.pool_buf, state.pool_n, state.static_tex,
-                    state.bg, state.tex_mask, state.step_t)
-            ids = tuple(id(x) for x in keep)
-            if held[0] != ids:
-                program.clear()
-                held[0] = ids
-            key = (ids, tuple(o.freezing for o in scheduled))
-            metrics = program(
-                key, {**host_tensors(batch), **draws},
-                lambda st: lambda: body(state, st),
-                state=lambda: state_tensors(state), keep=keep)
-            _route("step", told["graphed"], program.route)
+        host = host_tensors(batch)
+
+        def eager():
+            raw = {k: v.to(state.device, non_blocking=True)
+                   for k, v in host.items()}
+            return body(state, {**raw, **draws}, mark or _no_mark)
+
+        metrics = dispatch(
+            eager, held(state), tuple(o.freezing for o in scheduled),
+            {**host, **draws},
+            lambda st: lambda: body(state, st), lambda: tensors(state),
+            eagerly=mark is not None)
+        for o in scheduled:
+            o.advance()
+        state.step += 1
         finish(state)
         return metrics
 
-    step.program = program
+    step.program = dispatch.program
     return step
 
 
@@ -536,64 +510,21 @@ def _single_net_step(name: str, net: torch.nn.Module, optimizer,
                      body: Callable, keep: Tuple = ()) -> Callable:
     """A pretrain step from its device ``body(raw, mark)`` (the uploaded
     wire batch -> the metrics: dequantisation, forward, losses, backward,
-    the gradients' all-reduce and the optimizer's update), as
-    make_train_step builds the stage-2 step: ``prepare`` (ScheduledAdam's
-    learning rate) before it, ``finish`` (the update counts, the step
-    count) after it.
-
+    the gradients' all-reduce and the optimizer's update; a plain
+    optimizer, not a ScheduledAdam, steps there) in ``_step_shell``:
     step(state, batch, mark=None) -> metrics, updating ``net``, the
     optimizer and state.step in place. On the card the body is a captured
-    program (``train/graphs.py``, the counterpart of the JAX package's
-    ``jax.jit(step, donate_argnums=(0, 1))``): one CUDA graph chain per
-    (batch signature, freeze state), keyed by the net, the optimizer's
-    state and ``keep`` (assets the body reads), with the net's parameters
-    and buffers and the optimizer's tensors as the state a capture's
-    warm-up saves and restores. A call with ``mark`` runs the eager body
-    (the caller asked for per-phase times), and so does every call on the
-    CPU; the same code runs either way. On the card both routes refuse a
-    caught out-of-memory error (``graphs.CaughtOutOfMemory``), as
-    make_train_step's do. A plain optimizer (not a ScheduledAdam) steps
-    inside the body."""
-    dev = _module_device(net)
-    program = _program(name, dev)
-    told: Dict[str, list] = {"eager": [], "graphed": []}
-    held = [None]
-    scheduled = isinstance(optimizer, ScheduledAdam)
-
-    def state_tensors() -> list:
-        return ([*net.parameters(), *net.buffers()]
-                + optimizer_tensors(optimizer))
-
-    def step(state, batch, mark: Optional[Callable[[str], None]] = None):
-        if scheduled:
-            optimizer.prepare()
-        if program is None or mark is not None:
-            _route(name, told["eager"], "eager (" + (
-                "per-phase marks" if program is not None else dev.type) + ")")
-            with _eager_call(program):
-                raw = {k: v.to(state.device, non_blocking=True)
-                       for k, v in host_tensors(batch).items()}
-                metrics = body(raw, mark or _no_mark)
-        else:
-            # what the graphs address: a new net, optimizer state (a
-            # resume) or asset drops the captures and captures anew
-            objs = (net, optimizer.state) + tuple(keep)
-            ids = tuple(id(x) for x in objs)
-            if held[0] != ids:
-                program.clear()
-                held[0] = ids
-            key = (ids, optimizer.freezing if scheduled else None)
-            metrics = program(key, host_tensors(batch),
-                              lambda st: lambda: body(st),
-                              state=state_tensors, keep=objs)
-            _route(name, told["graphed"], program.route)
-        if scheduled:
-            optimizer.advance()
-        state.step += 1
-        return metrics
-
-    step.program = program
-    return step
+    program (the counterpart of the JAX package's ``jax.jit(step,
+    donate_argnums=(0, 1))``) held by the net, the optimizer's state and
+    ``keep`` (assets the body reads), whose warm-up saves and restores
+    the net's parameters and buffers and the optimizer's tensors."""
+    return _step_shell(
+        name, _module_device(net), (optimizer,),
+        lambda state, raw, mark=_no_mark: body(raw, mark),
+        # a new net, optimizer state (a resume) or asset drops the captures
+        lambda state: (net, optimizer.state) + tuple(keep),
+        lambda state: [*net.parameters(), *net.buffers()]
+        + optimizer_tensors(optimizer))
 
 
 def make_pretrain_uv_step(opt, transg, optimizer,

@@ -32,6 +32,7 @@ from neural_human_video_rendering_tpu_torch.data import dataset as tds
 from neural_human_video_rendering_tpu_torch.train import graphs
 from neural_human_video_rendering_tpu_torch.train import state as tstate
 from neural_human_video_rendering_tpu_torch.train import steps as tsteps
+from test_torch_port_graph_step import stand_in  # noqa: F401 (fixture)
 
 PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "neural_human_video_rendering_tpu_torch")
@@ -159,17 +160,17 @@ def _sgd_step(opt, st):
         torch.optim.SGD(st.disc.parameters(), lr=1.0))
 
 
-def test_an_eager_call_that_caught_an_error_is_refused(count, monkeypatch,
+def test_an_eager_call_that_caught_an_error_is_refused(count, stand_in,
                                                        tmp_path):
     """The eager step beside a program (a stand-in here, a CUDA graph's on
     the card), called with a mark: a call whose count rose raises; one
     whose count stayed flat gives the plain eager step's metrics."""
     opt, st, batch = _tiny_state(tmp_path)
-    plain = {k: float(v) for k, v in _sgd_step(opt, st)(st, batch).items()}
+    with stand_in.cpu():
+        plain = {k: float(v) for k, v in
+                 _sgd_step(opt, st)(st, batch).items()}
 
     opt, st, batch = _tiny_state(tmp_path)
-    monkeypatch.setattr(tsteps, "_program", lambda name, device:
-                        graphs.Program(name, device, stand_in=True))
     step = _sgd_step(opt, st)
     marks = []
 

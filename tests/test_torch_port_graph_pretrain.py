@@ -71,17 +71,6 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _eager(make, *args, **kw):
-    """A step made with the CPU's own route (no program) while the
-    stand-in fixture is on."""
-    saved = tsteps._program
-    try:
-        tsteps._program = lambda name, device: None
-        return make(*args, **kw)
-    finally:
-        tsteps._program = saved
-
-
 def _batches(opt, extra=None):
     """4 packed batches: 2, 2, 1 (a partial batch), 2 samples."""
     ds = tds.SyntheticDataset(opt, length=7, seed=3)
@@ -101,7 +90,7 @@ def _bits(st):
     return out
 
 
-def _run_both(make_net, make_step, batches, name, capsys):
+def _run_both(stand_in, make_net, make_step, batches, name, capsys):
     """4 steps eagerly and through the stand-in route from one start:
     the same bits everywhere."""
     net0 = make_net()
@@ -112,8 +101,8 @@ def _run_both(make_net, make_step, batches, name, capsys):
                            optimizer=make_optimizer(
                                FLAG_OPT, net.named_parameters(), 1))
         assert st.optimizer.scheduled
-        step = (_eager(make_step, st) if route == "eager"
-                else make_step(st))
+        with stand_in.cpu(route == "eager"):
+            step = make_step(st)
         assert (step.program is None) == (route == "eager")
         metrics = [{k: v.clone() for k, v in step(st, b).items()}
                    for b in batches]
@@ -147,7 +136,7 @@ def test_pretrain_uv_graph_route_gives_the_eager_bits(stand_in, capsys):
     opt = FLAG_OPT
     batches, _ = _batches(opt)
     metrics = _run_both(
-        lambda: init_params(renderer_from_options(opt), 1).TransG,
+        stand_in, lambda: init_params(renderer_from_options(opt), 1).TransG,
         lambda st: tsteps.make_pretrain_uv_step(opt, st.net, st.optimizer),
         batches, "pretrain_uv", capsys)
     assert sorted(metrics[0]) == ["Prob", "UV", "total"]
@@ -181,7 +170,7 @@ def test_pretrain_tex_graph_route_gives_the_eager_bits(stand_in, capsys):
                     stem_s2d=2, head_s2d=2, pad_mode="same")
 
     metrics = _run_both(
-        make_net,
+        stand_in, make_net,
         lambda st: tsteps.make_pretrain_tex_step(opt, st.net, st.optimizer,
                                                  static_t, mask_t),
         batches, "pretrain_tex", capsys)
@@ -225,7 +214,8 @@ def test_served_program_graph_route_matches_eager(stand_in, artifacts, bake,
                          "1 segment, ") == 1
     assert printed.count("[serve] graphed (stand-in, 1 capture)") == 1
     # the CPU's own route
-    eager = _eager(srv._Model, paths[bake], torch.device("cpu"))
+    with stand_in.cpu():
+        eager = srv._Model(paths[bake], torch.device("cpu"))
     assert eager.program is None
     np.testing.assert_array_equal(eager.render(joints), model.render(joints))
     assert "[serve] eager (cpu)" in capsys.readouterr().err

@@ -24,6 +24,8 @@ tests/test_torch_port_cuda.py (``gpu``), and at the flagship in
 chip_smoke.py phase 15.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,18 +72,40 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+class StandIns(list):
+    """The stand-in programs made, in order. Inside ``cpu()`` (``cpu(on)``
+    with ``on`` true) a closure gets the CPU's own route (no program)."""
+
+    def __init__(self):
+        super().__init__()
+        self.off = False
+
+    @contextlib.contextmanager
+    def cpu(self, on: bool = True):
+        self.off = on
+        try:
+            yield
+        finally:
+            self.off = False
+
+
 @pytest.fixture
 def stand_in(monkeypatch):
-    """make_train_step / make_forward_fn take the graph route on the CPU,
-    with the stand-in capture; yields the programs they make."""
-    made = []
+    """Every captured closure (the forward, the steps, the server) takes
+    the graph route on the CPU, with the stand-in capture: the one seam,
+    ``graphs.program_for``, patched; yields the programs made
+    (``StandIns``)."""
+    made = StandIns()
+    cpu = graphs.program_for
 
-    def program(name, device):
+    def program_for(name, device):
+        if made.off:
+            return cpu(name, device)
         p = graphs.Program(name, device, stand_in=True)
         made.append(p)
         return p
 
-    monkeypatch.setattr(tsteps, "_program", program)
+    monkeypatch.setattr(graphs, "program_for", program_for)
     yield made
 
 
@@ -336,8 +360,9 @@ def test_graph_route_gives_the_eager_bits(stand_in, tmp_path, capsys):
                                        steps_per_epoch=2,
                                        device=torch.device("cpu"))
         assert st.g_opt.frozen_steps == 2 and st.g_opt.frozen
-        make = _eager if route == "eager" else tsteps.make_train_step
-        step = make(opt, st.renderer, st.disc, None, st.g_opt, st.d_opt)
+        with stand_in.cpu(route == "eager"):
+            step = tsteps.make_train_step(opt, st.renderer, st.disc, None,
+                                          st.g_opt, st.d_opt)
         metrics[route] = [{k: v.clone() for k, v in step(st, b).items()}
                           for b in batches]
         states[route] = st
@@ -360,17 +385,6 @@ def test_graph_route_gives_the_eager_bits(stand_in, tmp_path, capsys):
     printed = capsys.readouterr().err
     assert "[step] eager (cpu)" in printed
     assert printed.count("[step] graphed (stand-in, capture ") == 3
-
-
-def _eager(*args):
-    """make_train_step with the CPU's own route (no program) while the
-    stand-in fixture is on."""
-    saved = tsteps._program
-    try:
-        tsteps._program = lambda name, device: None
-        return tsteps.make_train_step(*args)
-    finally:
-        tsteps._program = saved
 
 
 def test_the_cpu_routes_are_eager_and_say_so(tmp_path, capsys):
@@ -407,12 +421,8 @@ def test_the_forward_graph_route_matches_eager(stand_in, tmp_path):
     assets = _assets(ds)
     j2 = torch.from_numpy(np.stack([ds[0]["joints"], ds[1]["joints"]]))
     j1 = torch.from_numpy(ds[2]["joints"][None])
-    saved = tsteps._program
-    tsteps._program = lambda name, device: None
-    try:
+    with stand_in.cpu():
         eager = tsteps.make_forward_fn(opt, renderer)
-    finally:
-        tsteps._program = saved
     fwd = tsteps.make_forward_fn(opt, renderer)
     assert eager.program is None and fwd.program is not None
     for j in (j2, j1, j2):

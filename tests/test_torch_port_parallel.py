@@ -411,7 +411,7 @@ def _corpus_argv(tmp):
 def _record(st, dp):
     return {"start_epoch": st.start_epoch, "step": st.step,
             "g_count": st.g_opt.count,
-            "checksum": dp.check("state", drivers.train_state_tensors(st))}
+            "checksum": dp.check("state", st.tensors())}
 
 
 def _drivers_rank(opt, spec, dp=None):

@@ -49,10 +49,10 @@ from neural_human_video_rendering_tpu_torch import serve as srv
 from neural_human_video_rendering_tpu_torch.config import TestOptions
 from neural_human_video_rendering_tpu_torch.data import dataset as tds
 from neural_human_video_rendering_tpu_torch.train import graphs, loop
-from neural_human_video_rendering_tpu_torch.train import steps as tsteps
 from neural_human_video_rendering_tpu_torch.utils import spans
 from perfbench.harness import bench as hb
 from test_torch_port_graph_pretrain import SERVE_TINY
+from test_torch_port_graph_step import stand_in  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -269,11 +269,8 @@ def served(tmp_path_factory):
     return path, joints
 
 
-def test_serve_spans_and_the_lock_wait(monkeypatch, served):
+def test_serve_spans_and_the_lock_wait(stand_in, served):
     path, joints = served
-    monkeypatch.setattr(
-        tsteps, "_program",
-        lambda name, device: graphs.Program(name, device, stand_in=True))
     model = srv._Model(path, torch.device("cpu"))
     call = model._call
     holding, go = threading.Event(), threading.Event()
@@ -332,13 +329,6 @@ def test_serve_spans_and_the_lock_wait(monkeypatch, served):
     assert inside == ["serve.copy_in", "serve.replay", "serve.clone_out"]
     fill = hb.reader("serve.batch_fill")({"kind": "serve"})
     assert fill == pytest.approx(100.0 * 4 / 8)
-
-
-def _stand_in_model(monkeypatch, path):
-    monkeypatch.setattr(
-        tsteps, "_program",
-        lambda name, device: graphs.Program(name, device, stand_in=True))
-    return srv._Model(path, torch.device("cpu"))
 
 
 def _wait_for(cond, what):
@@ -400,7 +390,7 @@ def _queued_behind_a_held_device(model, holder, parts, after=None):
     return out[:-1], replays
 
 
-def test_queued_requests_share_one_replay(monkeypatch, served):
+def test_queued_requests_share_one_replay(stand_in, served):
     """Three one-frame requests queued while the device is held ride in one
     replay: its serve.device span carries their ids as a tuple,
     serve.batch_fill reads their 3 frames over one batch of 4, each
@@ -408,7 +398,7 @@ def test_queued_requests_share_one_replay(monkeypatch, served):
     come back), and each request's frames are bit-equal to its joints
     rendered alone."""
     path, joints = served
-    model = _stand_in_model(monkeypatch, path)
+    model = srv._Model(path, torch.device("cpu"))
     call = model._call
     seen = []
 
@@ -440,13 +430,13 @@ def test_queued_requests_share_one_replay(monkeypatch, served):
     ((2, 3, 1), [[0], [1, 2]]),        # the 1 does not overtake the 3
     ((1, 4, 1), [[0], [1], [2]]),      # a request of the batch rides alone
 ], ids=["1-3-1", "2-3-1", "1-4-1"])
-def test_queued_requests_replay_in_arrival_order(monkeypatch, served, sizes,
+def test_queued_requests_replay_in_arrival_order(stand_in, served, sizes,
                                                  replays):
     """Batch 4: each replay takes the queued requests in arrival order and
     stops at the first that does not fit; each request's frames are its
     own joints rendered alone."""
     path, joints = served
-    model = _stand_in_model(monkeypatch, path)
+    model = srv._Model(path, torch.device("cpu"))
     parts = [joints[4 - k:] for k in sizes]
     out, got = _queued_behind_a_held_device(model, joints[:1], parts)
     assert got == replays
@@ -455,10 +445,10 @@ def test_queued_requests_replay_in_arrival_order(monkeypatch, served, sizes,
         np.testing.assert_array_equal(frames, model.render(p))
 
 
-def test_a_request_to_an_idle_model_is_replayed_at_once_alone(monkeypatch,
+def test_a_request_to_an_idle_model_is_replayed_at_once_alone(stand_in,
                                                               served):
     path, joints = served
-    model = _stand_in_model(monkeypatch, path)
+    model = srv._Model(path, torch.device("cpu"))
     with spans.recording():
         got = model.render(joints[:2])
     req, = spans.records("serve.request")
@@ -476,13 +466,13 @@ class _Marked(np.ndarray):
     """Host frames marked by a wrapper of ``_call``."""
 
 
-def test_coalesced_parts_carry_the_marks_of_the_replays_array(monkeypatch,
+def test_coalesced_parts_carry_the_marks_of_the_replays_array(stand_in,
                                                               served):
     """A ``_call`` wrapper returns an ndarray subclass with instance
     attributes: every request of a shared replay gets its part with the
     same attributes (those of its replay, not the class's defaults)."""
     path, joints = served
-    model = _stand_in_model(monkeypatch, path)
+    model = srv._Model(path, torch.device("cpu"))
     call, calls = model._call, itertools.count()
 
     def marking(padded, n):
@@ -501,10 +491,10 @@ def test_coalesced_parts_carry_the_marks_of_the_replays_array(monkeypatch,
         assert frames.forward_s == out[0].forward_s
 
 
-def test_a_failed_replay_raises_in_every_request_it_carried(monkeypatch,
+def test_a_failed_replay_raises_in_every_request_it_carried(stand_in,
                                                             served):
     path, joints = served
-    model = _stand_in_model(monkeypatch, path)
+    model = srv._Model(path, torch.device("cpu"))
     call = model._call
 
     def broken(padded, n):
@@ -522,13 +512,13 @@ def test_a_failed_replay_raises_in_every_request_it_carried(monkeypatch,
     assert model.render(joints[:1]).shape[0] == 1
 
 
-def test_concurrent_requests_get_their_own_frames(monkeypatch, served):
+def test_concurrent_requests_get_their_own_frames(stand_in, served):
     """24 client threads, 4 requests each of 1-4 frames, with a short
     switch interval: every request gets its own joints' frames, every
     request rides in exactly one replay, and no replay carries more frames
     than the batch."""
     path, joints = served
-    model = _stand_in_model(monkeypatch, path)
+    model = srv._Model(path, torch.device("cpu"))
     single = [model.render(joints[i:i + 1]) for i in range(4)]
     rng = np.random.default_rng(5)
     plans = [[(int(a), int(rng.integers(a + 1, 5)))

@@ -35,6 +35,7 @@ from perfbench.harness import data
 from perfbench.harness.bench import Run
 from perfbench.kinds import train
 from perfbench.reference.config import reference_config
+from test_torch_port_graph_step import stand_in  # noqa: F401 (fixture)
 from test_torch_port_local1024 import TINY
 
 CPU = torch.device("cpu")
@@ -56,21 +57,6 @@ def _empty_recorder():
     spans.clear()
     yield
     spans.clear()
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """make_train_step takes the graph route on the CPU, with the stand-in
-    capture; yields the programs it makes."""
-    made = []
-
-    def program(name, device):
-        p = graphs.Program(name, device, stand_in=True)
-        made.append(p)
-        return p
-
-    monkeypatch.setattr(tsteps, "_program", program)
-    yield made
 
 
 def _steps(config: str, calls=None):
