@@ -41,8 +41,8 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      2, the recipe's losses, random weights from --seed) for 3 warm-up and
      10 timed steps with --temporal_prev real: finite losses, G and D
      changed, the fused forward (keeping w), the backward and the flow
-     warp launched once per step, top-k and the forward with w given
-     never; one step with --temporal_prev fake launches the fused forward
+     warp launched once per step, the Adam kernel twice (G's update with
+     the EMA, D's), top-k and the forward with w given never; one step with --temporal_prev fake launches the fused forward
      twice. Then a tiny float32 train step on the card against the CPU
      (all parts blended, SGD lr 1, TF32 off): losses and parameter deltas.
   6. train numbers: step ms (median) and steps/s, peak memory, the phases
@@ -243,6 +243,19 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
      batch N + 1 captures with num_ooms 0 and replays bit-equal to its
      eager call. Numbers: the check's seconds, the host cost of one
      refuse_caught_ooms region (the eager step's check a call).
+ 18. the optimizers' update (ops/adam_ema_kernel.py, csrc/adam_ema.cu):
+     at the flagship's G (120 tensors, 193.03 M elements, the conv
+     weights channels_last) with the EMA and its D without, 3 updates of
+     the kernel against its plain version (torch's capturable foreach
+     Adam and the EMA's card form) from one start: the changes of p, m,
+     v and the EMA within 5e-3, 5e-6, 8e-6 and 2e-6 of each tensor's
+     largest change (FMA contraction), the plain version with its step
+     counts one ahead reading above p's limit, one launch an update. Numbers: the kernel's device time (CUDA graph of 20
+     updates) against its byte bound (28 B an element, 36 with the EMA;
+     at G at least 80% of the time), the plain version's eager and
+     graphed device time (the foreach passes the port ran before the
+     kernel), torch's fused=True Adam without the EMA (library_ms: a
+     yardstick the port never calls), the wrapper's host cost a call.
 The last lines are the script's total and each phase's wall seconds,
 the kernels' JSON, the nvidia-smi line, and {"ok": true, "device":
 {...}}. Without a CUDA card, or without the package beside this script,
@@ -439,17 +452,39 @@ def trace_forward(torch, fn, iters=3, top=10):
             "top_kernels_ms_per_call": ranked(kernels, 120)}
 
 
-# launches per train step on the main path (the rest: none)
+# launches per train step on the main path (the rest: none): the warp
+# kernels by REPLACES' names, and the Adam kernel once an optimizer (G's
+# with its EMA, D's)
 TRAIN_LAUNCHES_PER_STEP = {"topk_select": 0, "texture_warp_fwd": 0,
                            "texture_warp_topk_fwd": 1,
-                           "texture_warp_bwd": 1, "flow_warp_fwd": 1}
+                           "texture_warp_bwd": 1, "flow_warp_fwd": 1,
+                           "adam_ema": 2}
 
 
-def launch_counts():
-    """Every kernel wrapper's launch count, by REPLACES' names."""
+def train_launches():
+    """Every kernel wrapper's launch count, as run_train's '[kernels]' line
+    prints it: the warp kernels' and the Adam kernel's (adam_ema)."""
     from neural_human_video_rendering_tpu_torch.train.drivers import \
         kernel_launches
     return kernel_launches()
+
+
+def warps(launches):
+    """The warp kernels' counts of a launch dict, by REPLACES' names."""
+    return {k: launches[k] for k in REPLACES}
+
+
+def launch_counts():
+    """The warp kernels' launch counts, by REPLACES' names."""
+    return warps(train_launches())
+
+
+def reset_train_launches():
+    """Zero every counter train_launches reads."""
+    from neural_human_video_rendering_tpu_torch.ops import (
+        adam_ema_kernel, flow_warp_kernel, texture_warp_kernel)
+    for m in (texture_warp_kernel, flow_warp_kernel, adam_ema_kernel):
+        m.reset_launch_counts()
 
 
 def fused_modes():
@@ -833,12 +868,7 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
     work = os.path.join(repo, "build", "chip_smoke")
     ckpt = ["--checkpoints_dir", os.path.join(work, "ckpt")]
 
-    def counts():
-        return launch_counts()
-
-    def reset():
-        tk.reset_launch_counts()
-        fk.reset_launch_counts()
+    counts, reset = train_launches, reset_train_launches
 
     # the main path: run_train, temporal_prev real
     opt = TrainOptions().parse(TRAIN + ckpt + ["--name", "train_real"])
@@ -857,8 +887,8 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
     smoke.require(f"run_train took {steps} steps", state.step == steps)
     per_step = {k: v / max(state.step, 1) for k, v in launches.items()}
     smoke.require("train step: texture_warp_topk_fwd, texture_warp_bwd and "
-                  "flow_warp_fwd once per step, topk_select and "
-                  "texture_warp_fwd never",
+                  "flow_warp_fwd once per step, adam_ema twice (G with its "
+                  "EMA, D), topk_select and texture_warp_fwd never",
                   launches == {k: v * state.step
                                for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
                   f"({launches}, {state.step} steps)")
@@ -884,10 +914,12 @@ def train_path(torch, smoke, tk, fk, repo, dev, smi):
     fake_counts = counts()
     print(f"[train] temporal_prev fake, 1 step: launches {fake_counts}",
           flush=True)
-    smoke.require("temporal_prev fake: fused forward 2, bwd 1, flow 1",
+    smoke.require("temporal_prev fake: fused forward 2, bwd 1, flow 1, "
+                  "adam_ema 2",
                   fake_counts == {"topk_select": 0, "texture_warp_fwd": 0,
                                   "texture_warp_topk_fwd": 2,
-                                  "texture_warp_bwd": 1, "flow_warp_fwd": 1},
+                                  "texture_warp_bwd": 1, "flow_warp_fwd": 1,
+                                  "adam_ema": 2},
                   str(fake_counts))
     smoke.require("temporal_prev fake losses finite", all(
         np.isfinite(float(v)) for v in st_fake.metrics.values()))
@@ -1950,7 +1982,7 @@ def measure_path(torch, smoke, tk, fk, repo, dev, smi):
         "--data_ratio", "0.9", "--no_flip"], save=False)
     held_out = len(dsm.FrameDataset(qopt, "test"))
     with open(os.path.join(q, "run.log")) as f:
-        logged = [json.loads(ln.split(": ", 1)[1]) for ln in f
+        logged = [warps(json.loads(ln.split(": ", 1)[1])) for ln in f
                   if ln.startswith("[kernels] launches")]
     # temporal_prev fake: t and the t-1 render; one fused launch per
     # held-out batch of each epoch's eval
@@ -2624,7 +2656,7 @@ def bench_serve_path(smoke, repo, model, opt, gpu, joints, served, smi):
                   json.dumps(result))
     smoke.require("bench_serve: the server exits 0 on SIGINT",
                   server["rc"] == 0, json.dumps(server))
-    want = {**{k: 0 for k in REPLACES}, "texture_warp_topk_fwd":
+    want = {**{k: 0 for k in train_launches()}, "texture_warp_topk_fwd":
             3 + LADDER_REQUESTS * len(levels)}
     smoke.require("the server process launched the fused forward without w "
                   "once a request and a warm-up, no other kernel",
@@ -3168,7 +3200,6 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     numbers = {}
-    per_step = {k: TRAIN_LAUNCHES_PER_STEP.get(k, 0) for k in REPLACES}
 
     # ---- (a) parity at the flagship widths
     numbers["a"] = parallel_parity(torch, smoke, work, dev)
@@ -3209,20 +3240,19 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
         os.path.join(run_dir, f)) for f in ("1_net_G.pth", "1_net_D.pth",
                                             "1_net_G_ema.pth",
                                             "latest_state.pth")))
-    want = {k: v * steps_b for k, v in per_step.items()}
+    want = {k: v * steps_b for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
     smoke.require("(b) each rank launched the fused forward, the backward "
-                  "and the flow warp once a step",
+                  "and the flow warp once a step, adam_ema twice",
                   sorted(launches_b) == [0, 1] and all(
                       launches_b[r] == want for r in launches_b),
                   f"({launches_b}, want {want} each)")
     two_ms = [t * 1e3 for _, _, t, _ in lines]
     # --continue_train on one rank from the two-rank save
-    tk.reset_launch_counts()
-    fk.reset_launch_counts()
+    reset_train_launches()
     st1, out_r = fd_captured(drivers.run_train, TrainOptions().parse(
         b_argv + ["--niter", "2", PAR_ONE, "--continue_train"]))
     torch.cuda.synchronize()
-    one_launch = launch_counts()
+    one_launch = train_launches()
     smoke.require("(b) one rank resumes the two-rank save at epoch 2, "
                   f"step {steps_b}", st1 is not None and st1.start_epoch == 2
                   and st1.step == 2 * steps_b
@@ -3310,7 +3340,7 @@ def parallel_path(torch, smoke, tk, fk, repo, dev, smi):
                 1)
     smoke.require("(d) each rank's fused forwards equal one rank's (one a "
                   "batch of 8)", sorted(launch_2) == [0, 1] and all(
-                      launch_2[r] == launch_1 for r in launch_2)
+                      warps(launch_2[r]) == launch_1 for r in launch_2)
                   and launch_1["texture_warp_topk_fwd"] == PAR_INFER // 8,
                   f"({launch_2}, one rank {launch_1})")
     smoke.require("(d) one HTML gallery", os.path.isfile(
@@ -3434,10 +3464,10 @@ def trained_regime_path(torch, smoke, tk, fk, dev, smi):
 
 
 def stage2_launches(log_path):
-    """The '[kernels] launches ...' lines of the stage-2 runs in a tool's
-    run.log, in order."""
+    """The warp kernels' counts of the '[kernels] launches ...' lines of
+    the stage-2 runs in a tool's run.log, in order."""
     with open(log_path) as f:
-        return [json.loads(ln.split(": ", 1)[1]) for ln in f
+        return [warps(json.loads(ln.split(": ", 1)[1])) for ln in f
                 if ln.startswith("[kernels] launches")]
 
 
@@ -4155,12 +4185,11 @@ def compiled_path(torch, smoke, tk, fk, repo, dev, smi):
     # ---- (b) launches on the replays, each route
     launches = {}
     for name, kw in (("graphed", {}), ("eager", {"mark": lambda n: None})):
-        tk.reset_launch_counts()
-        fk.reset_launch_counts()
+        reset_train_launches()
         for b in batches[:3]:
             graphed_step(graphed_state, b, **kw)
         torch.cuda.synchronize()
-        launches[name] = launch_counts()
+        launches[name] = train_launches()
     want = {k: 3 * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
     print(f"[compiled] (b) launches over 3 steps {json.dumps(launches)}",
           flush=True)
@@ -4296,7 +4325,7 @@ def pretrain_parity(torch, smoke, tk, fk, kind, base, dev, smi):
     ScheduledAdam at the flags' dtype: step 1's losses within
     COMPILED_LOSS_RTOL, every graphed update equal to the eager update on
     the graph's own gradients (graphed_update_err), the step, update and
-    freeze counts equal, one capture, no kernel launched; then (c) both
+    freeze counts equal, one capture, no warp kernel launched; then (c) both
     routes timed (step_times) in this process."""
     import numpy as np
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
@@ -4396,7 +4425,7 @@ def pretrain_parity(torch, smoke, tk, fk, kind, base, dev, smi):
                   f"{e['counts']} / {g['counts']}")
     smoke.require(f"{tag}2 {kind}: one capture", prog.captures == 1,
                   str(prog.captures))
-    smoke.require(f"{tag}2 {kind}: no kernel launched", all(
+    smoke.require(f"{tag}2 {kind}: no warp kernel launched", all(
         v == 0 for r in (e, g) for v in r["launches"].values()),
         json.dumps([e["launches"], g["launches"]]))
     smoke.require(f"{tag}2 {kind}: finite losses", all(
@@ -4563,6 +4592,121 @@ def caught_oom_path(torch, smoke, dev, smi):
     numbers = {k: v for k, v in got.items() if k != "refusal"}
     print(f"[caught_oom] {json.dumps(numbers)} | {smi}", flush=True)
     return got
+
+
+# phase 18: the kernel's change of p, m, v and the EMA over 3 updates
+# against the plain version's, as a share of the largest change of each
+# tensor. nvcc contracts a multiply and an add into one FMA where the plain
+# version rounds twice, so a new p may differ by an ulp of p a step, and
+# an ulp of the largest p is up to ~5e-4 of the ~1e-3 that 3 updates at lr
+# 2e-4 move a tensor at most. A step count off by one moves the update by
+# ~5% at these counts (beta2's bias correction: 5.3e-2 to 5.5e-2 of the
+# change in the plain version), which the phase plants and requires to
+# read above p's limit. m, v and the EMA change by about their size, or
+# more, so their limits are set no looser than 1e-5 of each tensor's
+# largest value, the form this check had before it read changes (read on
+# the card: v 4.0e-6 of its change at D, the EMA 8.1e-8, m 0).
+ADAM_KERNEL_TOL = {"p": 5e-3, "m": 5e-6, "v": 8e-6, "e": 2e-6}
+
+
+def adam_update_path(torch, smoke, dev, smi):
+    """Phase 18: the Adam kernel at the flagship's G (with the EMA) and D
+    shapes against its plain version (each tensor's change over 3 updates,
+    ADAM_KERNEL_TOL, and the same plain version one step count ahead as
+    the fault the limit must see), its time against its byte bound, the
+    foreach passes' and torch's fused Adam's."""
+    from neural_human_video_rendering_tpu_torch.config import TrainOptions
+    from neural_human_video_rendering_tpu_torch.models.discriminator import \
+        discriminator_from_options
+    from neural_human_video_rendering_tpu_torch.models.renderer import \
+        renderer_from_options
+    from neural_human_video_rendering_tpu_torch.ops import \
+        adam_ema_kernel as ak
+    from neural_human_video_rendering_tpu_torch.train.steps import ema_decay
+    opt = TrainOptions().parse(TRAIN, save=False)
+    with torch.device("meta"):
+        nets = {"G": renderer_from_options(opt),
+                "D": discriminator_from_options(opt)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lr = torch.full((), opt.lr, device=dev)
+    d = ema_decay(torch.tensor(7, device=dev), opt.ema_decay)
+    out = {}
+    for tag, ema in (("G", True), ("D", False)):
+        arrays = {k: [] for k in "pgmves"}
+        for p in nets[tag].parameters():
+            for k, scale in (("p", 1.0), ("g", 1e-2), ("m", 1e-3),
+                             ("v", 1e-6), ("e", 1.0)):
+                if k == "e" and not ema:
+                    continue
+                x = torch.empty_strided(p.shape, p.stride(), device=dev)
+                x.normal_(generator=gen).mul_(scale)
+                arrays[k].append(x.abs_() if k == "v" else x)
+            arrays["s"].append(torch.full((), 7.0, device=dev))
+
+        def update(fn, a):
+            fn(a["p"], a["g"], a["m"], a["v"], a["s"], lr, opt.beta1,
+               opt.beta2, 1e-8, a["e"] if ema else None, d if ema else None)
+
+        moved = "pmve" if ema else "pmv"
+        start = {k: [t.clone() for t in arrays[k]] for k in moved}
+        plain = {k: [t.clone() for t in v] for k, v in arrays.items()}
+        # the plain version with every step count one ahead: the fault
+        # the limit has to see
+        late = {k: [t.clone() for t in v] for k, v in plain.items()}
+        torch._foreach_add_(late["s"], 1)
+        ak.reset_launch_counts()
+        for _ in range(3):
+            update(ak.adam_ema, arrays)
+            update(ak.adam_ema_plain, plain)
+            update(ak.adam_ema_plain, late)
+        torch.cuda.synchronize()
+        smoke.require(f"adam_ema {tag}: one launch an update",
+                      ak.adam_ema.launches == 3, str(ak.adam_ema.launches))
+
+        def change_err(got, k):
+            """max over tensors of max|got - plain| / max|plain - start|"""
+            return max(float((a - b).abs().max() / (b - s0).abs().max())
+                       for a, b, s0 in zip(got[k], plain[k], start[k]))
+        errs = {k: change_err(arrays, k) for k in moved}
+        planted = change_err(late, "p")
+        for k, err in errs.items():
+            smoke.check(f"adam_ema {tag} {k}'s change against the plain "
+                        "version's (of each tensor's largest change)", err,
+                        ADAM_KERNEL_TOL[k])
+        smoke.require(f"adam_ema {tag}: a step count off by one reads above "
+                      f"p's limit {ADAM_KERNEL_TOL['p']:.0e}",
+                      planted > ADAM_KERNEL_TOL["p"], f"{planted:.3e}")
+        del plain, late, start
+        torch.cuda.empty_cache()
+        n = sum(t.numel() for t in arrays["p"])
+        nbytes = n * (36 if ema else 28)
+        row = {"tensors": len(arrays["p"]), "elements": n,
+               "max_change_err": errs, "step_off_by_one_p_err": planted, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "ms": graph_ms(torch, lambda: update(ak.adam_ema, arrays)),
+               "host_us": host_us(torch, lambda: update(ak.adam_ema, arrays),
+                                  iters=20),
+               "plain_ms": cuda_ms(torch, lambda: update(ak.adam_ema_plain,
+                                                         arrays), 5, 1),
+               "plain_graph_ms": graph_ms(
+                   torch, lambda: update(ak.adam_ema_plain, arrays))}
+        params = [torch.nn.Parameter(t) for t in arrays["p"]]
+        for p, g in zip(params, arrays["g"]):
+            p.grad = g
+        fused = torch.optim.Adam(params, lr=lr, betas=(opt.beta1, opt.beta2),
+                                 eps=1e-8, fused=True, capturable=True)
+        row["library_ms"] = graph_ms(torch, fused.step)
+        row["library"] = "torch.optim.Adam(fused=True), without the EMA"
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        del fused, params, arrays
+        torch.cuda.empty_cache()
+        if tag == "G":
+            smoke.require("adam_ema G: the byte bound at least 80% of the "
+                          "device time", row["bound_share"] >= 0.8,
+                          f"{row['bound_share']:.3f}")
+        print(f"[adam] {tag}: {json.dumps(row)} | {smi}", flush=True)
+        out[tag] = row
+    return out
 
 
 def main() -> int:
@@ -4901,6 +5045,9 @@ def main() -> int:
     # ------------------------- 17. the refusal of a caught out-of-memory
     caught_oom_path(torch, smoke, dev, smi)
     done("17 caught out-of-memory refused")
+    # ----------------------------------------- 18. the optimizers' update
+    adam = adam_update_path(torch, smoke, dev, smi)
+    done("18 optimizer update")
     ab_launches = tools["ab"].get("launches", {})
     launches_tools = {
         "quality_profile (phase 9 g)": launch_bench.pop("quality_profile"),
@@ -4970,6 +5117,23 @@ def main() -> int:
                            "calls replayed (warm L2 where the inputs fit); "
                            "host_us: host clock per call, no sync")
         kernels.append(entry)
+    kernels.append({
+        "name": "adam_ema", "route": "cuda",
+        "source": "neural_human_video_rendering_tpu_torch/csrc/adam_ema.cu",
+        "replaces": None, "why": "no TPU kernel: XLA fuses optax's update "
+        "into the compiled step; one pass in place of torch's foreach Adam "
+        "(80 B an element) and the EMA's passes (28 B)",
+        "shapes": "the flagship's G (the EMA folded in) and D",
+        "launches": train["launches"]["adam_ema"], "launches_path": train_run,
+        "launches_per_train_step": train["per_step"]["adam_ema"],
+        "launches_compiled_3_steps": {
+            k: v["adam_ema"] for k, v in compiled["b"].items()},
+        "launches_parallel": {
+            f"run_train, 2 ranks on cuda:0, {parallel['b']['steps']} steps":
+                {f"rank{r}": v["adam_ema"]
+                 for r, v in parallel["b"]["launches_ranks"].items()}},
+        **{f"{k}_{tag}": v for tag, row in adam.items()
+           for k, v in row.items()}, "card": smi})
     done("the kernels' line")
     print(json.dumps({"chip_smoke_s": {
         "total": time.perf_counter() - T0, "phases": phase_s,

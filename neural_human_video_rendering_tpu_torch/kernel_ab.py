@@ -155,16 +155,18 @@ def graphed_update_err(torch, st, step, batch, decay=0.0):
     """One graphed step of ``st`` (a stage-2 TrainState, or a
     PretrainState of one net), then its update redone eagerly: the
     pre-step parameters, Adam moments and counts and the EMA put back, the
-    optimizers' eager update (ScheduledAdam.update) and, for a stage-2
-    state with an EMA, ema_blend (``decay``) run on the gradients the
+    optimizers' eager update (ScheduledAdam.update, G's with the EMA of
+    ``decay`` for a stage-2 state that has one) run on the gradients the
     graph left in .grad, and the result held against the graph's. Returns
     (the step's metrics, the largest absolute difference); the state is
     left as the graph left it. The gradients of two runs differ
     (texture_warp_bwd's float atomics), so this is how the captured update
-    is held to the eager one exactly."""
+    is held to the eager one exactly. The redo launches the Adam kernel
+    too, once an optimizer: a caller that counts the step's launches takes
+    the counters' change around ``step``."""
     from neural_human_video_rendering_tpu_torch.parallel.mesh import \
         optimizer_tensors
-    from neural_human_video_rendering_tpu_torch.train.steps import ema_blend
+    from neural_human_video_rendering_tpu_torch.train.steps import ema_decay
     stage2 = hasattr(st, "g_opt")
     opts = (st.g_opt, st.d_opt) if stage2 else (st.optimizer,)
     ema = stage2 and st.g_ema is not None
@@ -190,10 +192,11 @@ def graphed_update_err(torch, st, step, batch, decay=0.0):
                 t.zero_()
         for o in opts:                   # the update as the step ran it
             o.freeze_count -= 1
-            o.update()
+            o.update(([(p, st.g_ema[k]) for k, p in
+                       st.renderer.named_parameters()],
+                      ema_decay(t_before, decay))
+                     if ema and o is st.g_opt else None)
             o.freeze_count += 1
-        if ema:
-            ema_blend(st.g_ema, st.renderer, t_before, decay)
         err = max(float((t - w).abs().max()) for t, w in zip(after, got))
         for t, w in zip(after, got):
             t.copy_(w)

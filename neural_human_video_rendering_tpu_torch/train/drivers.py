@@ -42,6 +42,7 @@ from ..data import dataset as dsm
 from ..data.wire import pack_batch, unpack_batch
 from ..models.generators import TexG
 from ..models.renderer import init_params, renderer_from_options
+from ..ops import adam_ema_kernel as ak
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
 from ..parallel.mesh import (DataParallel, module_tensors,
@@ -340,7 +341,8 @@ def kernel_launches() -> dict:
             "texture_warp_fwd": tk.texture_warp_fwd.launches,
             "texture_warp_topk_fwd": tk.texture_warp_topk_fwd.launches,
             "texture_warp_bwd": tk.texture_warp_bwd.launches,
-            "flow_warp_fwd": fk.flow_warp_fwd.launches}
+            "flow_warp_fwd": fk.flow_warp_fwd.launches,
+            "adam_ema": ak.adam_ema.launches}
 
 
 # ----------------------------------------------------------------------

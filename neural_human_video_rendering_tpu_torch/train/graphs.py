@@ -89,10 +89,12 @@ from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
 import torch
 
 from ..models.layers import conv_counts
+from ..ops import adam_ema_kernel as ak
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
 from ..utils.host_point import capturing, host_point  # noqa: F401
 from ..utils.spans import device_mark, span
+from .state import adam_counts
 
 # calls of the closure on the side stream before a capture
 WARMUP = 3
@@ -103,7 +105,7 @@ def kernel_counters() -> list:
     wrappers (``launches``, and ``launches_keep_w`` of the fused
     forward), which the programs keep true."""
     wrappers = [tk.topk_select, tk.texture_warp_fwd, tk.texture_warp_topk_fwd,
-                tk.texture_warp_bwd, fk.flow_warp_fwd]
+                tk.texture_warp_bwd, fk.flow_warp_fwd, ak.adam_ema]
     return [(w, a) for w in wrappers for a in sorted(vars(w))
             if a.startswith("launches")]
 
@@ -335,15 +337,19 @@ def _release(device: torch.device,
 def capture_line(name: str, stand_in: bool, n: int, batch: Optional[int],
                  segments: int, seconds: float,
                  mem: Dict[str, Optional[int]],
-                 convs: Tuple[int, int] = (0, 0)) -> str:
+                 convs: Tuple[int, int] = (0, 0),
+                 adam: Tuple[int, int] = (0, 0)) -> str:
     """The line a capture prints: ``[name] graphed (CUDA graph, capture n:
-    batch B, k segments, s s, nhwc a/c, num_ooms m, peak reserved g GB)``,
-    ``nhwc a/c`` where the capture ran c convs, a of them on NHWC operands
-    (``models/layers.conv_counts``); a stand-in's has no allocator
-    record."""
+    batch B, k segments, s s, nhwc a/c, adam a/c, num_ooms m, peak reserved
+    g GB)``, ``nhwc a/c`` where the capture ran c convs, a of them on NHWC
+    operands (``models/layers.conv_counts``), ``adam a/c`` where its
+    updates offered c optimizer parameter tensors, a of them updated by
+    the one-pass kernel (``state.adam_counts``); a stand-in's has no
+    allocator record."""
     kind = "stand-in" if stand_in else "CUDA graph"
     head = f"batch {batch}, " if batch is not None else ""
     layout = f", nhwc {convs[0]}/{convs[1]}" if convs[1] else ""
+    layout += f", adam {adam[0]}/{adam[1]}" if adam[1] else ""
     alloc = ""
     if "num_ooms" in mem:
         alloc = (f", num_ooms {mem['num_ooms']}, peak reserved "
@@ -491,7 +497,9 @@ class Program:
     capture is ``name.capture``, whose seconds ``capture_s`` keeps.
     ``convs`` keeps, for each capture, the conv calls it recorded that
     found their input and weight NHWC, and all its conv calls
-    (``models/layers.conv_counts``; the capture line prints them). With
+    (``models/layers.conv_counts``; the capture line prints them);
+    ``adam`` the optimizer parameter tensors its updates offered and those
+    the one-pass kernel updated (``state.adam_counts``). With
     ``marks`` set (the stage-2 step's program), the device marks
     ``name.replay.begin`` and ``name.replay.end`` lie on the card's
     stream before the replay and after its last graph; a stand-in records
@@ -510,6 +518,7 @@ class Program:
         self.marks = False
         self.capture_s: List[float] = []
         self.convs: List[Tuple[int, int]] = []
+        self.adam: List[Tuple[int, int]] = []
         self.warmup_launches: Dict[str, int] = {}
         # each capture's allocator record (the module docstring); empty
         # dicts for a stand-in
@@ -604,7 +613,7 @@ class Program:
                 with refuse_caught_ooms(self.name, self.device,
                                         f"capture {n}", mem):
                     try:
-                        convs = conv_counts()
+                        engaged = conv_counts() + adam_counts()
                         if self.stand_in:  # it runs the closure: no trace
                             _preserving(state,
                                         lambda: cap.run(closure, stream))
@@ -612,8 +621,8 @@ class Program:
                             cap.run(closure, stream)
                             mem["pool_bytes"] = _pool_bytes(self.device,
                                                             cap.pool)
-                        convs = tuple(b - a for a, b in
-                                      zip(convs, conv_counts()))
+                        engaged = tuple(b - a for a, b in zip(
+                            engaged, conv_counts() + adam_counts()))
                     except Exception as e:
                         raise RuntimeError(
                             f"[{self.name}] CUDA graph capture failed at "
@@ -634,7 +643,9 @@ class Program:
             _set_counts(counts)
         self.captures += 1
         self.capture_s.append(sp.seconds)
+        convs, adam = engaged[:2], engaged[2:]
         self.convs.append(convs)
+        self.adam.append(adam)
         if cuda:
             end = _allocator(self.device)
             note("after_capture")
@@ -644,7 +655,8 @@ class Program:
         lead = inputs.get("joints", next(iter(inputs.values()), None))
         print(capture_line(self.name, self.stand_in, self.captures,
                            None if lead is None else lead.shape[0],
-                           cap.segments, self.capture_s[-1], mem, convs),
+                           cap.segments, self.capture_s[-1], mem, convs,
+                           adam),
               file=sys.stderr, flush=True)
         return _Entry(cap, static, outputs, launches, (closure, tuple(keep)))
 

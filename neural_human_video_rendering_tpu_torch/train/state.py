@@ -13,7 +13,7 @@ perceptual loss, the EMA copy of G's parameters, the per-identity assets
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ import torch
 from ..config import resolve_device
 from ..models.discriminator import discriminator_from_options
 from ..models.renderer import init_params, renderer_from_options
+from ..ops.adam_ema_kernel import adam_ema
 from ..parallel.mesh import DataParallel, module_tensors, optimizer_tensors
 
 
@@ -95,6 +96,42 @@ def lr_schedule(opt, steps_per_epoch: int = 0) -> Callable[[int], float]:
     return lambda t: 1.0 if t < flat else 1.0 - min(t - flat, decay) / decay
 
 
+@torch.no_grad()
+def blend_ema(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+              d) -> None:
+    """e = d e + (1 - d) p in place, for each (parameter p, EMA tensor e)
+    of ``pairs``; ``d`` the effective decay (``train/steps.ema_decay``): a
+    () float32 tensor or a number, float32 as there."""
+    p, e = [v.detach() for v, _ in pairs], [v for _, v in pairs]
+    if torch.is_tensor(d) and d.is_cuda:
+        # a captured step reads d on the device, and add's alpha must be a
+        # host number: e * d, then + p * (1 - d), the product rounded
+        # before the sum. On the CPU the step is a host number and the
+        # update keeps add's alpha form (e * d + (1 - d) * p, fused where
+        # the CPU fuses it), the arithmetic the CPU tests (the JAX parity
+        # cases, the data-parallel evaluation's 1e-6 bound) were set on;
+        # the two differ by one rounding an element. The card's step folds
+        # this form into Adam's kernel (ScheduledAdam.update).
+        torch._foreach_mul_(e, d)
+        torch._foreach_add_(e, torch._foreach_mul(p, 1.0 - d))
+        return
+    d = np.float32(d.item() if torch.is_tensor(d) else d)
+    torch._foreach_mul_(e, float(d))
+    torch._foreach_add_(e, p, alpha=float(np.float32(1.0) - np.float32(d)))
+
+
+# the optimizers' parameter tensors offered to an update, and those of them
+# that the one-pass kernel updated, as Python runs the updates (eagerly, or
+# once while a program is captured: a replay runs no Python)
+_UPDATES = {"tensors": 0, "kernel": 0}
+
+
+def adam_counts() -> Tuple[int, int]:
+    """(parameter tensors the kernel updated, parameter tensors offered) of
+    every ScheduledAdam update so far in this process."""
+    return _UPDATES["kernel"], _UPDATES["tensors"]
+
+
 class ScheduledAdam(torch.optim.Adam):
     """torch.optim.Adam (eps 1e-8 added to the bias-corrected sqrt(v), as
     optax.adam) whose learning rate follows ``schedule`` of its own update
@@ -119,8 +156,12 @@ class ScheduledAdam(torch.optim.Adam):
     update. ``step()`` is ``prepare(); update(); advance()``: a captured
     step runs ``update`` in the graph and the other two on the host
     around each replay (the freeze's Python branch is part of the graph's
-    signature: ``freezing``). On the CPU the learning rate stays a number
-    and Adam runs as torch runs it by default."""
+    signature: ``freezing``). There ``update`` is one pass of the port's
+    kernel a parameter group (``ops/adam_ema_kernel.py``) over torch
+    Adam's own state (``step``, ``exp_avg``, ``exp_avg_sq``), which takes
+    the EMA into the same pass where it is handed one. On the CPU the
+    learning rate stays a number and Adam runs as torch runs it by
+    default."""
 
     def __init__(self, params, lr: float, betas, schedule: Callable,
                  frozen=(), frozen_steps: int = 0, scheduled: bool = False):
@@ -155,16 +196,53 @@ class ScheduledAdam(torch.optim.Adam):
             self.lr_t.fill_(lr)
         self.lr_now = lr
 
-    def update(self) -> None:
-        """The frozen gradients zeroed (while freezing), then Adam: no
-        Python state changes."""
+    def update(self, ema: Optional[Tuple[Sequence[Tuple[torch.Tensor,
+                                                        torch.Tensor]],
+                                         object]] = None) -> None:
+        """The frozen gradients zeroed (while freezing), then Adam, then,
+        with ``ema`` = ((parameter, EMA tensor) pairs, the decay d), each
+        EMA tensor blended toward its new parameter, e = d e + (1 - d) p
+        (``blend_ema``): no Python state changes. On the card (a device
+        learning rate) Adam and the blend are one pass of the kernel a
+        parameter group; on the CPU torch's Adam, then ``blend_ema``."""
         if self.freezing:
             for p in self.frozen:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 else:
                     p.grad.zero_()
-        super().step()
+        _UPDATES["tensors"] += sum(len(g["params"])
+                                   for g in self.param_groups)
+        if self.lr_t is None:
+            super().step()
+            if ema is not None:
+                blend_ema(*ema)
+            return
+        self._one_pass(ema)
+
+    @torch.no_grad()
+    def _one_pass(self, ema) -> None:
+        """Adam (and the EMA) through ``adam_ema``, over the parameters
+        with a gradient as torch's Adam takes them (its state made as torch
+        makes it); the EMA of a parameter without one blends on its own."""
+        rest = dict(ema[0]) if ema is not None else {}
+        for group in self.param_groups:
+            if group["weight_decay"] or group["amsgrad"] \
+                    or group["maximize"]:
+                raise ValueError("ScheduledAdam's kernel takes no weight "
+                                 "decay, amsgrad or maximize")
+            params, grads, m, v, steps = [], [], [], [], []
+            self._init_group(group, params, grads, m, v, [], steps)
+            e = None
+            if ema is not None:
+                e = [rest.pop(p) for p in params]
+            adam_ema(params, grads, m, v, steps, group["lr"],
+                     *group["betas"], group["eps"], e,
+                     None if e is None else ema[1])
+            if params and params[0].is_cuda:
+                _UPDATES["kernel"] += len(params)
+        if rest:
+            blend_ema(list(rest.items()), ema[1])
 
     def advance(self) -> None:
         self.count += 1

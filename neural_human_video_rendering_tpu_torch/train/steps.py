@@ -1,9 +1,11 @@
 """Pose-input assembly, the inference forward and the stage-2 train step.
 
 Port of the JAX package's ``train/steps.py``: ``build_pose_input``,
-``make_forward_fn``, ``ema_blend``, ``make_train_step`` and the stage-1 UV
-and texture pretrain steps (``make_pretrain_uv_step``,
-``make_pretrain_tex_step``).
+``make_forward_fn``, ``make_train_step`` and the stage-1 UV and texture
+pretrain steps (``make_pretrain_uv_step``, ``make_pretrain_tex_step``).
+The JAX package's ``ema_blend`` is ``ema_decay`` here with
+``state.blend_ema``, which on the card the stage-2 step folds into G's
+Adam update (``ScheduledAdam.update``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..utils.host_point import host_point
 from ..utils.spans import span
 from .graphs import Dispatch
 from .image_pool import pool_draws, pool_update
-from .state import ScheduledAdam
+from .state import ScheduledAdam, blend_ema
 
 
 def build_pose_input(opt, joints: torch.Tensor,
@@ -160,34 +162,6 @@ def ema_decay(step, decay: float):
                (np.float32(1.0) + t) / (np.float32(10.0) + t))
 
 
-@torch.no_grad()
-def ema_blend(g_ema: Dict[str, torch.Tensor], renderer: torch.nn.Module,
-              step, decay: float) -> None:
-    """Horizon-warmup EMA update of g_ema, in place: the effective decay
-    ``ema_decay(step, decay)``, where ``step`` is the step count BEFORE
-    this update (the JAX package's state.step): a Python number, or the
-    train state's step counter (``step_t``; on the card the captured step
-    reads it there, on the CPU its value is the number); float32 as
-    there."""
-    e = [g_ema[k] for k, _ in renderer.named_parameters()]
-    p = [v.detach() for _, v in renderer.named_parameters()]
-    d = ema_decay(step, decay)
-    if torch.is_tensor(d) and d.is_cuda:
-        # a captured step reads d on the device, and add's alpha must be a
-        # host number: e * d, then + p * (1 - d), the product rounded
-        # before the sum. On the CPU the step is a host number and the
-        # update keeps add's alpha form (e * d + (1 - d) * p, fused where
-        # the CPU fuses it), the arithmetic the CPU tests (the JAX parity
-        # cases, the data-parallel evaluation's 1e-6 bound) were set on;
-        # the two differ by one rounding an element.
-        torch._foreach_mul_(e, d)
-        torch._foreach_add_(e, torch._foreach_mul(p, 1.0 - d))
-        return
-    d = np.float32(d.item() if torch.is_tensor(d) else d)
-    torch._foreach_mul_(e, float(d))
-    torch._foreach_add_(e, p, alpha=float(np.float32(1.0) - np.float32(d)))
-
-
 def _slice_outs(outs, n: int):
     """The first n samples of every tensor of a renderer output dict (the
     ms_aux pairs included)."""
@@ -213,13 +187,17 @@ def _no_mark(name: str) -> None:
     pass
 
 
-def _update(optimizer) -> None:
+def _update(optimizer, ema=None) -> None:
     """The optimizer's update inside a step's body: ScheduledAdam's
-    (prepare and advance run around the body), else a plain step."""
+    (prepare and advance run around the body; ``ema``, (parameter, EMA
+    tensor) pairs and the decay, handed to it), else a plain step followed
+    by the EMA's blend."""
     if isinstance(optimizer, ScheduledAdam):
-        optimizer.update()
-    else:
-        optimizer.step()
+        optimizer.update(ema)
+        return
+    optimizer.step()
+    if ema is not None:
+        blend_ema(*ema)
 
 
 def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
@@ -234,8 +212,9 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         the G backward) and D's real features detached in the
         feature-matching term;
       * D's loss sees the fake detached and the OLD D parameters;
-      * both optimizers step after both backwards, then the EMA blends
-        with the step count before the increment.
+      * both optimizers step after both backwards, and the EMA blends
+        from G's new parameters with the step count before the increment
+        (on the card in the same pass as G's Adam update).
     Temporal modes: --temporal_prev real flow-warps the real t-1 frame;
     --temporal_prev fake renders frame t-1 a second time under no_grad
     (temporal_detach_prev), or, with --no_temporal_detach_prev, renders t
@@ -269,8 +248,9 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     tensors updated in place by every replay. What the eager step reads
     on the host each step lives on the device or around the replay: the
     EMA's decay comes from the device step counter ``state.step_t``; Adam
-    runs capturable with a device learning rate that ``ScheduledAdam``
-    fills from its schedule before the replay; the pool's draws come from
+    runs with a device learning rate that ``ScheduledAdam`` fills from its
+    schedule before the replay, as one kernel pass an optimizer, the EMA
+    folded into G's; the pool's draws come from
     the state's generator before the replay, into static buffers; the
     --niter_fix_global freeze is a Python branch, so the freeze boundary
     captures a second graph. The data-parallel collectives are host
@@ -423,11 +403,14 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
         dp.all_reduce_grads(optimizer_params(d_opt))
         mark("grad_all_reduce")
 
-        # ---- both updates, then the EMA
-        _update(g_opt)
-        _update(d_opt)
+        # ---- both updates, the EMA handed to G's (on the card one pass)
+        ema = None
         if opt.ema_decay > 0 and state.g_ema is not None:
-            ema_blend(state.g_ema, renderer, state.step_t, opt.ema_decay)
+            ema = ([(p, state.g_ema[k]) for k, p in
+                    renderer.named_parameters()],
+                   ema_decay(state.step_t, opt.ema_decay))
+        _update(g_opt, ema)
+        _update(d_opt)
         state.step_t.add_(1)
         mark("update")
         metrics = {k: v.detach() for k, v in losses.items()}

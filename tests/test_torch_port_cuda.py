@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from neural_human_video_rendering_tpu_torch.ops import adam_ema_kernel as ak
 from neural_human_video_rendering_tpu_torch.ops import flow_warp_kernel as fk
 from neural_human_video_rendering_tpu_torch.ops import texture_warp as ttw
 from neural_human_video_rendering_tpu_torch.ops import texture_warp_kernel as tk
@@ -86,6 +87,18 @@ def test_texture_warp_fwd_matches_plain(cuda, T, B_tex):
 def _launches():
     return (tk.topk_select.launches, tk.texture_warp_fwd.launches,
             tk.texture_warp_topk_fwd.launches, tk.texture_warp_bwd.launches)
+
+
+def _adam_counted(step, seen):
+    """``step``, each call appending the Adam kernel's launches in it to
+    ``seen`` (kernel_ab.graphed_update_err's redo of the update launches
+    the kernel as well, outside the step)."""
+    def run(*args, **kw):
+        before = ak.adam_ema.launches
+        out = step(*args, **kw)
+        seen.append(ak.adam_ema.launches - before)
+        return out
+    return run
 
 
 def test_dispatcher_launches_each_kernel_once(cuda):
@@ -985,7 +998,9 @@ def test_graphed_step_matches_eager_on_the_card(cuda, capsys):
     graph's own gradients (two runs' gradients differ in the last bits:
     texture_warp_bwd's float atomics, which Adam turns into different
     steps), the pool's count and generator equal, each replay counting
-    the eager step's launches, one capture a batch shape."""
+    the eager step's launches (one Adam pass an optimizer), every
+    optimizer tensor on the Adam kernel in the capture, one capture a
+    batch shape."""
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
     from neural_human_video_rendering_tpu_torch.data import dataset as dsm
     from neural_human_video_rendering_tpu_torch.data.wire import pack_batch
@@ -1052,25 +1067,31 @@ def test_graphed_step_matches_eager_on_the_card(cuda, capsys):
                                    st.g_opt, st.d_opt)
             tk.reset_launch_counts()
             fk.reset_launch_counts()
-            losses, errs = [], []
+            losses, errs, adam = [], [], []
+            counted = _adam_counted(step, adam)
             for b in batches:
                 if name == "graphed":
-                    m, err = graphed_update_err(torch, st, step, b,
+                    m, err = graphed_update_err(torch, st, counted, b,
                                                 opt.ema_decay)
                     errs.append(err)
                 else:
-                    m = step(st, b, **eager_kw)
+                    m = counted(st, b, **eager_kw)
                 losses.append({k: float(v) for k, v in m.items()})
             torch.cuda.synchronize()
             runs[name] = (losses, errs, _launches(),
-                          fk.flow_warp_fwd.launches)
+                          fk.flow_warp_fwd.launches, adam)
             states[name] = (st, step)
     finally:
         torch.backends.cudnn.deterministic = det
     (e, _), (g, gstep) = states["eager"], states["graphed"]
     assert gstep.program.captures == 1
     assert "[step] graphed (CUDA graph" in capsys.readouterr().err
-    assert runs["graphed"][2:] == runs["eager"][2:] == ((0, 0, 4, 4), 4)
+    # one Adam pass an optimizer a step (G's with the EMA), both routes
+    assert runs["graphed"][2:] == runs["eager"][2:] == ((0, 0, 4, 4), 4,
+                                                        [2] * 4)
+    n_params = len(list(g.renderer.parameters())) + len(list(
+        g.disc.parameters()))
+    assert gstep.program.adam == [(n_params, n_params)]
     assert runs["graphed"][1] == [0.0] * 4, runs["graphed"][1]
     first_e, first_g = runs["eager"][0][0], runs["graphed"][0][0]
     assert sorted(first_e) == sorted(first_g)
@@ -1314,7 +1335,8 @@ def test_graphed_pretrain_step_matches_eager_on_the_card(cuda, kind, capsys):
     form. Then 3 steps of the run's ScheduledAdam: step 1's losses within
     1e-5, every graphed update equal to the eager update on the graph's
     own gradients, the counts equal, one capture, no caught
-    out-of-memory error, no kernel launched."""
+    out-of-memory error, no warp kernel launched and the Adam kernel once a
+    step on each route."""
     import copy
 
     from neural_human_video_rendering_tpu_torch.config import TrainOptions
@@ -1357,26 +1379,28 @@ def test_graphed_pretrain_step_matches_eager_on_the_card(cuda, kind, capsys):
             step = make(net, o)
             tk.reset_launch_counts()
             fk.reset_launch_counts()
-            losses, errs = [], []
+            losses, errs, adam = [], [], []
+            counted = _adam_counted(step, adam)
             for b in batches:
                 if name == "graphed":
-                    m, err = graphed_update_err(torch, st, step, b)
+                    m, err = graphed_update_err(torch, st, counted, b)
                     errs.append(err)
                 else:
-                    m = step(st, b, **eager_kw)
+                    m = counted(st, b, **eager_kw)
                 losses.append({k: float(v) for k, v in m.items()})
             torch.cuda.synchronize()
             runs[name] = (losses, errs, st, step,
-                          _launches() + (fk.flow_warp_fwd.launches,))
+                          _launches() + (fk.flow_warp_fwd.launches,), adam)
     finally:
         torch.backends.cudnn.deterministic = det
-    (le, _, se, _, ne), (lg, eg, sg, gstep, ng) = runs["eager"], \
+    (le, _, se, _, ne, ae), (lg, eg, sg, gstep, ng, ag) = runs["eager"], \
         runs["graphed"]
     name = f"pretrain_{kind}"
     assert gstep.program.captures == 1 and gstep.program.num_ooms == 0
     assert f"[{name}] graphed (CUDA graph" in capsys.readouterr().err
     assert eg == [0.0] * 3, eg
     assert ne == ng == (0, 0, 0, 0, 0)
+    assert ae == ag == [1] * 3          # one Adam pass a step, both routes
     for k, v in le[0].items():
         assert abs(lg[0][k] - v) <= 1e-5 * max(abs(v), 1e-12), k
     assert se.step == sg.step == 3
@@ -1508,3 +1532,221 @@ def test_a_capture_that_caught_an_out_of_memory_error_is_refused(cuda):
     assert got["entries_after_refusal"] == 0
     assert got["clean_num_ooms"] == 0 and got["captures"] == 1
     assert got["bit_equal"]
+
+
+# ---- the optimizers' update: one pass of ops/adam_ema_kernel a group
+
+# p, m, v and the EMA against torch's capturable foreach Adam and the EMA's
+# card form: nvcc contracts a multiply and an add into one FMA where
+# torch's foreach passes round twice (the lerp, the addcmul, p + m / denom),
+# so an element may differ by a few float32 ulp a step, carried into the
+# next steps; a moment that cancels toward 0 keeps the absolute error of
+# the terms it cancelled, hence the share of the tensor's largest
+ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
+ADAM_SHAPES = [(32, 16, 3, 3), (7,), (3 * 8192 + 6,), (33, 65), (12, 5)]
+ADAM_LR, ADAM_BETAS = 1e-3, (0.5, 0.999)
+
+
+def _adam_case(dev, updates=5, seed=0):
+    """The parameters (a channels_last conv weight, a bias of 7, a tensor
+    of several kernel chunks with a ragged tail, a linear weight, and the
+    last one frozen while freezing) and each update's gradients, drawn
+    with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        x = x.to(dev)
+        return (x.contiguous(memory_format=torch.channels_last)
+                if len(shape) == 4 else x)
+
+    return ([draw(s) for s in ADAM_SHAPES],
+            [[draw(s) for s in ADAM_SHAPES] for _ in range(updates)])
+
+
+def _adam_close(got, want, what):
+    torch.testing.assert_close(
+        got, want, rtol=ADAM_RTOL,
+        atol=ADAM_ATOL * max(float(want.abs().max()), 1e-30), msg=what)
+
+
+def _torch_adam(dev, params0, grads, ema, frozen_steps):
+    """torch's capturable foreach Adam (the port's update before the
+    kernel), the frozen gradient zeroed while freezing, then the EMA's
+    card form (state.blend_ema with a device decay)."""
+    from neural_human_video_rendering_tpu_torch.train.state import blend_ema
+    from neural_human_video_rendering_tpu_torch.train.steps import ema_decay
+    ps = [torch.nn.Parameter(p.clone()) for p in params0]
+    opt = torch.optim.Adam(ps, lr=torch.full((), ADAM_LR, device=dev),
+                           betas=ADAM_BETAS, eps=1e-8, capturable=True,
+                           foreach=True)
+    es = [p.detach().clone() for p in ps] if ema else None
+    for k, gk in enumerate(grads):
+        for p, g in zip(ps, gk):
+            p.grad = g.clone()
+        if k < frozen_steps:
+            ps[-1].grad.zero_()
+        opt.step()
+        if ema:
+            blend_ema(list(zip(ps, es)),
+                      ema_decay(torch.tensor(k, device=dev), 0.999))
+    return ps, opt, es
+
+
+def _kernel_adam(dev, params0, frozen_steps):
+    from neural_human_video_rendering_tpu_torch.train.state import \
+        ScheduledAdam
+    ps = [torch.nn.Parameter(p.clone()) for p in params0]
+    opt = ScheduledAdam(ps, ADAM_LR, ADAM_BETAS, lambda t: 1.0,
+                        frozen=[ps[-1]], frozen_steps=frozen_steps)
+    return ps, opt
+
+
+@pytest.mark.parametrize("ema", [True, False])
+def test_adam_kernel_matches_torch_adam_and_the_ema(cuda, ema):
+    """ScheduledAdam.update on the card (one kernel pass, the EMA folded
+    in when handed one) against torch's capturable foreach Adam followed
+    by the EMA's card form over 5 updates, the last parameter frozen for
+    the first 3: p, m, v and the EMA within ADAM_RTOL / ADAM_ATOL, the
+    frozen parameter and its moments bit-equal while frozen; torch Adam's
+    state (step, exp_avg, exp_avg_sq in the parameters' layout); one
+    launch an update."""
+    from neural_human_video_rendering_tpu_torch.train.steps import ema_decay
+    params0, grads = _adam_case(cuda)
+    want_p, want_opt, want_e = _torch_adam(cuda, params0, grads, ema, 3)
+    ps, opt = _kernel_adam(cuda, params0, 3)
+    es = [p.detach().clone() for p in ps] if ema else None
+    ak.reset_launch_counts()
+    for k, gk in enumerate(grads):
+        for p, g in zip(ps, gk):
+            p.grad = g.clone()
+        opt.prepare()
+        opt.update((list(zip(ps, es)),
+                    ema_decay(torch.tensor(k, device=cuda), 0.999))
+                   if ema else None)
+        opt.advance()
+        if k == 2:
+            torch.cuda.synchronize()
+            assert torch.equal(ps[-1], params0[-1])
+            assert not opt.state[ps[-1]]["exp_avg"].any()
+        assert ak.adam_ema.launches == k + 1
+    torch.cuda.synchronize()
+    for i, (p, w) in enumerate(zip(ps, want_p)):
+        _adam_close(p.detach(), w.detach(), f"p{i}")
+        st, wst = opt.state[p], want_opt.state[w]
+        assert sorted(st) == ["exp_avg", "exp_avg_sq", "step"]
+        assert st["step"].dtype == torch.float32 and float(st["step"]) == 5
+        assert st["exp_avg"].stride() == st["exp_avg_sq"].stride() \
+            == p.stride()
+        _adam_close(st["exp_avg"], wst["exp_avg"], f"m{i}")
+        _adam_close(st["exp_avg_sq"], wst["exp_avg_sq"], f"v{i}")
+        if ema:
+            _adam_close(es[i], want_e[i], f"e{i}")
+
+
+@pytest.mark.parametrize("ema", [True, False])
+def test_adam_kernel_in_a_cuda_graph_matches_its_eager_calls(cuda, ema):
+    """The update (the EMA's decay from a device step counter, the frozen
+    gradient zeroed) captured once in a CUDA graph after a first eager
+    update, its 4 replays fed the next gradients through static buffers:
+    bit for bit the same 5 eager updates, and within ADAM_RTOL /
+    ADAM_ATOL of torch's foreach Adam and the EMA."""
+    from neural_human_video_rendering_tpu_torch.train.steps import ema_decay
+    params0, grads = _adam_case(cuda, seed=1)
+    want_p, want_opt, want_e = _torch_adam(cuda, params0, grads, ema, 10)
+    runs = {}
+    for route in ("eager", "graph"):
+        ps, opt = _kernel_adam(cuda, params0, 10)
+        es = [p.detach().clone() for p in ps] if ema else None
+        step_t = torch.zeros((), dtype=torch.int64, device=cuda)
+        static = [g.clone() for g in grads[0]]
+        for p, g in zip(ps, static):
+            p.grad = g
+
+        def update():
+            opt.update((list(zip(ps, es)), ema_decay(step_t, 0.999))
+                       if ema else None)
+            step_t.add_(1)
+
+        opt.prepare()
+        update()
+        opt.advance()
+        graph = None
+        if route == "graph":
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                update()
+        for gk in grads[1:]:
+            for s, g in zip(static, gk):
+                s.copy_(g)
+            if graph is not None:
+                graph.replay()
+            else:
+                opt.prepare()
+                update()
+                opt.advance()
+        torch.cuda.synchronize()
+        runs[route] = (ps, opt, es)
+    (ep, eopt, ee), (gp, gopt, ge) = runs["eager"], runs["graph"]
+    for i in range(len(ADAM_SHAPES)):
+        assert torch.equal(gp[i], ep[i]), i
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(gopt.state[gp[i]][key],
+                               eopt.state[ep[i]][key]), (i, key)
+        if ema:
+            assert torch.equal(ge[i], ee[i]), i
+            _adam_close(ge[i], want_e[i], f"e{i}")
+        _adam_close(gp[i].detach(), want_p[i].detach(), f"p{i}")
+        _adam_close(gopt.state[gp[i]]["exp_avg_sq"],
+                    want_opt.state[want_p[i]]["exp_avg_sq"], f"v{i}")
+
+
+def test_adam_kernel_refuses_what_it_does_not_take(cuda):
+    """adam_ema on CUDA tensors raises, with no fallback, on: a gradient
+    whose strides are not its parameter's (NCHW against channels_last), a
+    float64 or bfloat16 moment, a learning rate that is a host number, a
+    parameter 4 bytes off 16-byte alignment, strided (not dense) tensors,
+    an EMA without its decay; it launches nothing then."""
+    dev = cuda
+    p = torch.randn((8, 4, 3, 3), device=dev).contiguous(
+        memory_format=torch.channels_last)
+
+    def args(**kw):
+        a = dict(params=[p], grads=[torch.randn_like(p)],
+                 exp_avgs=[torch.zeros_like(p)],
+                 exp_avg_sqs=[torch.zeros_like(p)],
+                 steps=[torch.zeros((), device=dev)],
+                 lr=torch.full((), 1e-3, device=dev), beta1=0.5,
+                 beta2=0.999, eps=1e-8)
+        a.update(kw)
+        return a
+
+    base = torch.zeros(101, device=dev)
+
+    def every_other():
+        return torch.zeros(200, device=dev)[::2]
+
+    bad = {
+        "strides": args(grads=[torch.randn(p.shape, device=dev)]),
+        "float64": args(exp_avgs=[torch.zeros_like(p, dtype=torch.float64)]),
+        "bfloat16": args(exp_avg_sqs=[torch.zeros_like(
+            p, dtype=torch.bfloat16)]),
+        "host lr": args(lr=1e-3),
+        "alignment": args(params=[base[1:]], grads=[torch.zeros(100,
+                                                                device=dev)],
+                          exp_avgs=[torch.zeros(100, device=dev)],
+                          exp_avg_sqs=[torch.zeros(100, device=dev)]),
+        "not dense": args(params=[every_other()], grads=[every_other()],
+                          exp_avgs=[every_other()],
+                          exp_avg_sqs=[every_other()]),
+        "ema without decay": args(ema=[p.clone()]),
+    }
+    ak.reset_launch_counts()
+    for what, a in bad.items():
+        with pytest.raises(ValueError):
+            ak.adam_ema(**a)
+            pytest.fail(what)
+    assert ak.adam_ema.launches == 0
+    ak.adam_ema(**args())
+    torch.cuda.synchronize()
+    assert ak.adam_ema.launches == 1

@@ -5,7 +5,8 @@ forward, on the CPU.
 The CPU has no CUDA graphs, so these tests hold what a capture is built
 from:
   * the EMA's decay read from the device step counter is bit-equal to the
-    numpy float32 rule of ``ema_blend`` (and of the JAX package);
+    numpy float32 rule of ``ema_decay`` (and of the JAX package's
+    ``ema_blend``);
   * the restructured step (the device counter, the learning rate set
     before the update, the pool's draws taken before the device work)
     still matches the JAX step one step after a step count of 7, eagerly
@@ -154,8 +155,10 @@ def test_ema_blend_with_the_device_counter_matches_the_python_step():
     for step in (0, 7, 5000):
         a = {k: v.clone() for k, v in base.items()}
         b = {k: v.clone() for k, v in base.items()}
-        tsteps.ema_blend(a, lin, step, 0.999)
-        tsteps.ema_blend(b, lin, torch.tensor(step), 0.999)
+        tstate.blend_ema([(p, a[k]) for k, p in lin.named_parameters()],
+                         tsteps.ema_decay(step, 0.999))
+        tstate.blend_ema([(p, b[k]) for k, p in lin.named_parameters()],
+                         tsteps.ema_decay(torch.tensor(step), 0.999))
         for k in a:
             assert torch.equal(b[k], a[k]), k
 

@@ -265,7 +265,7 @@ def test_bench_serve_ladder_on_the_cpu(tmp_path):
     assert result["n_requests"] == 2 and list(result["ladder"]) == ["1", "2"]
     assert all(v > 0 for v in result["ladder"].values())
     assert server["rc"] == 0
-    assert server["launches"] == {k: 0 for k in chip_smoke.REPLACES}
+    assert server["launches"] == {k: 0 for k in chip_smoke.train_launches()}
 
 
 def test_bench_trained_regime_windows(monkeypatch, capsys):

@@ -47,7 +47,7 @@ from neural_human_video_rendering_tpu_torch.models.bridge import params_from_jax
 from neural_human_video_rendering_tpu_torch.train import state as tstate
 from neural_human_video_rendering_tpu_torch.train.drivers import run_train
 from neural_human_video_rendering_tpu_torch.train.steps import (
-    ema_blend, make_train_step)
+    ema_decay, make_train_step)
 
 LOSS_RTOL = 1e-5
 
@@ -159,7 +159,8 @@ def test_ema_blend_matches_jax():
     for step in (0, 7, 5000):
         ref = jsteps.ema_blend(ref_in, params, jnp.int32(step), 0.999)
         got = {k: v.clone() for k, v in ema.items()}
-        ema_blend(got, lin, step, 0.999)
+        tstate.blend_ema([(p, got[k]) for k, p in lin.named_parameters()],
+                         ema_decay(step, 0.999))
         for k in ref:
             np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
                                        rtol=1e-6, atol=1e-7)
