@@ -67,7 +67,8 @@ def warp_bounds(cfg, kind: str, B: int):
 
 def model_flops(cfg, kind: str, B: int) -> float:
     """Convolution and matrix operations of one train step (forward and
-    backward of G, D and VGG) or of one rendered batch, counted by
+    backward of G, D and VGG; under the feature flags G's encoder E and
+    the pooling's products with it) or of one rendered batch, counted by
     ``FlopCounterMode`` over the reference on the meta device."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode

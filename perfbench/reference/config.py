@@ -4,7 +4,11 @@ Every flag below must be in the configuration file: the reference keeps
 no defaults of its own, so it cannot drift from what the program is told.
 A key that is neither a flag the reference implements nor one of
 ``PROGRAM_ONLY`` is refused: a configuration the reference would quietly
-build otherwise than the program is no yardstick.
+build otherwise than the program is no yardstick. The one exception is
+pix2pixHD's encoder E: ``FEAT_SWITCHES`` may be left out, which means
+no encoder, as the program's own options default to; where either is
+true, ``FEAT_FLAGS`` are required. E's cluster codes (``load_features``,
+``cluster_idx``) are not implemented, and so refused.
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ FLAGS = (
 
 # required as well where netG is "local" (pix2pixHD's LocalEnhancer)
 LOCAL_FLAGS = ("n_local_enhancers", "n_blocks_local", "niter_fix_global")
+
+# pix2pixHD's encoder E (feat.py): either switch builds it; absent, false
+FEAT_SWITCHES = ("instance_feat", "label_feat")
+# required as well where a switch is true
+FEAT_FLAGS = ("feat_num", "nef", "n_downsample_E")
 
 # what the reference implements, beside the numbers above
 SUPPORTED = {"pad_mode": ("same", "reflect"), "n_joints": (18,),
@@ -47,11 +56,14 @@ PROGRAM_ONLY = (
 
 
 def reference_config(flags: dict) -> SimpleNamespace:
-    required = FLAGS + (LOCAL_FLAGS if flags.get("netG") == "local" else ())
+    use_feat = any(bool(flags.get(k, False)) for k in FEAT_SWITCHES)
+    required = (FLAGS + (LOCAL_FLAGS if flags.get("netG") == "local" else ())
+                + (FEAT_FLAGS if use_feat else ()))
     missing = [k for k in required if k not in flags]
     if missing:
         raise ValueError(f"configuration lacks {missing}")
-    unknown = sorted(set(flags) - set(FLAGS + LOCAL_FLAGS + PROGRAM_ONLY))
+    known = FLAGS + LOCAL_FLAGS + FEAT_SWITCHES + FEAT_FLAGS + PROGRAM_ONLY
+    unknown = sorted(set(flags) - set(known))
     if unknown:
         raise ValueError(f"the reference does not implement {unknown}")
     for k, ok in SUPPORTED.items():
@@ -59,6 +71,7 @@ def reference_config(flags: dict) -> SimpleNamespace:
             raise ValueError(f"the reference implements {k} in {ok}, not "
                              f"{flags[k]!r}")
     cfg = SimpleNamespace(**{k: flags[k] for k in required})
+    cfg.use_feat = use_feat
     cfg.size = cfg.loadSize
     cfg.pose_nc = (3 + (cfg.n_joints if cfg.pose_heatmaps else 0)
                    + (2 if cfg.coord_conv else 0))

@@ -4,7 +4,8 @@ PyTorch, float32, NCHW.
 A frozen copy of the port's model arithmetic for the configurations the
 benchmark runs (the global generator or, under netG "local", pix2pixHD's
 LocalEnhancer of ``local.py``; pose render plus heatmaps and coord conv,
-s2d stems and heads, no feature encoder, no UV refinement, no deep
+s2d stems and heads; under instance_feat or label_feat pix2pixHD's
+feature encoder E of ``feat.py``; no UV refinement, no deep
 supervision). Module names follow the port's, so one state_dict
 loads into either. Every convolution takes its operands through
 ``Conv.operand``, and every activation the program keeps in its compute
@@ -291,27 +292,50 @@ class BGNet(nn.Module):
 
 class Renderer(nn.Module):
     """pose -> IUV -> warped texture -> composite over the refined
-    background."""
+    background. Under cfg.use_feat TexG also takes feat_num channels of
+    appearance codes: with a real frame (``feat_image``), E's features
+    averaged over each pixel's most probable part; without one, zeros.
+    Without E a frame is not used."""
 
     def __init__(self, cfg):
         super().__init__()
         P = cfg.n_parts
+        self.feat_num = cfg.feat_num if cfg.use_feat else 0
         self.TransG = TransG(cfg, cfg.pose_nc, P, cfg.ngf,
                              cfg.n_downsample_translate,
                              cfg.n_blocks_translate)
-        self.TexG = TexG(cfg, cfg.pose_nc, P, cfg.tex_tile, cfg.ngf_global,
-                         cfg.n_downsample_global, cfg.n_blocks_global)
+        self.TexG = TexG(cfg, cfg.pose_nc + self.feat_num, P, cfg.tex_tile,
+                         cfg.ngf_global, cfg.n_downsample_global,
+                         cfg.n_blocks_global)
         self.BGNet = BGNet(cfg.n_downsample_bg, cfg.n_blocks_bg, cfg.bg_s2d,
                            cfg.pad_mode)
+        if cfg.use_feat:
+            from .feat import FeatEncoder   # feat.py builds on this module
+            self.FeatE = FeatEncoder(cfg.feat_num, cfg.nef,
+                                     cfg.n_downsample_E, cfg.pad_mode)
         self.warp = dict(k=cfg.warp_topk, eps=cfg.warp_eps,
                          bf16_texture=cfg.warp_dtype == "bfloat16")
 
+    def codes(self, probs: torch.Tensor,
+              feat_image: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, feat_num, H, W) appearance codes for TexG."""
+        from .feat import part_pool, regions
+        B, _, H, W = probs.shape
+        if feat_image is None:
+            return probs.new_zeros((B, self.feat_num, H, W))
+        return part_pool(self.FeatE(feat_image), regions(probs))
+
     def forward(self, pose: torch.Tensor, bg: torch.Tensor,
-                static_tex: torch.Tensor) -> Dict[str, torch.Tensor]:
+                static_tex: torch.Tensor,
+                feat_image: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
         B = pose.shape[0]
         logits, uv = self.TransG(pose)
         probs = torch.softmax(logits, dim=1)
-        texture = torch.clamp(static_tex + self.TexG(pose), -1.0, 1.0)
+        texg_in = pose
+        if self.feat_num:
+            texg_in = torch.cat([pose, self.codes(probs, feat_image)], dim=1)
+        texture = torch.clamp(static_tex + self.TexG(texg_in), -1.0, 1.0)
         fg = texture_warp(texture, uv, probs, **self.warp)
         bg_refined = self.BGNet(bg)
         mask = 1.0 - probs[:, :1]

@@ -3,9 +3,11 @@ float32: a frozen copy of the port's step semantics.
 
 One step: the wire batch dequantised, the pose input, frame t rendered
 with gradient (and, under temporal_prev fake, frame t-1 rendered again
-without it), D frozen for G's loss (GAN, feature matching against D's
-detached real features, VGG, L2, DensePose UV and part cross-entropy, the
-mask L1, the flow-warped temporal L1), G's backward; then D's loss on the
+without it), each render handed its real frame, t or t-1, for G's
+encoder E where the configuration has one (E's parameters are G's), D
+frozen for G's loss (GAN, feature matching against D's detached real
+features, VGG, L2, DensePose UV and part cross-entropy, the mask L1, the
+flow-warped temporal L1), G's backward; then D's loss on the
 detached fake with D's old parameters and its backward; Adam on both
 (optax's form: eps added to the bias-corrected sqrt(v)); then the EMA of
 G with the step count before the increment.
@@ -111,13 +113,14 @@ def train_losses(cfg, G, D, vgg, static_tex, bg, b):
     prev_fake = None
     if temporal and not real_prev:
         with torch.no_grad():
-            prev_fake = G(pose_input(cfg, b["joints_prev"]), bg, tex)["fake"]
+            prev_fake = G(pose_input(cfg, b["joints_prev"]), bg, tex,
+                          feat_image=b.get("image_prev", real))["fake"]
     elif real_prev:
         prev_fake = b["image_prev"]
     for p in (*G.parameters(), *D.parameters()):
         p.grad = None
     D.requires_grad_(False)
-    cur = G(pose, bg, tex)
+    cur = G(pose, bg, tex, feat_image=real)
     fake = cur["fake"]
     d_fake = D(torch.cat([pose, fake], dim=1))
     losses = {"G_GAN": _mse_to(d_fake, 1.0)}
