@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (ConvNormRelu, ResnetBlock, Upsample, depth_to_space,
-                     conv_input, nchw_float, space_to_depth)
+from .layers import (ConvNormRelu, InstanceNorm, ResnetBlock, Upsample,
+                     conv_input, depth_to_space, nchw_float,
+                     space_to_depth)
 
 
 class GlobalGenerator(nn.Module):
@@ -398,6 +399,11 @@ class FeatEncoder(nn.Module):
         setattr(self, f"ConvNormRelu_{n_downsampling + 1}", ConvNormRelu(
             nef, feat_num, 7, use_norm=False, use_relu=False,
             pad_mode=pad_mode))
+        # 2**n_downsampling-fold downsampling leaves few pixels a channel
+        # on small frames: the variance in two passes (InstanceNorm)
+        for m in self.modules():
+            if isinstance(m, InstanceNorm):
+                m.centered = True
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = conv_input(img, self.dtype)

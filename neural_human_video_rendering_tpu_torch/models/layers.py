@@ -153,12 +153,16 @@ def _sum_rows(t: torch.Tensor) -> torch.Tensor:
     return s if k == 1 else s.view(B, k, C).sum(1, keepdim=True)
 
 
-def _nhwc_norm(x: torch.Tensor, eps: float):
+def _nhwc_norm(x: torch.Tensor, eps: float, centered: bool = False):
     """InstanceNorm's formula on the rows of x -> (y channels_last in x's
-    dtype, the float32 rows X, mean, rsqrt(var + eps), E[x^2] - mean^2)."""
+    dtype, the float32 rows X, mean, rsqrt(var + eps), E[x^2] - mean^2).
+    ``centered``: X the rows less their mean and mean 0, so the variance
+    is the centered rows' E[x^2] (and the backward's sums theirs)."""
     X = _rows(x.float())
     n = X.shape[1]
     mean = _sum_rows(X) / n
+    if centered:
+        X, mean = X - mean, torch.zeros_like(mean)
     d = _sum_rows(X * X) / n - mean * mean
     r = torch.rsqrt(torch.clamp(d, min=0.0) + eps)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device,
@@ -173,8 +177,8 @@ class _NHWCNorm(torch.autograd.Function):
     the formula sums along the strided axis)."""
 
     @staticmethod
-    def forward(ctx, x, eps):
-        y, X, mean, r, d = _nhwc_norm(x, eps)
+    def forward(ctx, x, eps, centered):
+        y, X, mean, r, d = _nhwc_norm(x, eps, centered)
         ctx.save_for_backward(X, mean, r, d)
         ctx.shape, ctx.dtype = x.shape, x.dtype
         return y
@@ -194,7 +198,7 @@ class _NHWCNorm(torch.autograd.Function):
         out = torch.empty(ctx.shape, dtype=ctx.dtype, device=gx.device,
                           memory_format=NHWC)
         _rows(out).copy_(gx)
-        return out, None
+        return out, None, None
 
 
 class InstanceNorm(nn.Module):
@@ -202,19 +206,29 @@ class InstanceNorm(nn.Module):
     Statistics in float32 in one pass (E[x], E[x^2], variance clamped at
     0), output in the input's dtype. In the NHWC layout the same formula
     runs over the rows of x, its sums and its gradient's as _sum_rows
-    (``_NHWCNorm``); in NCHW as autograd takes it."""
+    (``_NHWCNorm``); in NCHW as autograd takes it.
 
-    def __init__(self, eps: float = 1e-5):
+    ``centered`` takes the variance in two passes instead, as the mean of
+    the squared deviations: E[x^2] - mean^2 cancels where a channel's
+    mean dwarfs its spread over few pixels, as at the 2x2 bottom of
+    pix2pixHD's encoder E on small frames (``FeatEncoder`` sets it)."""
+
+    def __init__(self, eps: float = 1e-5, centered: bool = False):
         super().__init__()
         self.eps = eps
+        self.centered = centered
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if layout(x) == NHWC:
             if torch.is_grad_enabled() and x.requires_grad:
-                return _NHWCNorm.apply(x, self.eps)
-            return _nhwc_norm(x, self.eps)[0]
+                return _NHWCNorm.apply(x, self.eps, self.centered)
+            return _nhwc_norm(x, self.eps, self.centered)[0]
         xf = x.float()
         mean = xf.mean(dim=(2, 3), keepdim=True)
+        if self.centered:
+            xf = xf - mean
+            var = (xf * xf).mean(dim=(2, 3), keepdim=True)
+            return (xf * torch.rsqrt(var + self.eps)).to(x.dtype)
         sqmean = (xf * xf).mean(dim=(2, 3), keepdim=True)
         var = torch.clamp(sqmean - mean * mean, min=0.0)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)

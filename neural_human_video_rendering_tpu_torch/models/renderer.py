@@ -10,19 +10,32 @@ of the JAX package: --netG local (TransG and TexG as LocalEnhancers),
 it) and the per-sample mirrored background of flip augmentation
 (``bg_flip``). Parameters live under the ``TransG`` / ``TexG`` /
 ``BGNet`` / ``FeatE`` namespaces, as in the JAX package. Tensors are
-NCHW.
+NCHW. ``feat_counts`` counts the renderer calls under the feature flags
+and those that encoded a real frame through E and pooled it: E's
+engagement (``train/graphs.py`` prints it for each capture).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.texture_warp import texture_warp_planes
 from .generators import BGNet, FeatEncoder, TexG, TransG, part_pool
+
+# renderer calls under the feature flags, and those of them whose codes E
+# encoded from a real frame, as Python runs them (eagerly, or once while a
+# program is captured: a replay runs no Python)
+_FEAT = {"calls": 0, "encoded": 0}
+
+
+def feat_counts() -> Tuple[int, int]:
+    """(calls that encoded a real frame through E and pooled it, calls
+    under the feature flags) of every renderer so far in this process."""
+    return _FEAT["encoded"], _FEAT["calls"]
 
 
 class NeuralRenderer(nn.Module):
@@ -72,7 +85,8 @@ class NeuralRenderer(nn.Module):
                 tex_mask: Optional[torch.Tensor] = None,
                 feat_image: Optional[torch.Tensor] = None,
                 cluster_feats: Optional[torch.Tensor] = None,
-                bg_flip: Optional[torch.Tensor] = None
+                bg_flip: Optional[torch.Tensor] = None,
+                feat_mark: Optional[Callable[[str], None]] = None
                 ) -> Dict[str, object]:
         """Render one batch of frames.
 
@@ -92,7 +106,10 @@ class NeuralRenderer(nn.Module):
         bg_flip: optional (B,) float flags of flip augmentation: a sample
         with flag 1 composites against the refined background mirrored
         along the width (a per-sample blend, so the batch-1 background
-        still runs BGNet once).
+        still runs BGNet once). feat_mark: optional, called with
+        "feat.begin" before E encodes feat_image, "feat.encoded" after
+        E's forward and "feat.end" after the pooling (the stage-2 step's
+        device marks).
 
         Returns float32 NCHW tensors: fake, fg, mask (B, 1, H, W), probs
         (B, P+1, H, W), logits, uv (B, P, 2, H, W), texture
@@ -104,8 +121,8 @@ class NeuralRenderer(nn.Module):
         probs = torch.softmax(logits.float(), dim=1)
         texg_in = pose
         if self.use_feat:
-            texg_in = torch.cat([pose, self._codes(probs, feat_image,
-                                                   cluster_feats)], dim=1)
+            texg_in = torch.cat([pose, self._codes(
+                probs, feat_image, cluster_feats, feat_mark)], dim=1)
         residual = self.TexG(texg_in)
         if self.use_mask_texture and tex_mask is not None:
             residual = residual * tex_mask
@@ -127,18 +144,34 @@ class NeuralRenderer(nn.Module):
             out["ms_aux"] = ms_aux[0]
         return out
 
-    def _codes(self, probs: torch.Tensor, feat_image, cluster_feats
-               ) -> torch.Tensor:
+    def _codes(self, probs: torch.Tensor, feat_image, cluster_feats,
+               mark: Optional[Callable[[str], None]]) -> torch.Tensor:
         """(B, feat_num, H, W) float32 appearance codes for TexG."""
         B, C, H, W = probs.shape
-        if feat_image is None and cluster_feats is None:
-            return probs.new_zeros((B, self.feat_num, H, W))
-        onehot = torch.zeros_like(probs).scatter_(
-            1, probs.detach().argmax(1, keepdim=True), 1.0)
+        _FEAT["calls"] += 1
         if feat_image is not None:
-            return part_pool(self.FeatE(feat_image), onehot)
-        codes = cluster_feats.to(device=probs.device, dtype=torch.float32)
-        return torch.einsum("bchw,cf->bfhw", onehot, codes)
+            _FEAT["encoded"] += 1
+            mark = mark or _no_mark
+            mark("feat.begin")
+            fmap = self.FeatE(feat_image)
+            mark("feat.encoded")
+            codes = part_pool(fmap, _onehot(probs))
+            mark("feat.end")
+            return codes
+        if cluster_feats is not None:
+            codes = cluster_feats.to(device=probs.device, dtype=torch.float32)
+            return torch.einsum("bchw,cf->bfhw", _onehot(probs), codes)
+        return probs.new_zeros((B, self.feat_num, H, W))
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def _onehot(probs: torch.Tensor) -> torch.Tensor:
+    """The one-hot of each pixel's most probable part, without gradient."""
+    return torch.zeros_like(probs).scatter_(
+        1, probs.detach().argmax(1, keepdim=True), 1.0)
 
 
 def renderer_from_options(opt) -> NeuralRenderer:

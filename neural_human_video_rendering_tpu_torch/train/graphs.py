@@ -89,6 +89,7 @@ from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
 import torch
 
 from ..models.layers import conv_counts
+from ..models.renderer import feat_counts
 from ..ops import adam_ema_kernel as ak
 from ..ops import flow_warp_kernel as fk
 from ..ops import texture_warp_kernel as tk
@@ -108,6 +109,12 @@ def kernel_counters() -> list:
                 tk.texture_warp_bwd, fk.flow_warp_fwd, ak.adam_ema]
     return [(w, a) for w in wrappers for a in sorted(vars(w))
             if a.startswith("launches")]
+
+
+def _engaged() -> tuple:
+    """The engagement counters a capture line prints, as one tuple:
+    conv_counts, adam_counts, feat_counts."""
+    return conv_counts() + adam_counts() + feat_counts()
 
 
 def _counts() -> list:
@@ -338,18 +345,22 @@ def capture_line(name: str, stand_in: bool, n: int, batch: Optional[int],
                  segments: int, seconds: float,
                  mem: Dict[str, Optional[int]],
                  convs: Tuple[int, int] = (0, 0),
-                 adam: Tuple[int, int] = (0, 0)) -> str:
+                 adam: Tuple[int, int] = (0, 0),
+                 feat: Tuple[int, int] = (0, 0)) -> str:
     """The line a capture prints: ``[name] graphed (CUDA graph, capture n:
-    batch B, k segments, s s, nhwc a/c, adam a/c, num_ooms m, peak reserved
-    g GB)``, ``nhwc a/c`` where the capture ran c convs, a of them on NHWC
-    operands (``models/layers.conv_counts``), ``adam a/c`` where its
-    updates offered c optimizer parameter tensors, a of them updated by
-    the one-pass kernel (``state.adam_counts``); a stand-in's has no
-    allocator record."""
+    batch B, k segments, s s, nhwc a/c, adam a/c, feat a/c, num_ooms m,
+    peak reserved g GB)``, ``nhwc a/c`` where the capture ran c convs, a
+    of them on NHWC operands (``models/layers.conv_counts``), ``adam a/c``
+    where its updates offered c optimizer parameter tensors, a of them
+    updated by the one-pass kernel (``state.adam_counts``), ``feat a/c``
+    where it ran c renderer calls under the feature flags, a of them
+    encoding a real frame through E (``models/renderer.feat_counts``); a
+    stand-in's has no allocator record."""
     kind = "stand-in" if stand_in else "CUDA graph"
     head = f"batch {batch}, " if batch is not None else ""
     layout = f", nhwc {convs[0]}/{convs[1]}" if convs[1] else ""
     layout += f", adam {adam[0]}/{adam[1]}" if adam[1] else ""
+    layout += f", feat {feat[0]}/{feat[1]}" if feat[1] else ""
     alloc = ""
     if "num_ooms" in mem:
         alloc = (f", num_ooms {mem['num_ooms']}, peak reserved "
@@ -499,7 +510,9 @@ class Program:
     found their input and weight NHWC, and all its conv calls
     (``models/layers.conv_counts``; the capture line prints them);
     ``adam`` the optimizer parameter tensors its updates offered and those
-    the one-pass kernel updated (``state.adam_counts``). With
+    the one-pass kernel updated (``state.adam_counts``); ``feat`` the
+    renderer calls under the feature flags and those that encoded a real
+    frame through E and pooled it (``models/renderer.feat_counts``). With
     ``marks`` set (the stage-2 step's program), the device marks
     ``name.replay.begin`` and ``name.replay.end`` lie on the card's
     stream before the replay and after its last graph; a stand-in records
@@ -519,6 +532,7 @@ class Program:
         self.capture_s: List[float] = []
         self.convs: List[Tuple[int, int]] = []
         self.adam: List[Tuple[int, int]] = []
+        self.feat: List[Tuple[int, int]] = []
         self.warmup_launches: Dict[str, int] = {}
         # each capture's allocator record (the module docstring); empty
         # dicts for a stand-in
@@ -613,7 +627,7 @@ class Program:
                 with refuse_caught_ooms(self.name, self.device,
                                         f"capture {n}", mem):
                     try:
-                        engaged = conv_counts() + adam_counts()
+                        engaged = _engaged()
                         if self.stand_in:  # it runs the closure: no trace
                             _preserving(state,
                                         lambda: cap.run(closure, stream))
@@ -622,7 +636,7 @@ class Program:
                             mem["pool_bytes"] = _pool_bytes(self.device,
                                                             cap.pool)
                         engaged = tuple(b - a for a, b in zip(
-                            engaged, conv_counts() + adam_counts()))
+                            engaged, _engaged()))
                     except Exception as e:
                         raise RuntimeError(
                             f"[{self.name}] CUDA graph capture failed at "
@@ -643,9 +657,10 @@ class Program:
             _set_counts(counts)
         self.captures += 1
         self.capture_s.append(sp.seconds)
-        convs, adam = engaged[:2], engaged[2:]
+        convs, adam, feat = engaged[:2], engaged[2:4], engaged[4:]
         self.convs.append(convs)
         self.adam.append(adam)
+        self.feat.append(feat)
         if cuda:
             end = _allocator(self.device)
             note("after_capture")
@@ -656,7 +671,7 @@ class Program:
         print(capture_line(self.name, self.stand_in, self.captures,
                            None if lead is None else lead.shape[0],
                            cap.segments, self.capture_s[-1], mem, convs,
-                           adam),
+                           adam, feat),
               file=sys.stderr, flush=True)
         return _Entry(cap, static, outputs, launches, (closure, tuple(keep)))
 

@@ -259,7 +259,13 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     ``step.g_backward.end`` (after G's backward), which split the chain
     into the generator's forward, its losses and backward, and D's step
     with both updates (read by the benchmark's ``g_forward_ms.train``,
-    ``g_backward_ms.train`` and ``d_update_ms.train``). The eager route
+    ``g_backward_ms.train`` and ``d_update_ms.train``). Under the feature
+    flags the renderer's forward of frame t puts three more inside the
+    first: ``step.feat.begin`` (after TransG's softmax, before E),
+    ``step.feat.encoded`` (after E's forward) and ``step.feat.end``
+    (after the argmax and the per-part pooling), so a replay is a chain
+    of 6 graphs and E's forward and the pooling each lie between two
+    marks. The eager route
     (every call on the CPU, a call with ``mark`` on the card: the same
     code), the refusal of a caught out-of-memory error and the span
     ``step.prepare`` (the learning rates, the step counter, the pool's
@@ -275,6 +281,9 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
     symmetric = use_temporal and not detach_prev and not real_prev
     use_feat = opt.instance_feat or opt.label_feat
     dev = _module_device(renderer)
+
+    def feat_mark(name: str) -> None:
+        host_point(lambda: spans.device_mark("step." + name, dev))
 
     def prepare(state, batch) -> Dict[str, torch.Tensor]:
         """The device step counter and the pool's draws (returned as
@@ -332,6 +341,7 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
             if use_feat:
                 kw2["feat_image"] = torch.cat(
                     [real, batch.get("image_prev", real)], dim=0)
+                kw2["feat_mark"] = feat_mark
             if flip_kw:
                 kw2["bg_flip"] = torch.cat([batch["bg_flip"]] * 2, dim=0)
             bg2 = torch.cat([bg, bg], dim=0) if bg.shape[0] == B else bg
@@ -340,7 +350,8 @@ def make_train_step(opt, renderer, disc, vgg, g_opt, d_opt,
             cur = _slice_outs(outs, B)
             prev_fake = outs["fake"][B:]
         else:
-            kw1 = {"feat_image": real} if use_feat else {}
+            kw1 = ({"feat_image": real, "feat_mark": feat_mark} if use_feat
+                   else {})
             cur = renderer(pose, bg, tex, tex_mask, **kw1, **flip_kw)
         fake = cur["fake"]
         mark("g_forward")

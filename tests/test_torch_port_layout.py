@@ -171,6 +171,40 @@ def test_instance_norm_is_the_same_in_both_layouts(dtype):
                                atol=1e-5 if dtype == torch.float32 else 2e-2)
 
 
+@pytest.mark.parametrize("fmt", ["nchw", "nhwc"])
+def test_centered_instance_norm_holds_a_small_spread(fmt):
+    """Over 2x2 pixels whose mean is 300 times their spread, E[x^2] -
+    mean^2 loses the variance to float32 rounding; the centered norm
+    (E's, ``FeatEncoder``) gives float64's output and gradient."""
+    g = torch.Generator().manual_seed(5)
+    x = 30.0 + 0.1 * torch.randn(2, 8, 2, 2, generator=g)
+    gy = torch.randn(x.shape, generator=g)
+    xd = x.double().requires_grad_()
+    m = xd.mean(dim=(2, 3), keepdim=True)
+    v = ((xd - m) ** 2).mean(dim=(2, 3), keepdim=True)
+    want = (xd - m) * torch.rsqrt(v + 1e-5)
+    want.backward(gy.double())
+    errs = {}
+    for centered in (False, True):
+        xi = x.clone()
+        if fmt == "nhwc":
+            xi = xi.contiguous(memory_format=NHWC)
+        xi.requires_grad_()
+        y = layers.InstanceNorm(centered=centered)(xi)
+        y.backward(gy)
+        errs[centered] = (float((y.double() - want).abs().max()),
+                          float((xi.grad.double() - xd.grad).abs().max()
+                                / xd.grad.abs().max()))
+    # float32 holds x near 30 to ~2e-6, a fiftieth of the spread's
+    # thousandth: the centered norm keeps to that, E[x^2] - mean^2 not
+    assert errs[True][0] < 1e-4 and errs[True][1] < 1e-4, errs
+    assert errs[False][0] > 1e-2, errs
+    e = tg.FeatEncoder(3, 4, 2)
+    norms = [n for n in e.modules() if isinstance(n, layers.InstanceNorm)]
+    assert len(norms) == 1 + 2 * 2 and all(n.centered for n in norms)
+    assert not layers.InstanceNorm().centered
+
+
 def test_conv_weights_are_channels_last_from_construction():
     from neural_human_video_rendering_tpu_torch.models.renderer import (
         init_params, renderer_from_options)

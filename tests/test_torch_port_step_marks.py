@@ -1,22 +1,27 @@
 """PyTorch port, the stage-2 step's phase marks (``train/steps.py``), on the
 CPU: the host points that put the device marks ``step.g_forward.end`` and
-``step.g_backward.end`` on the card's stream.
+``step.g_backward.end`` on the card's stream, and under the feature flags
+(pix2pixHD's encoder E) ``step.feat.begin``, ``step.feat.encoded`` and
+``step.feat.end`` inside the renderer's forward before them.
 
 The step runs through ``graphs.StandIn`` (the CPU has no CUDA graphs), at
 a tiny size of each benchmark configuration, with the weights the
 benchmark draws. ``spans.device_mark`` records a CUDA event, so a recorder
-of the names it is given takes its place:
-  * the capture has exactly three segments, split by the two host points;
-  * the names come in the order ``step.g_forward.end``,
-    ``step.g_backward.end`` on each warm-up call, on the capture and on
-    each replay;
+of the names it is given takes its place. The marks a configuration
+expects follow from its flags (``expected``):
+  * the capture has exactly one segment more than host points: three
+    segments without E, six with it;
+  * the names come in the order of ``expected`` on each warm-up call, on
+    the capture and on each replay;
   * the step's metrics and the updated state are bit-equal with and
     without the host points;
+  * the capture counts E's engagement (``Program.feat``, the capture
+    line's ``feat a/c``): 1/1 with E, nothing without it;
   * the real ``device_mark`` records nothing for a CPU step, even while
     the recorder is on.
-On the card the marks split each replay into the three intervals that
-the benchmark's ``g_forward_ms.train``, ``g_backward_ms.train`` and
-``d_update_ms.train`` read.
+On the card the marks split each replay into the intervals that the
+benchmark's ``g_forward_ms.train``, ``g_backward_ms.train`` and
+``d_update_ms.train`` read, and under E its forward and the pooling.
 """
 
 import copy
@@ -41,6 +46,7 @@ from test_torch_port_local1024 import TINY
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 1021
 MARKS = ["step.g_forward.end", "step.g_backward.end"]
+FEAT_MARKS = ["step.feat.begin", "step.feat.encoded", "step.feat.end"]
 STEPS = 3
 
 
@@ -59,13 +65,31 @@ def _empty_recorder():
     spans.clear()
 
 
+def _flags(config: str) -> dict:
+    return copy.deepcopy(hb.configuration(hb.benchmark(), config)["flags"])
+
+
+def uses_e(config: str) -> bool:
+    flags = _flags(config)
+    return bool(flags.get("instance_feat") or flags.get("label_feat"))
+
+
+def expected(config: str) -> list:
+    """The device marks of one call of the configuration's step, in
+    order: E's three (the renderer's forward of frame t) where the flags
+    build E, then the two phase marks."""
+    return (FEAT_MARKS if uses_e(config) else []) + MARKS
+
+
 def _steps(config: str, calls=None):
     """A benchmark configuration at TINY through the port's stage-2 step:
     STEPS steps on the benchmark's batches, ``calls()`` read after each.
     Returns (metrics a step, the state's tensors, the reads, the
     program)."""
-    flags = copy.deepcopy(hb.configuration(hb.benchmark(), config)["flags"])
+    flags = _flags(config)
     flags.update(TINY, dtype="float32", no_vgg_loss=True)
+    if uses_e(config):       # E at a depth 32 px frames hold
+        flags.update(nef=4, n_downsample_E=2)
     cfg = reference_config(flags)
     run = Run("t", SEED, 0.0, False, flags, {}, {}, CPU, time.perf_counter())
     batches = data.train_batches(SEED, STEPS, cfg.batchSize, cfg.size, CPU)
@@ -87,6 +111,15 @@ def _steps(config: str, calls=None):
 CONFIGS = [c["name"] for c in hb.benchmark()["configs"]]
 
 
+def test_the_configurations_with_and_without_e():
+    """Both kinds of step stay covered: the committed configurations
+    without E, and ``local1024feat`` with it."""
+    assert {c: uses_e(c) for c in ("flagship512", "ref512", "local1024",
+                                   "local1024feat")} == {
+        "flagship512": False, "ref512": False, "local1024": False,
+        "local1024feat": True}
+
+
 @pytest.mark.parametrize("config", CONFIGS)
 def test_the_marks_split_the_capture_and_come_in_order(stand_in,
                                                        monkeypatch, config):
@@ -94,22 +127,24 @@ def test_the_marks_split_the_capture_and_come_in_order(stand_in,
     monkeypatch.setattr(spans, "device_mark",
                         lambda name, device=None: names.append(name))
     _, _, reads, prog = _steps(config, lambda: list(names))
+    marks = expected(config)
     entry, = prog.entries.values()
-    assert entry.capture.segments == 3
-    assert len(entry.capture.host_ops) == 2
+    assert entry.capture.segments == len(marks) + 1 == (
+        6 if uses_e(config) else 3)
+    assert len(entry.capture.host_ops) == len(marks)
     # the first call: the warm-up's calls, the capture, its replay; then
     # one replay a call
     calls = graphs.WARMUP + 2
-    assert reads[0] == MARKS * calls
+    assert reads[0] == marks * calls
     for i in range(1, STEPS):
-        assert reads[i] == MARKS * (calls + i)
+        assert reads[i] == marks * (calls + i)
 
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_the_host_points_change_no_bit(stand_in, monkeypatch, config):
     with_marks = _steps(config)
     entry, = with_marks[3].entries.values()
-    assert entry.capture.segments == 3
+    assert entry.capture.segments == len(expected(config)) + 1
     monkeypatch.setattr(tsteps, "host_point", lambda fn: None)
     without = _steps(config)
     entry, = without[3].entries.values()
@@ -129,3 +164,20 @@ def test_a_cpu_step_records_no_device_mark(stand_in):
         assert spans.tracing()
     assert list(spans._marks) == []
     assert spans.device_intervals(*MARKS) == []
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_the_capture_counts_e(stand_in, capsys, config):
+    """E encoded the real frame in the one renderer call of the capture
+    (temporal_prev real: no t-1 render), and the capture line says so;
+    a configuration without E counts nothing and prints no feat."""
+    _, _, _, prog = _steps(config)
+    err = capsys.readouterr().err
+    line, = [ln for ln in err.splitlines()
+             if ln.startswith("[step] graphed (stand-in, capture 1:")]
+    if uses_e(config):
+        assert prog.feat == [(1, 1)]
+        assert ", feat 1/1" in line
+    else:
+        assert prog.feat == [(0, 0)]
+        assert "feat" not in line
